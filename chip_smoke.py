@@ -1,0 +1,542 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+
+    python3 chip_smoke.py        # from the repository root, one card
+
+Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and runs
+three phases, each printing one JSON line:
+
+1. ``kernels`` — each kernel against its plain PyTorch version on the card,
+   in bf16 at the serving path's shapes, with the error, the kernel's time,
+   the plain version's time and, as a yardstick only, the time of PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (the port never
+   calls it);
+2. ``generate`` — ``decode.generate`` on ``LlamaConfig()`` at full width
+   and depth (the Llama-2-7B shape with 8 KV heads, random weights from a
+   seed), batch 8, greedy: (a) bf16 cache, prompt 1024, 64 new tokens,
+   preallocated 4096 slots; (b) int8 cache, prompt 2048, 32 new tokens,
+   tight cache. Both prefill through the flash-forward kernel and decode
+   through the decode kernel; the launch counts must show it. Prefill and
+   first-step logits are compared with the dense path;
+3. ``engine`` — ``BatchDecodeEngine`` with an int8 cache, 8 slots, 4096
+   cache slots, serving 16 requests of ragged lengths with slot reuse;
+   every step must go through the decode kernel, ragged or not.
+
+Then one JSON line with every kernel's numbers, the card's name and power
+limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``. Any
+mismatch, refused launch or fault exits non-zero. Without CUDA the script
+exits non-zero and prints no result.
+
+TF32 is switched off for matmuls and cuDNN, so f32 reference products on
+the card are full f32.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from dlrover_tpu_torch.models import decode, llama
+from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.serving.engine import BatchDecodeEngine
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the roofline for bound_ms
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+
+# Kernel vs plain version, both bf16 outputs compared in f32: the two round
+# their bf16 results separately (one bf16 ulp is 2^-8 relative), and the
+# kernel sums in another order and feeds its probabilities to the PV
+# product in bf16 (2^-9 relative each). So |err| <= ATOL + RTOL * |plain|.
+KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2e-2
+# lse is f32 on both sides from the same bf16 products: only the summation
+# order and exp/log rounding differ
+LSE_ATOL = 1e-3
+
+# Kernel path vs dense path of the whole 32-layer model, logits compared in
+# f32 relative to the reference's largest logit. Both paths are bf16; they
+# round attention probabilities at different points (the kernel before its
+# PV product in its own order, the dense attend after an f32 softmax), and
+# the int8 decode folds the scales in f32 where the dense path dequantizes
+# to bf16 first. Those differences pass through 32 residual layers.
+LOGITS_REL_TOL = 5e-2
+# Engine tokens held against a teacher-forced dense forward of the same
+# sequence (bf16 weights, exact bf16 k/v instead of the int8 cache): the
+# share of greedy tokens the forward's argmax reproduces.
+TEACHER_AGREE_MIN = 0.9
+
+SEED = 0
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def time_ms(fn, iters, device):
+    """Mean time of ``fn`` over ``iters`` calls after one warm-up call:
+    CUDA events on the card, the host clock elsewhere."""
+    fn()
+    _sync(device)
+    if device.type == "cuda":
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_profile(fn, iters, device):
+    """``fn`` run ``iters`` times under ``torch.profiler`` (device activity
+    only, so the host pays little for the tracing): wall time and device
+    kernel time per call, the device's idle share, and the kernels that
+    took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    act = (ProfilerActivity.CUDA if device.type == "cuda"
+           else ProfilerActivity.CPU)
+    _sync(device)
+    with profile(activities=[act]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        _sync(device)
+        wall_s = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(
+        steps=iters, wall_ms=wall_s * 1e3 / iters,
+        device_busy_ms=busy_s * 1e3 / iters, idle_share=1 - busy_s / wall_s,
+        top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3 / iters]
+                        for e in top],
+    )
+
+
+def bound_ms(nbytes, flops):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def _check_close(name, out, ref, atol, rtol):
+    err = (out.float() - ref.float()).abs()
+    lim = atol + rtol * ref.float().abs()
+    bad = int((err > lim).sum())
+    if bad or not torch.isfinite(out.float()).all():
+        raise AssertionError(
+            f"{name}: {bad} elements outside |err| <= {atol} + {rtol}*|ref| "
+            f"(max err {float(err.max()):.4g})")
+    return float(err.max())
+
+
+# ---------------------------------------------------------------------------
+# phase 1: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _fwd_case(gen, device, B, H, Sq, Sk, D, causal):
+    q, k, v = (torch.randn((B, H, s, D), generator=gen, device=device)
+               .to(torch.bfloat16) for s in (Sq, Sk, Sk))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal)
+    tag = f"flash_fwd B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal}"
+    err = _check_close(tag, o, o_ref, KERNEL_ATOL, KERNEL_RTOL)
+    _check_close(tag + " lse", lse, lse_ref, LSE_ATOL, 0.0)
+    return (q, k, v), err
+
+
+def _visible_pairs(Sq, Sk, causal):
+    if not causal:
+        return Sq * Sk
+    rows = torch.arange(Sq)
+    return int(torch.clamp(rows + 1, max=Sk).sum())
+
+
+def kernel_phase(device, fwd_shape, decode_shape, iters=10):
+    """Hold both kernels against their plain versions; returns the JSON
+    rows of the kernel table (without launches)."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    B, H, S, D = fwd_shape
+    cases = {}
+    (q, k, v), err = _fwd_case(gen, device, B, H, S, S, D, True)
+    extra = [  # ragged, cross (both causal alignments), head_dim 64
+        _fwd_case(gen, device, 2, 8, 1000, 1000, D, True)[1],
+        _fwd_case(gen, device, 2, 8, 300, 1000, 64, False)[1],
+        _fwd_case(gen, device, 2, 8, 1000, 300, 64, True)[1],
+    ]
+    nbytes = 4 * B * H * S * D * 2 + B * H * S * 4
+    flops = 4 * D * B * H * _visible_pairs(S, S, True)
+    bms, by = bound_ms(nbytes, flops)
+    cases["flash_fwd"] = dict(
+        shape=f"B{B} H{H} S{S} D{D} causal bf16", max_abs_err=err,
+        max_abs_err_other_cases=extra,
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                   iters, device),
+        plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True),
+                         max(1, iters // 3), device),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True), iters, device),
+    )
+    del q, k, v
+
+    B, KV, G, Dh, T = decode_shape
+    rng = np.random.default_rng(SEED)
+    pos_np = rng.integers(0, T, B)
+    pos_np[0], pos_np[-1] = 0, T - 1  # both ends of the cache
+    pos = torch.tensor(pos_np, dtype=torch.int32, device=device)
+    q = torch.randn((B, KV, G, Dh), generator=gen,
+                    device=device).to(torch.bfloat16)
+    kf = torch.randn((B, KV, T, Dh), generator=gen, device=device)
+    vf = torch.randn((B, KV, T, Dh), generator=gen, device=device)
+    visible = KV * int((pos_np + 1).sum())
+    for name, quant in (("flash_decode_bf16", False),
+                        ("flash_decode_int8", True)):
+        if quant:
+            k, ks = decode._quantize(kf)
+            v, vs = decode._quantize(vf)
+            per_vec = Dh + 4
+        else:
+            k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+            ks = vs = None
+            per_vec = 2 * Dh
+        out = fa.flash_decode_attention(q, k, v, pos, k_scale=ks,
+                                        v_scale=vs)
+        ref = fa.flash_decode_plain(q, k, v, pos, k_scale=ks, v_scale=vs)
+        err = _check_close(f"{name} B{B} KV{KV} G{G} Dh{Dh} T{T}", out, ref,
+                           KERNEL_ATOL, KERNEL_RTOL)
+        nbytes = 2 * visible * per_vec + 2 * q.numel() * 2 + B * 4
+        flops = 4 * G * Dh * visible
+        bms, by = bound_ms(nbytes, flops)
+        library_ms = None
+        if not quant:
+            mask = (torch.arange(T, device=device)[None, :]
+                    <= pos[:, None])[:, None, None, :]
+            qh = q.reshape(B, KV * G, 1, Dh)
+            library_ms = time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qh, k, v, attn_mask=mask, enable_gqa=True),
+                iters, device)
+        cases[name] = dict(
+            shape=(f"B{B} KV{KV} G{G} Dh{Dh} T{T} ragged pos "
+                   f"{pos_np.tolist()}"),
+            max_abs_err=err,
+            ms=time_ms(lambda: fa.flash_decode_attention(
+                q, k, v, pos, k_scale=ks, v_scale=vs), iters, device),
+            plain_ms=time_ms(lambda: fa.flash_decode_plain(
+                q, k, v, pos, k_scale=ks, v_scale=vs),
+                max(1, iters // 3), device),
+            bound_ms=bms, bound_by=by, library_ms=library_ms,
+        )
+    emit({"phase": "kernels", **cases})
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 2: generate at full width
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return dict(fa.LAUNCHES)
+
+
+def _rel_err(out, ref):
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+def generate_phase(params, config, device, tag, batch, prompt_len, new,
+                   quantize, max_len, timed_steps):
+    gen = torch.Generator(device=device).manual_seed(SEED + prompt_len)
+    prompt = torch.randint(0, config.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device)
+    total = prompt_len + new
+    T, flash = decode.planned_cache_len(total, quantize, max_len,
+                                        device=device)
+    L = config.n_layers
+
+    # the main path: one generate call, counted
+    fa.reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = decode.generate(params, prompt, config, None, new,
+                          temperature=0.0, max_len=max_len,
+                          quantize_cache=quantize)
+    _sync(device)
+    generate_s = time.perf_counter() - t0
+    counts = _launches()
+    k4 = "flash_decode_int8" if quantize else "flash_decode_bf16"
+    want = {"flash_fwd": L if prompt_len >= 256 else 0,
+            "flash_decode_bf16": 0, "flash_decode_int8": 0}
+    if flash:
+        want[k4] = L * (new - 1)
+    if counts != want:
+        raise AssertionError(f"generate {tag}: launches {counts}, "
+                             f"expected {want}")
+    if (tuple(out.shape) != (batch, total)
+            or not torch.equal(out[:, :prompt_len].long(), prompt)
+            or int(out.min()) < 0 or int(out.max()) >= config.vocab_size):
+        raise AssertionError(f"generate {tag}: malformed output")
+
+    # TTFT and decode rate, and the kernel path against the dense path
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = decode.prefill(params, prompt, config, T, quantize)
+    _sync(device)
+    ttft_s = time.perf_counter() - t0
+    dense_cfg = dataclasses.replace(config, use_flash_attention=False)
+    os.environ["DLROVER_TPU_FLASH_DECODE"] = "0"
+    try:
+        ref_logits, ref_cache = decode.prefill(params, prompt, dense_cfg, T,
+                                               quantize)
+        tok = torch.argmax(logits, dim=-1)
+        ref_step, _ = decode.decode_step(params, tok, ref_cache, dense_cfg)
+    finally:
+        del os.environ["DLROVER_TPU_FLASH_DECODE"]
+    del ref_cache
+    step_logits, cache = decode.decode_step(params, tok, cache, config,
+                                            flash=flash)
+    prefill_err = _rel_err(logits, ref_logits)
+    step_err = _rel_err(step_logits, ref_step)
+    if not (torch.isfinite(logits).all() and torch.isfinite(step_logits)
+            .all()) or max(prefill_err, step_err) > LOGITS_REL_TOL:
+        raise AssertionError(
+            f"generate {tag}: kernel vs dense logits rel err prefill "
+            f"{prefill_err:.4g}, step {step_err:.4g} > {LOGITS_REL_TOL}")
+    state = {"tok": torch.argmax(step_logits, dim=-1), "cache": cache}
+
+    def step():
+        lg, state["cache"] = decode.decode_step(params, state["tok"],
+                                                state["cache"], config,
+                                                flash=flash)
+        state["tok"] = torch.argmax(lg, dim=-1)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        step()
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    # where the time goes: device kernels vs the rest (host)
+    profile = device_profile(step, 4, device)
+    prefill_profile = device_profile(
+        lambda: decode.prefill(params, prompt, config, T, quantize), 1,
+        device)
+    row = dict(
+        phase="generate", run=tag, batch=batch, prompt_len=prompt_len,
+        new_tokens=new, cache=("int8" if quantize else "bf16"),
+        cache_len=T, decode_kernel=flash, generate_s=generate_s,
+        ttft_s=ttft_s, decode_tok_per_s=batch * timed_steps / decode_s,
+        decode_step_ms=decode_s * 1e3 / timed_steps, launches=counts,
+        logits_rel_err_prefill=prefill_err, logits_rel_err_step=step_err,
+        decode_step_profile=profile, prefill_profile=prefill_profile,
+    )
+    emit(row)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the batched engine on ragged slots
+# ---------------------------------------------------------------------------
+
+
+def _bucket(n):
+    b = 128
+    while b < n:
+        b *= 2
+    return b
+
+
+def engine_phase(params, config, device, slots, cache_len, n_requests,
+                 len_range, new_range, n_teacher):
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for _ in range(n_requests):
+        n = int(rng.integers(len_range[0], len_range[1] + 1))
+        reqs.append((rng.integers(1, config.vocab_size, n).tolist(),
+                     int(rng.integers(new_range[0], new_range[1] + 1))))
+    engine = BatchDecodeEngine(params, config, slots=slots,
+                               cache_len=cache_len, quantize=True,
+                               device=device)
+    flash = decode.flash_decode_wanted(cache_len, True, device=device)
+    L = config.n_layers
+
+    fa.reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    active = [None] * slots  # slot -> [request index, position, tokens]
+    done = {}
+    pending = list(range(n_requests))
+    steps = ragged_steps = 0
+    while pending or any(a is not None for a in active):
+        for s in range(slots):
+            if active[s] is None and pending:
+                r = pending.pop(0)
+                prompt = reqs[r][0]
+                res = engine.prefill_rows(prompt, _bucket(len(prompt)))
+                active[s] = [r, len(prompt), [engine.insert(res, s)]]
+        live = [a is not None for a in active]
+        if len({a[1] for a in active if a is not None}) > 1:
+            ragged_steps += 1
+        nxt = engine.step([a[2][-1] if a else 0 for a in active], live)
+        steps += 1
+        for s, a in enumerate(active):
+            if a is None:
+                continue
+            a[1] += 1
+            a[2].append(nxt[s])
+            if len(a[2]) == reqs[a[0]][1]:
+                done[a[0]] = a[2]
+                active[s] = None
+    _sync(device)
+    serve_s = time.perf_counter() - t0
+    counts = _launches()
+    want = {"flash_fwd": 0, "flash_decode_bf16": 0,
+            "flash_decode_int8": L * steps if flash else 0}
+    if counts != want or not flash or ragged_steps == 0:
+        raise AssertionError(
+            f"engine: launches {counts} (expected {want}), decode kernel "
+            f"{flash}, ragged steps {ragged_steps}")
+    if len(done) != n_requests or any(
+            len(done[r]) != reqs[r][1]
+            or min(done[r]) < 0 or max(done[r]) >= config.vocab_size
+            for r in done):
+        raise AssertionError("engine: a request was not served in full")
+
+    # teacher-forced check: a dense forward over prompt + generated tokens
+    # should predict the generated tokens (bf16; see TEACHER_AGREE_MIN)
+    dense_cfg = dataclasses.replace(config, use_flash_attention=False)
+    agree = total = 0
+    for r in range(n_teacher):
+        prompt, gen = reqs[r][0], done[r]
+        seq = torch.tensor([prompt + gen[:-1]], device=device)
+        logits = llama.forward(params, seq, dense_cfg)[0]
+        pred = torch.argmax(logits[len(prompt) - 1:], dim=-1).tolist()
+        agree += sum(int(a == b) for a, b in zip(pred, gen))
+        total += len(gen)
+        del logits
+    agreement = agree / total
+    new_tokens = sum(len(t) for t in done.values())
+    emit(dict(
+        phase="engine", slots=slots, cache_len=cache_len, cache="int8",
+        requests_served=len(done), new_tokens=new_tokens, steps=steps,
+        ragged_steps=ragged_steps, serve_s=serve_s,
+        tok_per_s=new_tokens / serve_s, launches=counts,
+        kv_cache_bytes=engine.kv_cache_bytes(),
+        teacher_forced_agreement=agreement, teacher_requests=n_teacher,
+    ))
+    if agreement < TEACHER_AGREE_MIN:
+        raise AssertionError(f"engine: teacher-forced agreement "
+                             f"{agreement:.3f} < {TEACHER_AGREE_MIN}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+
+
+def _build_report():
+    t0 = time.perf_counter()
+    libs = _build.build()
+    info = {}
+    for name, path in libs.items():
+        log = path.with_suffix(".so.log")
+        lines = log.read_text().splitlines() if log.exists() else []
+        info[name] = [ln.replace("ptxas info    : ", "").strip()
+                      for ln in lines if "Compiling entry" in ln
+                      or "Used" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "ptxas": info})
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    _build_report()
+
+    config = llama.LlamaConfig()
+    kernels = kernel_phase(device, fwd_shape=(8, 32, 2048, 128),
+                           decode_shape=(8, config.n_kv_heads,
+                                         config.n_heads // config.n_kv_heads,
+                                         config.head_dim, 4096))
+    torch.cuda.empty_cache()
+
+    params = llama.init_params(
+        config, torch.Generator(device=device).manual_seed(SEED), device)
+    emit({"phase": "params", "num_params": llama.num_params(config),
+          "bytes": sum(t.numel() * t.element_size()
+                       for t in [*params["layers"].values(),
+                                 params["tok_embed"], params["lm_head"],
+                                 params["final_norm"]])})
+    main_path = []
+    main_path.append(generate_phase(
+        params, config, device, "a", batch=8, prompt_len=1024, new=64,
+        quantize=False, max_len=4096, timed_steps=16))
+    torch.cuda.empty_cache()
+    main_path.append(generate_phase(
+        params, config, device, "b", batch=8, prompt_len=2048, new=32,
+        quantize=True, max_len=None, timed_steps=16))
+    torch.cuda.empty_cache()
+    main_path.append(engine_phase(
+        params, config, device, slots=8, cache_len=4096, n_requests=16,
+        len_range=(100, 1500), new_range=(16, 48), n_teacher=4))
+
+    replaces = {
+        "flash_fwd": ("dlrover_tpu_torch/ops/csrc/flash_fwd.cu",
+                      "dlrover_tpu/ops/flash_attention.py:98"),
+        "flash_decode_bf16": ("dlrover_tpu_torch/ops/csrc/flash_decode.cu",
+                              "dlrover_tpu/ops/flash_attention.py:494"),
+        "flash_decode_int8": ("dlrover_tpu_torch/ops/csrc/flash_decode.cu",
+                              "dlrover_tpu/ops/flash_attention.py:494"),
+    }
+    rows = []
+    for name, (source, tpu) in replaces.items():
+        launches = sum(c[name] for c in main_path)
+        if launches == 0:
+            raise AssertionError(f"{name} never launched on the main path")
+        k = kernels[name]
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=tpu,
+            launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+    emit({"kernels": rows})
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    emit({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of ``dlrover_tpu`` for NVIDIA Hopper (H100, sm_90a).
+
+The JAX package ``dlrover_tpu`` stays in the repository as the reference;
+this package grows beside it slice by slice and keeps its module names,
+so each port module sits at the same relative path as its counterpart.
+It imports ``torch`` and never ``jax``, and nothing of ``dlrover_tpu``.
+
+Slice 1 is the Llama serving path: ``models/decode.py`` (prefill, KV-cache
+decode, generate) and ``serving/engine.py`` (the batched continuous
+decoding engine), carried by two hand-written CUDA kernels in
+``ops/csrc/``: the flash-attention forward (prefill) and the single-token
+decode attention over a bf16 or int8 cache.
+
+Entry points take an explicit ``device`` (default ``"cuda"``) and never
+fall back to the CPU on their own; the CPU tests pass ``device="cpu"``.
+"""

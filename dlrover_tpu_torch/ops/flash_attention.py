@@ -1,0 +1,303 @@
+"""Flash attention for the port: the prefill forward and the decode attend.
+
+Counterpart of ``dlrover_tpu/ops/flash_attention.py``. Each public function
+has two implementations, chosen by where its tensors live:
+
+- on a CUDA tensor it launches its hand-written kernel from ``csrc/``
+  (:func:`flash_attention` → ``flash_fwd.cu``, :func:`flash_decode_attention`
+  → ``flash_decode.cu``) and raises on anything that kernel does not take;
+  there is no fallback;
+- on a CPU tensor it runs the plain PyTorch version beside it
+  (:func:`flash_attention_plain`, :func:`flash_decode_plain`), which the CPU
+  tests hold against the JAX package and which the card compares each
+  kernel with.
+
+Every kernel launch adds one to :data:`LAUNCHES` under the kernel's name,
+so a run can show that its main path went through the kernels.
+
+The autograd backward of :func:`flash_attention` comes with the training
+slice; until then it refuses inputs that require a gradient.
+"""
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from dlrover_tpu_torch.ops import _build
+
+NEG_INF = float(-1e30)  # masked score; never -inf, as in the TPU kernels
+
+# kernel name → launches since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {
+    "flash_fwd": 0,
+    "flash_decode_bf16": 0,
+    "flash_decode_int8": 0,
+}
+
+_SIGNATURES = {
+    "flash_fwd_bf16": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ),
+    "flash_decode_bf16": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
+    "flash_decode_int8": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p]
+    ),
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _entry(source: str, symbol: str):
+    lib = _build.load(source)
+    fn = getattr(lib, symbol)
+    if fn.argtypes is None:
+        fn.argtypes = _SIGNATURES[symbol]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def repeat_kv(k, v, rep: int):
+    """Broadcast grouped-query K/V heads up to the query head count: head
+    axis 1, ``(B, KV, S, D) → (B, KV*rep, S, D)``, each KV head repeated
+    ``rep`` times in a row, so query head ``h`` reads KV head ``h // rep``."""
+    if rep <= 1:
+        return k, v
+    return (k.repeat_interleave(rep, dim=1),
+            v.repeat_interleave(rep, dim=1))
+
+
+# ---------------------------------------------------------------------------
+# forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_plain(q, k, v, causal: bool = True,
+                          scale: Optional[float] = None):
+    """Plain PyTorch version of the flash forward, in f32: returns
+    ``(o, lse)`` with ``o`` in q's dtype. Same masks and fill values as the
+    kernel: ``col < Sk`` and, when causal, ``col <= row`` (top-left
+    alignment); a row with no visible key gives ``o = 0``, ``lse = -1e30``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    Sq, Sk = q.shape[2], k.shape[2]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    rows = torch.arange(Sq, device=q.device)[:, None]
+    cols = torch.arange(Sk, device=q.device)[None, :]
+    mask = cols < Sk
+    if causal:
+        mask = mask & (cols <= rows)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    safe = torch.where(l == 0.0, 1.0, l)
+    o = (torch.matmul(p, v.float()) / safe).to(q.dtype)
+    lse = torch.where(l == 0.0, NEG_INF, m + torch.log(safe))[..., 0]
+    return o, lse
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _require(t.is_cuda and t.device == q.device,
+                 f"flash_attention: {name} must be on {q.device}")
+        _require(t.dtype == torch.bfloat16,
+                 f"flash_attention kernel takes bf16, {name} is {t.dtype}")
+        _require(t.dim() == 4 and t.stride(-1) == 1,
+                 f"flash_attention: {name} must be (B, H, S, D) with the "
+                 "head dim contiguous")
+        _require(all(s % 8 == 0 for s in t.stride()[:3])
+                 and t.data_ptr() % 16 == 0,
+                 f"flash_attention: {name} rows must be 16-byte aligned")
+    _require(k.shape == (B, H, Sk, D) and v.shape == k.shape,
+             f"flash_attention: k/v shape {tuple(k.shape)}/"
+             f"{tuple(v.shape)} does not match q {tuple(q.shape)}")
+    _require(D in (64, 128),
+             f"flash_attention kernel takes head_dim 64 or 128, not {D}")
+    o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    rc = _entry("flash_fwd", "flash_fwd_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), B, H, Sq, Sk, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(scale), int(bool(causal)), _stream(q),
+    )
+    _build.check(rc, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
+
+
+def flash_attention(
+    q, k, v,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    block_q: int = 512,
+    block_k: int = 1024,
+    return_lse: bool = False,
+):
+    """Fused blockwise attention, forward only. q/k/v: ``(B, H, S, D)``;
+    GQA callers repeat KV heads first (:func:`repeat_kv`).
+
+    Returns ``o`` ``(B, H, Sq, D)``, plus the per-row log-sum-exp
+    ``(B, H, Sq)`` f32 when ``return_lse``. On CUDA tensors it launches the
+    ``flash_fwd.cu`` kernel (bf16, head_dim 64 or 128, any lengths); on CPU
+    tensors it runs :func:`flash_attention_plain`.
+
+    ``block_q``/``block_k`` keep the JAX signature; the CUDA kernel tiles
+    64 x 64 whatever they say, and the plain version does not tile.
+    """
+    del block_q, block_k
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward yet (it lands with the "
+            "training slice); call it under torch.no_grad()")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if any(t.is_cuda for t in (q, k, v)):
+        o, lse = _flash_fwd_cuda(q, k, v, causal, scale)
+    else:
+        o, lse = flash_attention_plain(q, k, v, causal, scale)
+    return (o, lse) if return_lse else o
+
+
+# ---------------------------------------------------------------------------
+# decode (single-token) attention against a KV cache
+# ---------------------------------------------------------------------------
+
+
+def _pos_vector(pos, batch: int, device) -> torch.Tensor:
+    """``pos`` (int, 0-d or ``(B,)`` tensor) → ``(B,)`` int32 on device."""
+    p = torch.as_tensor(pos, dtype=torch.int32).to(device)
+    if p.dim() == 0:
+        p = p.expand(batch)
+    _require(p.shape == (batch,),
+             f"pos must be a scalar or ({batch},), not {tuple(p.shape)}")
+    return p.contiguous()
+
+
+def flash_decode_plain(q, k, v, pos, scale: Optional[float] = None,
+                       k_scale=None, v_scale=None):
+    """Plain PyTorch version of the decode attend, in f32. Same math as the
+    kernel, int8 scales folded the same way (``ks`` into the scores,
+    ``vs`` into p)."""
+    B, KV, G, Dh = q.shape
+    T = k.shape[2]
+    if scale is None:
+        scale = Dh ** -0.5
+    p_b = _pos_vector(pos, B, q.device)
+    s = torch.einsum("bkgd,bktd->bkgt", q.float(), k.float()) * scale
+    if k_scale is not None:
+        s = s * k_scale.float()[:, :, None, :]
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= p_b[:, None])[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p * v_scale.float()[:, :, None, :] if v_scale is not None else p
+    out = torch.einsum("bkgt,bktd->bkgd", pv, v.float())
+    return (out / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+
+
+def _flash_decode_cuda(q, k, v, pos, scale, k_scale, v_scale):
+    B, KV, G, Dh = q.shape
+    T = k.shape[2]
+    quantized = k_scale is not None
+    _require(q.dtype == torch.bfloat16,
+             f"flash_decode kernel takes a bf16 query, not {q.dtype}")
+    _require(Dh in (64, 128) and 1 <= G <= 8,
+             f"flash_decode kernel takes head_dim 64/128 and 1-8 query "
+             f"heads per KV head, not Dh={Dh} G={G}")
+    want = torch.int8 if quantized else torch.bfloat16
+    for name, t in (("k", k), ("v", v)):
+        _require(t.is_cuda and t.device == q.device,
+                 f"flash_decode: {name} must be on {q.device}")
+        _require(t.dtype == want,
+                 f"flash_decode: {name} must be {want}, not {t.dtype}")
+        _require(t.shape == (B, KV, T, Dh) and t.is_contiguous()
+                 and t.data_ptr() % 16 == 0,
+                 f"flash_decode: {name} must be a contiguous, 16-byte "
+                 f"aligned ({B}, {KV}, T, {Dh}) cache, not "
+                 f"{tuple(t.shape)}")
+    if quantized:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            _require(t.is_cuda and t.device == q.device
+                     and t.dtype == torch.float32
+                     and t.shape == (B, KV, T) and t.is_contiguous(),
+                     f"flash_decode: {name} must be contiguous f32 "
+                     f"({B}, {KV}, {T}) on {q.device}")
+    qc = q.contiguous()
+    p_b = _pos_vector(pos, B, q.device)
+    out = torch.empty_like(qc)
+    if out.numel() == 0:
+        return out
+    if quantized:
+        name = "flash_decode_int8"
+        rc = _entry("flash_decode", name)(
+            qc.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), p_b.data_ptr(), out.data_ptr(),
+            B, KV, G, T, Dh, float(scale), _stream(q),
+        )
+    else:
+        name = "flash_decode_bf16"
+        rc = _entry("flash_decode", name)(
+            qc.data_ptr(), k.data_ptr(), v.data_ptr(), p_b.data_ptr(),
+            out.data_ptr(), B, KV, G, T, Dh, float(scale), _stream(q),
+        )
+    _build.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
+def flash_decode_attention(
+    q, k, v, pos,
+    scale: Optional[float] = None,
+    block_k: int = 256,
+    k_scale=None,
+    v_scale=None,
+):
+    """Single-token attention against a KV cache, fused.
+
+    q: ``(B, KV, G, Dh)`` — the current token's query heads grouped by KV
+    head. k/v: ``(B, KV, T, Dh)`` — the head-major cache. ``pos``: a scalar
+    or one position per batch row ``(B,)``; row ``b`` attends cache slots
+    ``[0, pos[b]]`` only, and the kernel reads nothing past them. With
+    ``k_scale``/``v_scale`` ``(B, KV, T)`` f32, k/v are int8 and the kernel
+    folds the per-vector scales in without dequantizing the cache.
+
+    On CUDA tensors it launches ``flash_decode.cu`` (bf16 or int8 cache);
+    on CPU tensors it runs :func:`flash_decode_plain`. ``block_k`` keeps
+    the JAX signature: the kernel tiles 64 keys and masks its own tail, so
+    T need not divide by it. Returns ``(B, KV, G, Dh)`` in q's dtype.
+    """
+    del block_k
+    if k_scale is not None and v_scale is None:
+        raise ValueError("k_scale given without v_scale")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if any(t.is_cuda for t in (q, k, v)):
+        return _flash_decode_cuda(q, k, v, pos, scale, k_scale, v_scale)
+    return flash_decode_plain(q, k, v, pos, scale, k_scale, v_scale)

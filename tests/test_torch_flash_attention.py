@@ -1,0 +1,165 @@
+"""The port's attention ops against the JAX package's Pallas kernels.
+
+The same seeded numpy inputs go through ``dlrover_tpu.ops.flash_attention``
+(Pallas in interpret mode on the CPU, as tests/test_flash_attention.py runs
+it) and through ``dlrover_tpu_torch.ops.flash_attention`` on CPU tensors,
+which takes the plain PyTorch version of each kernel. f32 throughout, at the
+reference's own tolerance (2e-5). The CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+jfa = importlib.import_module("dlrover_tpu.ops.flash_attention")
+from dlrover_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+
+ATOL = 2e-5
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "B,H,Sq,Sk,D,causal",
+    [
+        (2, 3, 64, 64, 32, True),     # causal
+        (2, 3, 64, 64, 32, False),    # non-causal
+        (2, 3, 56, 56, 32, True),     # ragged: S not a block multiple
+        (2, 2, 32, 48, 16, False),    # cross: Sq != Sk
+        (2, 2, 40, 24, 16, True),     # cross + causal: top-left alignment
+    ],
+)
+def test_flash_forward_matches_pallas(B, H, Sq, Sk, D, causal):
+    rng = np.random.default_rng(B * 1000 + Sq + Sk)
+    q = _normal(rng, (B, H, Sq, D))
+    k = _normal(rng, (B, H, Sk, D))
+    v = _normal(rng, (B, H, Sk, D))
+    o_ref, lse_ref = jfa.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        block_q=16, block_k=16, return_lse=True)
+    o, lse = tfa.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, block_q=16, block_k=16, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
+
+
+def test_flash_forward_default_output_is_o_only():
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, 2, 16, 8)))
+               for _ in range(3))
+    o = tfa.flash_attention(q, k, v)
+    assert isinstance(o, torch.Tensor) and o.shape == q.shape
+
+
+def test_flash_forward_refuses_grad_inputs():
+    q = torch.zeros((1, 1, 8, 8), requires_grad=True)
+    k = v = torch.zeros((1, 1, 8, 8))
+    with pytest.raises(NotImplementedError, match="backward"):
+        tfa.flash_attention(q, k, v)
+    with torch.no_grad():
+        tfa.flash_attention(q, k, v)
+
+
+def test_repeat_kv_matches_jnp_repeat():
+    rng = np.random.default_rng(1)
+    k = _normal(rng, (2, 3, 5, 4))
+    v = _normal(rng, (2, 3, 5, 4))
+    kr, vr = jfa.repeat_kv(jnp.asarray(k), jnp.asarray(v), 4)
+    tk, tv = tfa.repeat_kv(torch.from_numpy(k), torch.from_numpy(v), 4)
+    np.testing.assert_array_equal(tk.numpy(), np.asarray(kr))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(vr))
+    # query head h reads KV head h // rep, never h % KV
+    np.testing.assert_array_equal(tk[:, 5].numpy(), k[:, 1])
+
+
+def _quant(x):
+    s = np.max(np.abs(x), axis=-1) / np.float32(127.0)
+    safe = np.maximum(s, np.float32(1e-9))
+    q = np.clip(np.round(x / safe[..., None]), -127, 127).astype(np.int8)
+    return q, s.astype(np.float32)
+
+
+def _decode_inputs(quantized, seed=0, B=2, KV=4, G=2, Dh=16, T=64):
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (B, KV, G, Dh))
+    k = _normal(rng, (B, KV, T, Dh))
+    v = _normal(rng, (B, KV, T, Dh))
+    if not quantized:
+        return q, k, v, None, None
+    kq, ks = _quant(k)
+    vq, vs = _quant(v)
+    return q, kq, vq, ks, vs
+
+
+def _decode_pair(inputs, pos_jax, pos_torch):
+    q, k, v, ks, vs = inputs
+    jkw = {} if ks is None else dict(k_scale=jnp.asarray(ks),
+                                     v_scale=jnp.asarray(vs))
+    tkw = {} if ks is None else dict(k_scale=torch.from_numpy(ks),
+                                     v_scale=torch.from_numpy(vs))
+    ref = jfa.flash_decode_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos_jax,
+        block_k=16, **jkw)
+    out = tfa.flash_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        pos_torch, block_k=16, **tkw)
+    return np.asarray(ref), out.numpy()
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("pos", [0, 7, 31, 37, 63])
+def test_flash_decode_matches_pallas(quantized, pos):
+    ref, out = _decode_pair(_decode_inputs(quantized), pos, pos)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_flash_decode_per_row_pos_matches_per_row_calls(quantized):
+    """The port's kernel takes one position per batch row; each row must
+    equal the JAX kernel called with that row's scalar position."""
+    inputs = _decode_inputs(quantized, seed=3, B=3)
+    pos = np.array([0, 37, 63], np.int32)
+    _, out = _decode_pair(inputs, 0, torch.from_numpy(pos))
+    for b, p in enumerate(pos):
+        ref, _ = _decode_pair(inputs, int(p), int(p))
+        np.testing.assert_allclose(out[b], ref[b], atol=ATOL,
+                                   err_msg=f"row {b} pos {p}")
+
+
+def test_flash_decode_cache_need_not_divide_block():
+    """The JAX kernel refuses T % block_k != 0; the port's masks its own
+    tail, so any T works and matches the masked oracle."""
+    q, k, v, _, _ = _decode_inputs(False, T=60)
+    out = tfa.flash_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 59,
+        block_k=16)
+    s = np.einsum("bkgd,bktd->bkgt", q, k) * q.shape[-1] ** -0.5
+    p = np.exp(s - s.max(-1, keepdims=True))
+    ref = np.einsum("bkgt,bktd->bkgd", p / p.sum(-1, keepdims=True), v)
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL)
+
+
+def test_flash_decode_rejects_k_scale_without_v_scale():
+    q, k, v, ks, _ = _decode_inputs(True)
+    with pytest.raises(ValueError, match="v_scale"):
+        tfa.flash_decode_attention(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            3, k_scale=torch.from_numpy(ks))
+
+
+def test_launch_counts_stay_zero_on_cpu():
+    tfa.reset_launch_counts()
+    q, k, v, _, _ = _decode_inputs(False)
+    tfa.flash_decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), 5)
+    assert all(n == 0 for n in tfa.LAUNCHES.values())
