@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and runs
-three phases, each printing one JSON line:
+four phases, each printing one JSON line (the serving runs one each):
 
 1. ``kernels`` — each kernel against its plain PyTorch version on the card,
-   in bf16 at the serving path's shapes, with the error, the kernel's time,
-   the plain version's time and, as a yardstick only, the time of PyTorch's
-   ``scaled_dot_product_attention`` on the same inputs (the port never
+   in bf16 at its path's shapes, with the error, the kernel's time, the
+   plain version's time and, as a yardstick only, the time of PyTorch's
+   ``scaled_dot_product_attention`` on the same inputs (forward, decode)
+   or of its autograd backward (for the backward pair; the port never
    calls it);
 2. ``generate`` — ``decode.generate`` on ``LlamaConfig()`` at full width
    and depth (the Llama-2-7B shape with 8 KV heads, random weights from a
@@ -20,7 +21,15 @@ three phases, each printing one JSON line:
    first-step logits are compared with the dense path;
 3. ``engine`` — ``BatchDecodeEngine`` with an int8 cache, 8 slots, 4096
    cache slots, serving 16 requests of ragged lengths with slot reuse;
-   every step must go through the decode kernel, ragged or not.
+   every step must go through the decode kernel, ragged or not;
+4. ``train`` — ``ElasticTrainer.train_step`` with ``adamw(3e-4)`` on
+   ``LlamaConfig()`` at full width and 8 layers (bf16 params, f32 grad
+   accumulators and moments), remat "dots", global batch 8 as 2 micro
+   batches of 4, sequence 2048, fed by the port's sampler and loader: 3
+   counted steps whose launches must be K1 = 2·L·accum (forward and remat
+   recompute) and K2 = K3 = L·accum a step; one micro step on the kernel
+   path against the dense path; a fixed batch whose loss must fall over 3
+   steps; a profile of one step, tokens/s and MFU.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``. Any
@@ -44,17 +53,42 @@ import torch
 from dlrover_tpu_torch.models import decode, llama
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as fa
+from dlrover_tpu_torch.parallel.mesh import plan_mesh
 from dlrover_tpu_torch.serving.engine import BatchDecodeEngine
+from dlrover_tpu_torch.trainer.data import (
+    ElasticDataLoader,
+    ElasticDistributedSampler,
+    stack_microbatches,
+)
+from dlrover_tpu_torch.trainer.elastic import (
+    ElasticTrainer,
+    global_norm,
+    make_train_state,
+)
+from dlrover_tpu_torch.trainer.optim import adamw, tree_leaves, tree_unflatten
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the roofline for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 
-# Kernel vs plain version, both bf16 outputs compared in f32: the two round
-# their bf16 results separately (one bf16 ulp is 2^-8 relative), and the
-# kernel sums in another order and feeds its probabilities to the PV
-# product in bf16 (2^-9 relative each). So |err| <= ATOL + RTOL * |plain|.
-KERNEL_ATOL, KERNEL_RTOL = 1e-2, 2e-2
+# Kernel vs plain version (o of K1 and K4; dq, dk, dv of K2 and K3), both
+# bf16 outputs compared in f32, element by element:
+#   |err| <= RTOL * |ref| + ROW_ATOL * rms(ref row) + FLOOR * rms(ref),
+# and over the whole output ||err|| <= REL_L2 * ||ref||. A row is one
+# head_dim vector: a query row of o and dq, a key row of dk and dv. The two
+# sides round their results to bf16 separately (2^-8 relative: the RTOL
+# term). The kernels also feed p (and ds) to their products in bf16 (2^-9
+# relative each) and sum in another order; those errors add with random
+# signs over the row's terms, to about 1e-3 of the row's own size and, in
+# the far tail of some 10^7 elements, to nearly 1e-2 of it (ROW_ATOL keeps
+# 2x room). So an element near 0 is held to its row's size and not to the
+# tensor's largest value: in a causal sequence the last rows are ~sqrt(1/S)
+# the size of the first, and a fault confined to them must not hide under
+# the first rows' scale. FLOOR only covers rows that are 0 up to f32
+# rounding (dq of the first causal row, where ds = p * (dp - delta) cancels
+# exactly).
+KERNEL_RTOL, KERNEL_ROW_ATOL, KERNEL_FLOOR = 2e-2, 2e-2, 1e-3
+KERNEL_REL_L2 = 1e-2
 # lse is f32 on both sides from the same bf16 products: only the summation
 # order and exp/log rounding differ
 LSE_ATOL = 1e-3
@@ -99,11 +133,11 @@ def time_ms(fn, iters, device):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_profile(fn, iters, device):
+def device_profile(fn, iters, device, top=5):
     """``fn`` run ``iters`` times under ``torch.profiler`` (device activity
     only, so the host pays little for the tracing): wall time and device
-    kernel time per call, the device's idle share, and the kernels that
-    took most of it."""
+    kernel time per call, the device's idle share, and the ``top`` kernels
+    that took most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     act = (ProfilerActivity.CUDA if device.type == "cuda"
@@ -118,12 +152,12 @@ def device_profile(fn, iters, device):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
     return dict(
         steps=iters, wall_ms=wall_s * 1e3 / iters,
         device_busy_ms=busy_s * 1e3 / iters, idle_share=1 - busy_s / wall_s,
         top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3 / iters]
-                        for e in top],
+                        for e in ranked],
     )
 
 
@@ -138,15 +172,32 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def _check_close(name, out, ref, atol, rtol):
-    err = (out.float() - ref.float()).abs()
-    lim = atol + rtol * ref.float().abs()
+def _check_close(name, out, ref):
+    """Hold a kernel's output against its plain version at the KERNEL_*
+    tolerance. Returns the largest |err|, ||err|| / ||ref||, and the
+    largest share of its element's limit that an error takes."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    row_rms = ref.square().mean(dim=-1, keepdim=True).sqrt()
+    lim = (KERNEL_RTOL * ref.abs() + KERNEL_ROW_ATOL * row_rms
+           + KERNEL_FLOOR * float(ref.square().mean().sqrt()))
     bad = int((err > lim).sum())
-    if bad or not torch.isfinite(out.float()).all():
+    rel_l2 = float(torch.linalg.vector_norm(err)
+                   / torch.linalg.vector_norm(ref))
+    share = float((err / lim).max())
+    if bad or rel_l2 > KERNEL_REL_L2 or not torch.isfinite(out).all():
         raise AssertionError(
-            f"{name}: {bad} elements outside |err| <= {atol} + {rtol}*|ref| "
-            f"(max err {float(err.max()):.4g})")
-    return float(err.max())
+            f"{name}: {bad} elements outside |err| <= {KERNEL_RTOL}*|ref| + "
+            f"{KERNEL_ROW_ATOL}*rms(row) + {KERNEL_FLOOR}*rms(ref) (worst "
+            f"{share:.3g} of its limit), ||err||/||ref|| {rel_l2:.3g} "
+            f"(limit {KERNEL_REL_L2}), max err {float(err.max()):.4g}")
+    return dict(max_abs_err=float(err.max()), rel_l2=rel_l2,
+                share_of_limit=share)
+
+
+def _worst(checks):
+    """The largest of each number over several _check_close results."""
+    return {key: max(c[key] for c in checks) for key in checks[0]}
 
 
 # ---------------------------------------------------------------------------
@@ -160,9 +211,11 @@ def _fwd_case(gen, device, B, H, Sq, Sk, D, causal):
     o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal)
     tag = f"flash_fwd B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal}"
-    err = _check_close(tag, o, o_ref, KERNEL_ATOL, KERNEL_RTOL)
-    _check_close(tag + " lse", lse, lse_ref, LSE_ATOL, 0.0)
-    return (q, k, v), err
+    check = _check_close(tag, o, o_ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    if not lse_err <= LSE_ATOL:
+        raise AssertionError(f"{tag} lse: max err {lse_err:.4g} > {LSE_ATOL}")
+    return (q, k, v), check
 
 
 def _visible_pairs(Sq, Sk, causal):
@@ -172,24 +225,96 @@ def _visible_pairs(Sq, Sk, causal):
     return int(torch.clamp(rows + 1, max=Sk).sum())
 
 
-def kernel_phase(device, fwd_shape, decode_shape, iters=10):
-    """Hold both kernels against their plain versions; returns the JSON
-    rows of the kernel table (without launches)."""
+def _bwd_case(gen, device, B, H, Sq, Sk, D, causal, with_dlse):
+    """K1 forward, then K2 + K3 against the plain backward on the same
+    (o, lse, do, dlse); returns the inputs and the check of each output."""
+    q, k, v, do = (torch.randn((B, H, s, D), generator=gen, device=device)
+                   .to(torch.bfloat16) for s in (Sq, Sk, Sk, Sq))
+    dlse = (torch.randn((B, H, Sq), generator=gen, device=device)
+            if with_dlse else None)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, dlse, causal)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, causal)
+    tag = (f"flash_bwd B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal} "
+           f"dlse={with_dlse}")
+    checks = {name: _check_close(f"{tag} {name}", out, r)
+              for name, out, r in zip(("dq", "dk", "dv"), got, ref)}
+    return (q, k, v, o, lse, do), checks
+
+
+def bwd_kernel_rows(gen, device, shape, iters):
+    """K2 and K3 at the training shape (causal) and on the ragged, cross,
+    head_dim-64 and lse-cotangent cases; each timed alone by CUDA events
+    beside the plain backward and, as the library time of each, autograd
+    of SDPA timed for its backward alone (it computes dq, dk and dv
+    together: no single PyTorch call computes K2 or K3 alone)."""
+    B, H, S, D = shape
+    (q, k, v, o, lse, do), checks = _bwd_case(gen, device, B, H, S, S, D,
+                                              True, False)
+    extra = {
+        "ragged S1000": _bwd_case(gen, device, 2, 8, 1000, 1000, D, True,
+                                  False)[1],
+        "cross Sq300 Sk1000 D64": _bwd_case(gen, device, 2, 8, 300, 1000,
+                                            64, False, False)[1],
+        "cross causal Sq1000 Sk300 D64": _bwd_case(gen, device, 2, 8, 1000,
+                                                   300, 64, True, False)[1],
+        "lse cotangent S1000": _bwd_case(gen, device, 2, 8, 1000, 1000, D,
+                                         True, True)[1],
+    }
+    scale = D ** -0.5
+    delta = fa._delta(o, do, None).contiguous()
+    plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, o, lse, do, None, True), max(1, iters // 3), device)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs,
+                                                           is_causal=True)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), iters, device)
+    pairs = B * H * _visible_pairs(S, S, True)
+    row_bytes = B * H * S * D * 2  # one (B, H, S, D) bf16 tensor
+    reads = 4 * row_bytes + 2 * B * H * S * 4  # q, k, v, do; lse, delta
+    shape_tag = f"B{B} H{H} S{S} D{D} causal bf16"
+    rows = {}
+    for name, fn, flops, nbytes, outs in (
+            ("flash_bwd_dq", fa._flash_bwd_dq_cuda, 6 * D * pairs,
+             reads + row_bytes, ("dq",)),
+            ("flash_bwd_dkv", fa._flash_bwd_dkv_cuda, 8 * D * pairs,
+             reads + 2 * row_bytes, ("dk", "dv"))):
+        bms, by = bound_ms(nbytes, flops)
+        rows[name] = dict(
+            shape=shape_tag, **_worst([checks[n] for n in outs]),
+            other_cases={c: _worst([e[n] for n in outs])
+                         for c, e in extra.items()},
+            ms=time_ms(lambda: fn(q, k, v, do, lse, delta, True, scale),
+                       iters, device),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+            library_ms=sdpa_bwd_ms,
+            library="scaled_dot_product_attention backward (dq, dk, dv)",
+        )
+    return rows
+
+
+def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10):
+    """Hold every kernel against its plain version; returns the JSON rows
+    of the kernel table (without launches)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     B, H, S, D = fwd_shape
     cases = {}
-    (q, k, v), err = _fwd_case(gen, device, B, H, S, S, D, True)
-    extra = [  # ragged, cross (both causal alignments), head_dim 64
-        _fwd_case(gen, device, 2, 8, 1000, 1000, D, True)[1],
-        _fwd_case(gen, device, 2, 8, 300, 1000, 64, False)[1],
-        _fwd_case(gen, device, 2, 8, 1000, 300, 64, True)[1],
-    ]
+    (q, k, v), check = _fwd_case(gen, device, B, H, S, S, D, True)
+    extra = {  # ragged, cross (both causal alignments), head_dim 64
+        "ragged S1000": _fwd_case(gen, device, 2, 8, 1000, 1000, D,
+                                  True)[1],
+        "cross Sq300 Sk1000 D64": _fwd_case(gen, device, 2, 8, 300, 1000,
+                                            64, False)[1],
+        "cross causal Sq1000 Sk300 D64": _fwd_case(gen, device, 2, 8, 1000,
+                                                   300, 64, True)[1],
+    }
     nbytes = 4 * B * H * S * D * 2 + B * H * S * 4
     flops = 4 * D * B * H * _visible_pairs(S, S, True)
     bms, by = bound_ms(nbytes, flops)
     cases["flash_fwd"] = dict(
-        shape=f"B{B} H{H} S{S} D{D} causal bf16", max_abs_err=err,
-        max_abs_err_other_cases=extra,
+        shape=f"B{B} H{H} S{S} D{D} causal bf16", **check,
+        other_cases=extra,
         ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
                    iters, device),
         plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True),
@@ -198,8 +323,10 @@ def kernel_phase(device, fwd_shape, decode_shape, iters=10):
         library_ms=time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True), iters, device),
+        library="scaled_dot_product_attention (causal)",
     )
     del q, k, v
+    cases.update(bwd_kernel_rows(gen, device, bwd_shape, iters))
 
     B, KV, G, Dh, T = decode_shape
     rng = np.random.default_rng(SEED)
@@ -224,13 +351,14 @@ def kernel_phase(device, fwd_shape, decode_shape, iters=10):
         out = fa.flash_decode_attention(q, k, v, pos, k_scale=ks,
                                         v_scale=vs)
         ref = fa.flash_decode_plain(q, k, v, pos, k_scale=ks, v_scale=vs)
-        err = _check_close(f"{name} B{B} KV{KV} G{G} Dh{Dh} T{T}", out, ref,
-                           KERNEL_ATOL, KERNEL_RTOL)
+        check = _check_close(f"{name} B{B} KV{KV} G{G} Dh{Dh} T{T}", out,
+                             ref)
         nbytes = 2 * visible * per_vec + 2 * q.numel() * 2 + B * 4
         flops = 4 * G * Dh * visible
         bms, by = bound_ms(nbytes, flops)
-        library_ms = None
+        library_ms = library = None
         if not quant:
+            library = "scaled_dot_product_attention (bool mask, enable_gqa)"
             mask = (torch.arange(T, device=device)[None, :]
                     <= pos[:, None])[:, None, None, :]
             qh = q.reshape(B, KV * G, 1, Dh)
@@ -241,13 +369,14 @@ def kernel_phase(device, fwd_shape, decode_shape, iters=10):
         cases[name] = dict(
             shape=(f"B{B} KV{KV} G{G} Dh{Dh} T{T} ragged pos "
                    f"{pos_np.tolist()}"),
-            max_abs_err=err,
+            **check,
             ms=time_ms(lambda: fa.flash_decode_attention(
                 q, k, v, pos, k_scale=ks, v_scale=vs), iters, device),
             plain_ms=time_ms(lambda: fa.flash_decode_plain(
                 q, k, v, pos, k_scale=ks, v_scale=vs),
                 max(1, iters // 3), device),
             bound_ms=bms, bound_by=by, library_ms=library_ms,
+            library=library,
         )
     emit({"phase": "kernels", **cases})
     return cases
@@ -287,8 +416,8 @@ def generate_phase(params, config, device, tag, batch, prompt_len, new,
     generate_s = time.perf_counter() - t0
     counts = _launches()
     k4 = "flash_decode_int8" if quantize else "flash_decode_bf16"
-    want = {"flash_fwd": L if prompt_len >= 256 else 0,
-            "flash_decode_bf16": 0, "flash_decode_int8": 0}
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_fwd"] = L if prompt_len >= 256 else 0
     if flash:
         want[k4] = L * (new - 1)
     if counts != want:
@@ -412,8 +541,8 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
     _sync(device)
     serve_s = time.perf_counter() - t0
     counts = _launches()
-    want = {"flash_fwd": 0, "flash_decode_bf16": 0,
-            "flash_decode_int8": L * steps if flash else 0}
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_decode_int8"] = L * steps if flash else 0
     if counts != want or not flash or ragged_steps == 0:
         raise AssertionError(
             f"engine: launches {counts} (expected {want}), decode kernel "
@@ -431,7 +560,8 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
     for r in range(n_teacher):
         prompt, gen = reqs[r][0], done[r]
         seq = torch.tensor([prompt + gen[:-1]], device=device)
-        logits = llama.forward(params, seq, dense_cfg)[0]
+        with torch.no_grad():
+            logits = llama.forward(params, seq, dense_cfg)[0]
         pred = torch.argmax(logits[len(prompt) - 1:], dim=-1).tolist()
         agree += sum(int(a == b) for a, b in zip(pred, gen))
         total += len(gen)
@@ -449,6 +579,195 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
     if agreement < TEACHER_AGREE_MIN:
         raise AssertionError(f"engine: teacher-forced agreement "
                              f"{agreement:.3f} < {TEACHER_AGREE_MIN}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the training step at full width
+# ---------------------------------------------------------------------------
+
+# Kernel path vs dense path of one micro step of the 8-layer model, both
+# bf16, relative to the dense value: the loss, and for every grad leaf
+# (each stacked over the layers) its norm and ||g_kernel - g_dense|| /
+# ||g_dense||. The paths round attention differently (the kernels round p
+# and ds to bf16 before their products; the dense path rounds the f32
+# softmax to bf16 before P V and runs its backward through autograd in
+# bf16). The loss averages 8192 tokens and a leaf's norm sums its
+# elements' squares, so both move far less than single elements; the
+# difference of a leaf carries every element's rounding through 8 layers
+# of backward. On an H100 (700 W) the gaps were 1.3e-5 (loss), at most
+# 2.2e-4 (leaf norms) and 0.012-0.022 (leaf differences). A fault in K2 or
+# K3 (say dk = 0) changes the wq, wk, wv leaves by the size of their
+# gradient, far past these limits.
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_LEAF_NORM_REL_TOL = 1e-3
+TRAIN_LEAF_DIFF_REL_TOL = 5e-2
+
+
+def _matmul_params(c):
+    q_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
+    per_layer = (c.dim * q_dim + 2 * c.dim * kv_dim + q_dim * c.dim
+                 + 3 * c.dim * c.ffn_dim)
+    return c.n_layers * per_layer + c.dim * c.vocab_size
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted paths of a nested dict's leaves, in tree_leaves order."""
+    if isinstance(tree, dict):
+        return [name for key in sorted(tree)
+                for name in _leaf_names(tree[key], f"{prefix}{key}.")]
+    return [prefix[:-1]]
+
+
+def _loss_and_grads(params, tokens, config):
+    leaves = tree_leaves(params)
+    live = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss = llama.next_token_loss(tree_unflatten(params, live), tokens,
+                                     config)
+        grads = torch.autograd.grad(loss, live)
+    return float(loss.detach()), grads
+
+
+def kernel_vs_dense(params, tokens, config):
+    """One micro step's loss and grads on the kernel path against the
+    dense path (``use_flash_attention=False``), at the TRAIN_* limits."""
+    loss_k, grads_k = _loss_and_grads(params, tokens, config)
+    dense = dataclasses.replace(config, use_flash_attention=False)
+    loss_d, grads_d = _loss_and_grads(params, tokens, dense)
+    leaves = {}
+    for name, gk, gd in zip(_leaf_names(params), grads_k, grads_d):
+        gk, gd = gk.float(), gd.float()
+        nd = float(torch.linalg.vector_norm(gd))
+        leaves[name] = dict(
+            norm_rel=abs(float(torch.linalg.vector_norm(gk)) - nd) / nd,
+            diff_rel=float(torch.linalg.vector_norm(gk - gd)) / nd)
+    out = dict(loss=[loss_k, loss_d],
+               loss_rel=abs(loss_k - loss_d) / abs(loss_d),
+               grad_norm=[float(global_norm(grads_k)),
+                          float(global_norm(grads_d))],
+               leaves=leaves)
+    bad = [n for n, v in leaves.items()
+           if not (v["norm_rel"] <= TRAIN_LEAF_NORM_REL_TOL
+                   and v["diff_rel"] <= TRAIN_LEAF_DIFF_REL_TOL)]
+    if bad or not out["loss_rel"] <= TRAIN_LOSS_REL_TOL:
+        raise AssertionError(
+            f"train: kernel vs dense outside loss {TRAIN_LOSS_REL_TOL}, "
+            f"leaf norm {TRAIN_LEAF_NORM_REL_TOL}, leaf difference "
+            f"{TRAIN_LEAF_DIFF_REL_TOL} (leaves {bad}): {out}")
+    return out
+
+
+def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
+    """``ElasticTrainer.train_step`` fed as examples/llama_elastic_pretrain.py
+    feeds it (sampler → loader → stack_microbatches, without worker.init and
+    the checkpointer): ``steps`` counted steps on fresh batches, the kernel
+    path against the dense path on one micro step, then one fixed batch for
+    3 steps, the middle one profiled. Returns the counted launches."""
+    c = config
+    L = c.n_layers
+    params = llama.init_params(
+        c, torch.Generator(device=device).manual_seed(SEED + 1), device)
+    opt = adamw(lr)
+    trainer = ElasticTrainer(
+        lambda p, t: llama.next_token_loss(p, t, c), opt, global_batch,
+        micro_batch, device=device)
+    accum = trainer.configure_for_world(plan_mesh(1))
+    state = make_train_state(params, opt)
+    rng = np.random.default_rng(SEED)
+    data = rng.integers(0, c.vocab_size, (global_batch * (steps + 2),
+                                          seq + 1), dtype=np.int32)
+    sampler = ElasticDistributedSampler(len(data), num_replicas=1, rank=0,
+                                        shuffle=True, seed=SEED)
+    loader = iter(ElasticDataLoader(data, trainer.micro_batch_global,
+                                    sampler=sampler))
+
+    def next_batch():
+        batch = stack_microbatches([next(loader) for _ in range(accum)])
+        sampler.record_batch(global_batch)
+        return batch
+
+    probe = [params["layers"]["wq"][0, :64, :64].clone(),
+             params["lm_head"][:64, :64].clone()]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    # the main path: `steps` train steps, counted
+    fa.reset_launch_counts()
+    losses, norms, step_s = [], [], []
+    for _ in range(steps):
+        batch = next_batch()
+        _sync(device)
+        t0 = time.perf_counter()
+        state, res = trainer.train_step(state, batch)
+        losses.append(float(res.loss))
+        norms.append(float(res.grad_norm))
+        step_s.append(time.perf_counter() - t0)
+    counts = _launches()
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_fwd"] = 2 * L * accum * steps  # forward + remat recompute
+    want["flash_bwd_dq"] = want["flash_bwd_dkv"] = L * accum * steps
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    moved = [not torch.equal(a, b) for a, b in zip(
+        probe, [params["layers"]["wq"][0, :64, :64],
+                params["lm_head"][:64, :64]])]
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))
+            and all(moved) and int(state["step"]) == steps):
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}, "
+                             f"params moved {moved}")
+    peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
+               if device.type == "cuda" else None)
+
+    # kernel path vs dense path on one micro step
+    fixed = next_batch()
+    versus_dense = kernel_vs_dense(
+        params, torch.as_tensor(fixed[0]).to(device), c)
+
+    # one fixed batch, 3 steps: its loss must fall step over step
+    fixed_losses = []
+
+    def fixed_step():
+        nonlocal state
+        state, res = trainer.train_step(state, fixed)
+        fixed_losses.append(float(res.loss))
+
+    fixed_step()
+    profile = device_profile(fixed_step, 1, device, top=12)
+    fixed_step()
+    if not all(b < a for a, b in zip(fixed_losses, fixed_losses[1:])):
+        raise AssertionError(f"train: fixed-batch loss did not fall: "
+                             f"{fixed_losses}")
+
+    # the f32 lm_head product (TF32 off): 3 GEMMs a micro step
+    x32 = torch.randn((micro_batch * seq, c.dim), device=device)
+    w32 = torch.randn((c.dim, c.vocab_size), device=device)
+    lm_head_ms = time_ms(lambda: torch.matmul(x32, w32), 5, device)
+    del x32, w32
+
+    tokens = global_batch * seq
+    step_mean = float(np.mean(step_s[1:])) if steps > 1 else step_s[0]
+    flops = (6 * _matmul_params(c) * tokens
+             + 12 * c.head_dim * _visible_pairs(seq, seq, True)
+             * global_batch * c.n_heads * L)
+    emit(dict(
+        phase="train", config=dict(dim=c.dim, n_layers=L, n_heads=c.n_heads,
+                                   n_kv_heads=c.n_kv_heads,
+                                   ffn_dim=c.ffn_dim, vocab=c.vocab_size,
+                                   remat=c.remat,
+                                   remat_policy=c.remat_policy),
+        num_params=llama.num_params(c), global_batch=global_batch,
+        micro_batch=micro_batch, grad_accum=accum, seq_len=seq,
+        steps=steps, losses=losses, grad_norms=norms, step_s=step_s,
+        step_s_mean_after_first=step_mean, tokens_per_s=tokens / step_mean,
+        model_flops_per_step=flops,
+        mfu=flops / step_mean / BF16_FLOP_PER_S, launches=counts,
+        peak_memory_gb=peak_gb,
+        kernel_vs_dense=versus_dense,
+        fixed_batch_losses=fixed_losses, step_profile=profile,
+        lm_head_f32_gemm_ms=lm_head_ms,
+        lm_head_f32_share_of_step=3 * accum * lm_head_ms / 1e3 / step_mean,
+    ))
     return counts
 
 
@@ -482,6 +801,7 @@ def main() -> int:
 
     config = llama.LlamaConfig()
     kernels = kernel_phase(device, fwd_shape=(8, 32, 2048, 128),
+                           bwd_shape=(4, 32, 2048, 128),
                            decode_shape=(8, config.n_kv_heads,
                                          config.n_heads // config.n_kv_heads,
                                          config.head_dim, 4096))
@@ -506,10 +826,19 @@ def main() -> int:
     main_path.append(engine_phase(
         params, config, device, slots=8, cache_len=4096, n_requests=16,
         len_range=(100, 1500), new_range=(16, 48), n_teacher=4))
+    del params  # the serving weights make room for the training state
+    torch.cuda.empty_cache()
+    main_path.append(train_phase(
+        dataclasses.replace(config, n_layers=8), device, global_batch=8,
+        micro_batch=4, seq=2048, steps=3, lr=3e-4))
 
     replaces = {
         "flash_fwd": ("dlrover_tpu_torch/ops/csrc/flash_fwd.cu",
                       "dlrover_tpu/ops/flash_attention.py:98"),
+        "flash_bwd_dq": ("dlrover_tpu_torch/ops/csrc/flash_bwd.cu",
+                         "dlrover_tpu/ops/flash_attention.py:212"),
+        "flash_bwd_dkv": ("dlrover_tpu_torch/ops/csrc/flash_bwd.cu",
+                          "dlrover_tpu/ops/flash_attention.py:266"),
         "flash_decode_bf16": ("dlrover_tpu_torch/ops/csrc/flash_decode.cu",
                               "dlrover_tpu/ops/flash_attention.py:494"),
         "flash_decode_int8": ("dlrover_tpu_torch/ops/csrc/flash_decode.cu",
@@ -525,7 +854,8 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=tpu,
             launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-            bound_by=k["bound_by"], library_ms=k["library_ms"]))
+            bound_by=k["bound_by"], library_ms=k["library_ms"],
+            library=k["library"]))
     emit({"kernels": rows})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,6 +13,10 @@ def env_str(name: str, default: str = "") -> str:
 
 
 class ConfigKey:
+    LOG_LEVEL = "DLROVER_TPU_LOG_LEVEL"
+    # trainer/data.py: the auto-tuner's dataloader config file, inherited
+    # by agent-forked workers
+    PARAL_CONFIG_FILE = "DLROVER_TPU_PARAL_CONFIG_FILE"
     # models/decode.py fused-kernel routing: 1/0 force the decode kernel
     # on/off; default "auto" follows the policy in flash_decode_wanted
     FLASH_DECODE = "DLROVER_TPU_FLASH_DECODE"

@@ -1,4 +1,4 @@
-"""Carry a JAX params pytree over to the port.
+"""Carry a JAX params pytree, or a whole train state, over to the port.
 
 ``params_from_jax`` takes the nested dict of arrays that
 ``dlrover_tpu.models.llama.init_params`` builds (after ``np.asarray`` on
@@ -10,6 +10,11 @@ bf16 leaves come out of ``np.asarray`` as ``ml_dtypes.bfloat16``, a type
 neither torch nor the card machine (which has no ``ml_dtypes``) knows. They
 are carried by dtype NAME: the 16-bit pattern is viewed as ``uint16`` and
 reinterpreted as ``torch.bfloat16``, bit for bit.
+
+``train_state_from_jax`` carries the JAX trainer's state (params, the
+``optax.adamw`` state and ``step``) over to the port's
+``trainer.elastic`` / ``trainer.optim`` layout, so a job trained by the JAX
+package resumes in the port.
 """
 
 from typing import Any, Dict
@@ -36,3 +41,31 @@ def params_from_jax(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return tensor_from_numpy(tree, device)
+
+
+def train_state_from_jax(state: Dict[str, Any], device="cuda"
+                         ) -> Dict[str, Any]:
+    """A JAX ``make_train_state`` dict, after any number of steps, → the
+    port's train state. The adam moments are found in ``opt_state`` (the
+    chain's ``ScaleByAdamState``: ``count``, ``mu``, ``nu``) and kept in
+    f32, as the port's ``adamw`` keeps them (optax's bf16 zeros before the
+    first step are the same numbers)."""
+    adam = next((s for s in state["opt_state"]
+                 if all(hasattr(s, f) for f in ("count", "mu", "nu"))), None)
+    if adam is None:
+        raise ValueError("opt_state holds no adam state (count, mu, nu)")
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        return tensor_from_numpy(tree, device).float()
+
+    def scalar(x):
+        return tensor_from_numpy(np.asarray(x, np.int32), device)
+
+    return {
+        "params": params_from_jax(state["params"], device),
+        "opt_state": {"count": scalar(adam.count), "mu": moments(adam.mu),
+                      "nu": moments(adam.nu)},
+        "step": scalar(state["step"]),
+    }

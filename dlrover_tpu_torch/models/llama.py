@@ -6,16 +6,25 @@ orientation), the same GQA / interleaved RoPE / RMSNorm / SwiGLU math,
 and f32 logits. So params carried over from JAX by
 :func:`dlrover_tpu_torch.convert.params_from_jax` run here as they are.
 
-Inference only for now: no remat and no backward (the training slice adds
-them). Sequence-parallel attention (ring / Ulysses) is not ported yet and
-raises.
+Training goes through autograd: the flash kernel is a
+``torch.autograd.Function`` and each layer may be rematerialised through
+``torch.utils.checkpoint`` (``remat`` / ``remat_policy``, the reference's
+``jax.checkpoint`` per scanned layer). Sequence-parallel attention (ring /
+Ulysses) is not ported yet and raises.
 """
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.ops.flash_attention import flash_attention, repeat_kv
@@ -33,6 +42,11 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # remat policy: "dots" saves the outputs of the matmuls with no batch
+    # dims (the x @ W projections) and recomputes the rest in backward,
+    # attention included; None = save nothing but the layer input
+    remat_policy: Optional[str] = "dots"
     # sequence-parallel attention strategy, as in the JAX config; any value
     # but None raises until ring/Ulysses are ported
     sp_attention: Optional[str] = None
@@ -51,11 +65,16 @@ class LlamaConfig:
         return self.dim // self.n_heads
 
     @staticmethod
+    def llama7b() -> "LlamaConfig":
+        """Llama-2-7B shapes (MHA: 32 kv heads) — 6.74B params."""
+        return LlamaConfig(n_kv_heads=32)
+
+    @staticmethod
     def tiny(vocab_size: int = 256) -> "LlamaConfig":
         """CI-sized config (the JAX ``LlamaConfig.tiny`` shapes)."""
         return LlamaConfig(
             vocab_size=vocab_size, dim=64, n_layers=2, n_heads=4,
-            n_kv_heads=2, ffn_dim=128, max_seq_len=128,
+            n_kv_heads=2, ffn_dim=128, max_seq_len=128, remat=False,
         )
 
 
@@ -176,22 +195,73 @@ def attention(x, layer, config: LlamaConfig, positions):
     return out @ layer["wo"]
 
 
-@torch.no_grad()
+def _dots_policy(ctx, func, *args, **kwargs):
+    """Counterpart of ``dots_with_no_batch_dims_saveable``: keep what
+    ``aten.mm``/``aten.addmm`` produce (``x @ W`` folds to them; attention's
+    batched products go to ``bmm`` and are recomputed with the rest)."""
+    if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_context(config):
+    """The config's remat_policy name as a checkpoint ``context_fn``."""
+    name = config.remat_policy
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts,
+                                 _dots_policy)
+    if name is None:
+        return noop_context_fn
+    raise ValueError(f"unknown remat_policy {name!r}")
+
+
+def _layer(x, layer, config: LlamaConfig, positions):
+    c = config
+    x = x + attention(rms_norm(x, layer["attn_norm"], c.norm_eps), layer, c,
+                      positions)
+    return x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+
+
 def forward(params: Dict, tokens, config: LlamaConfig):
     """tokens ``(B, S)`` int → logits ``(B, S, vocab)`` f32 (accumulated in
-    f32, as the JAX forward's ``preferred_element_type``)."""
+    f32, as the JAX forward's ``preferred_element_type``). Differentiable;
+    with ``config.remat`` and grad enabled, each layer is rematerialised
+    in backward under ``config.remat_policy``."""
     c = config
     check_supported(c)
     B, S = tokens.shape
     x = params["tok_embed"][tokens]
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    for li in range(c.n_layers):
-        layer = layer_params(params, li)
-        x = x + attention(rms_norm(x, layer["attn_norm"], c.norm_eps),
-                          layer, c, positions)
-        x = x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+    # one unbind per stacked weight: its backward stacks the L layer grads
+    # once, where indexing w[li] would build an (L, ...) grad per layer
+    names = list(params["layers"])
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    remat = c.remat and torch.is_grad_enabled()
+    context_fn = _remat_context(c) if remat else None
+    for weights in per_layer:
+        layer = dict(zip(names, weights))
+        if remat:
+            x = checkpoint(_layer, x, layer, c, positions,
+                           use_reentrant=False, context_fn=context_fn,
+                           preserve_rng_state=False)
+        else:
+            x = _layer(x, layer, c, positions)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     return torch.matmul(x.float(), params["lm_head"].float())
+
+
+def cross_entropy(logits, targets):
+    """Mean NLL as logsumexp minus the gathered logit, as the reference
+    (never the full log-probability tensor)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    return (lse - tgt).mean()
+
+
+def next_token_loss(params, tokens, config: LlamaConfig):
+    """Causal LM loss: predict tokens[1:] from tokens[:-1]."""
+    logits = forward(params, tokens[:, :-1], config)
+    return cross_entropy(logits, tokens[:, 1:])
 
 
 def num_params(config: LlamaConfig) -> int:

@@ -1,22 +1,24 @@
-"""Flash attention for the port: the prefill forward and the decode attend.
+"""Flash attention for the port: forward, backward and the decode attend.
 
-Counterpart of ``dlrover_tpu/ops/flash_attention.py``. Each public function
-has two implementations, chosen by where its tensors live:
+Counterpart of ``dlrover_tpu/ops/flash_attention.py``. Each kernel has two
+implementations, chosen by where its tensors live:
 
 - on a CUDA tensor it launches its hand-written kernel from ``csrc/``
-  (:func:`flash_attention` → ``flash_fwd.cu``, :func:`flash_decode_attention`
+  (the forward of :func:`flash_attention` → ``flash_fwd.cu``, its backward
+  :func:`flash_attention_bwd` → ``flash_bwd.cu``, :func:`flash_decode_attention`
   → ``flash_decode.cu``) and raises on anything that kernel does not take;
   there is no fallback;
 - on a CPU tensor it runs the plain PyTorch version beside it
-  (:func:`flash_attention_plain`, :func:`flash_decode_plain`), which the CPU
-  tests hold against the JAX package and which the card compares each
-  kernel with.
+  (:func:`flash_attention_plain`, :func:`flash_attention_bwd_plain`,
+  :func:`flash_decode_plain`), which the CPU tests hold against the JAX
+  package and which the card compares each kernel with.
+
+:func:`flash_attention` is a ``torch.autograd.Function`` (the counterpart of
+the reference's ``_flash`` custom VJP): it saves ``(q, k, v, o, lse)`` and
+its backward takes a cotangent on the returned lse too (the ring-merge path).
 
 Every kernel launch adds one to :data:`LAUNCHES` under the kernel's name,
 so a run can show that its main path went through the kernels.
-
-The autograd backward of :func:`flash_attention` comes with the training
-slice; until then it refuses inputs that require a gradient.
 """
 
 import ctypes
@@ -31,6 +33,8 @@ NEG_INF = float(-1e30)  # masked score; never -inf, as in the TPU kernels
 # kernel name → launches since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "flash_fwd": 0,
+    "flash_bwd_dq": 0,
+    "flash_bwd_dkv": 0,
     "flash_decode_bf16": 0,
     "flash_decode_int8": 0,
 }
@@ -39,6 +43,16 @@ _SIGNATURES = {
     "flash_fwd_bf16": (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
         + [ctypes.c_longlong] * 9
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ),
+    "flash_bwd_dq_bf16": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 12
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ),
+    "flash_bwd_dkv_bf16": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_longlong] * 12
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     ),
     "flash_decode_bf16": (
@@ -90,6 +104,17 @@ def repeat_kv(k, v, rep: int):
 # ---------------------------------------------------------------------------
 
 
+def _mask(Sq: int, Sk: int, causal: bool, device) -> torch.Tensor:
+    """``(Sq, Sk)`` visibility: ``col < Sk`` and, when causal, ``col <= row``
+    (top-left alignment: row is the absolute query index)."""
+    rows = torch.arange(Sq, device=device)[:, None]
+    cols = torch.arange(Sk, device=device)[None, :]
+    mask = cols < Sk
+    if causal:
+        mask = mask & (cols <= rows)
+    return mask
+
+
 def flash_attention_plain(q, k, v, causal: bool = True,
                           scale: Optional[float] = None):
     """Plain PyTorch version of the flash forward, in f32: returns
@@ -98,13 +123,8 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     alignment); a row with no visible key gives ``o = 0``, ``lse = -1e30``."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    Sq, Sk = q.shape[2], k.shape[2]
+    mask = _mask(q.shape[2], k.shape[2], causal, q.device)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    rows = torch.arange(Sq, device=q.device)[:, None]
-    cols = torch.arange(Sk, device=q.device)[None, :]
-    mask = cols < Sk
-    if causal:
-        mask = mask & (cols <= rows)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -115,25 +135,37 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     return o, lse
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
-    B, H, Sq, D = q.shape
-    Sk = k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.is_cuda and t.device == q.device,
-                 f"flash_attention: {name} must be on {q.device}")
+def _check_operands(what: str, device, **tensors) -> None:
+    """The kernels take bf16 ``(B, H, S, D)`` operands on one device with
+    the head dim contiguous and 16-byte aligned rows; raise otherwise."""
+    for name, t in tensors.items():
+        _require(t.is_cuda and t.device == device,
+                 f"{what}: {name} must be on {device}")
         _require(t.dtype == torch.bfloat16,
-                 f"flash_attention kernel takes bf16, {name} is {t.dtype}")
+                 f"{what} kernel takes bf16, {name} is {t.dtype}")
         _require(t.dim() == 4 and t.stride(-1) == 1,
-                 f"flash_attention: {name} must be (B, H, S, D) with the "
-                 "head dim contiguous")
+                 f"{what}: {name} must be (B, H, S, D) with the head dim "
+                 "contiguous")
         _require(all(s % 8 == 0 for s in t.stride()[:3])
                  and t.data_ptr() % 16 == 0,
-                 f"flash_attention: {name} rows must be 16-byte aligned")
+                 f"{what}: {name} rows must be 16-byte aligned")
+
+
+def _check_shapes(what: str, q, k, v) -> None:
+    B, H, _, D = q.shape
+    Sk = k.shape[2]
     _require(k.shape == (B, H, Sk, D) and v.shape == k.shape,
-             f"flash_attention: k/v shape {tuple(k.shape)}/"
-             f"{tuple(v.shape)} does not match q {tuple(q.shape)}")
+             f"{what}: k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not "
+             f"match q {tuple(q.shape)}")
     _require(D in (64, 128),
-             f"flash_attention kernel takes head_dim 64 or 128, not {D}")
+             f"{what} kernel takes head_dim 64 or 128, not {D}")
+
+
+def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
+    _check_operands("flash_attention", q.device, q=q, k=k, v=v)
+    _check_shapes("flash_attention", q, k, v)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -149,6 +181,151 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float):
     return o, lse
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def _delta(o, do, dlse):
+    """``rowsum(do * o) - dlse`` in f32, ``(B, H, Sq)``: computed outside the
+    kernels, as the reference does (``_bwd`` :341-345)."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, dlse=None,
+                              causal: bool = True,
+                              scale: Optional[float] = None):
+    """Plain PyTorch version of the flash backward, in f32: returns
+    ``(dq, dk, dv)`` in the dtypes of q, k, v. It is the reference's
+    recomputation formula, not autograd of the forward: ``p = exp(s - lse)``
+    masked to 0 after the exp, ``delta = rowsum(do * o) - dlse``,
+    ``ds = p * (do v^T - delta)``, ``dq = scale * ds k``,
+    ``dk = scale * ds^T q``, ``dv = p^T do``. ``dlse`` None means zeros."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    mask = _mask(q.shape[2], k.shape[2], causal, q.device)
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    s = torch.where(mask, torch.matmul(qf, kf.transpose(-1, -2)) * scale,
+                    NEG_INF)
+    p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - _delta(o, do, dlse)[..., None])
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_layout(t):
+    """``t`` itself when the kernels can read it through its strides (head
+    dim contiguous, 16-byte aligned rows), else a contiguous copy: autograd
+    may hand over a broadcast or a misaligned view as ``do``."""
+    if (t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.contiguous()
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    """What both backward kernels take; returns the stride arguments."""
+    what = "flash_attention_bwd"
+    _check_operands(what, q.device, q=q, k=k, v=v, do=do)
+    _check_shapes(what, q, k, v)
+    _require(do.shape == q.shape, f"{what}: do must match q")
+    B, H, Sq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        _require(t.device == q.device and t.dtype == torch.float32
+                 and t.shape == (B, H, Sq) and t.is_contiguous(),
+                 f"{what}: {name} must be contiguous f32 ({B}, {H}, {Sq}) "
+                 f"on {q.device}")
+    return [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3]]
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
+                       scale: float):
+    """K2 (``flash_bwd.cu`` ``flash_bwd_dq_bf16``): dq in q's dtype."""
+    strides = _check_bwd(q, k, v, do, lse, delta)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    dq = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0:
+        return dq
+    rc = _entry("flash_bwd", "flash_bwd_dq_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Sq, Sk, D,
+        *strides, float(scale), int(bool(causal)), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dq")
+    LAUNCHES["flash_bwd_dq"] += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
+                        scale: float):
+    """K3 (``flash_bwd.cu`` ``flash_bwd_dkv_bf16``): dk, dv in k's dtype."""
+    strides = _check_bwd(q, k, v, do, lse, delta)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    dk = torch.empty((B, H, Sk, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, H, Sk, D), dtype=v.dtype, device=v.device)
+    if dk.numel() == 0:
+        return dk, dv
+    rc = _entry("flash_bwd", "flash_bwd_dkv_bf16")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, H, Sq, Sk, D, *strides, float(scale), int(bool(causal)),
+        _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dkv")
+    LAUNCHES["flash_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Backward of :func:`flash_attention` from its saved ``(q, k, v, o,
+    lse)`` and the cotangents ``do`` and ``dlse`` (None means zeros).
+    Returns ``(dq, dk, dv)``. On CUDA tensors it launches K2 then K3 of
+    ``flash_bwd.cu``; on CPU tensors it runs
+    :func:`flash_attention_bwd_plain`."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not any(t.is_cuda for t in (q, k, v, o, lse, do)):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, causal,
+                                         scale)
+    delta = _delta(o, do, dlse).contiguous()
+    do = _kernel_layout(do)
+    lse = lse.contiguous()
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the reference's ``_flash`` custom VJP (:423-454)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        if any(t.is_cuda for t in (q, k, v)):
+            o, lse = _flash_fwd_cuda(q, k, v, causal, scale)
+        else:
+            o, lse = flash_attention_plain(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        # an output that got no gradient arrives as zeros (autograd
+        # materialises it), so an absent lse cotangent reads as zeros
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, dlse,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q, k, v,
     causal: bool = True,
@@ -157,29 +334,23 @@ def flash_attention(
     block_k: int = 1024,
     return_lse: bool = False,
 ):
-    """Fused blockwise attention, forward only. q/k/v: ``(B, H, S, D)``;
+    """Fused blockwise attention with its backward. q/k/v: ``(B, H, S, D)``;
     GQA callers repeat KV heads first (:func:`repeat_kv`).
 
     Returns ``o`` ``(B, H, Sq, D)``, plus the per-row log-sum-exp
-    ``(B, H, Sq)`` f32 when ``return_lse``. On CUDA tensors it launches the
-    ``flash_fwd.cu`` kernel (bf16, head_dim 64 or 128, any lengths); on CPU
-    tensors it runs :func:`flash_attention_plain`.
+    ``(B, H, Sq)`` f32 when ``return_lse``; gradients flow from both. On
+    CUDA tensors the forward launches ``flash_fwd.cu`` and the backward
+    ``flash_bwd.cu`` (bf16, head_dim 64 or 128, any lengths); on CPU
+    tensors they run :func:`flash_attention_plain` and
+    :func:`flash_attention_bwd_plain`.
 
-    ``block_q``/``block_k`` keep the JAX signature; the CUDA kernel tiles
-    64 x 64 whatever they say, and the plain version does not tile.
+    ``block_q``/``block_k`` keep the JAX signature; the CUDA kernels tile
+    64 x 64 whatever they say, and the plain versions do not tile.
     """
     del block_q, block_k
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet (it lands with the "
-            "training slice); call it under torch.no_grad()")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if any(t.is_cuda for t in (q, k, v)):
-        o, lse = _flash_fwd_cuda(q, k, v, causal, scale)
-    else:
-        o, lse = flash_attention_plain(q, k, v, causal, scale)
+    o, lse = _FlashAttention.apply(q, k, v, bool(causal), float(scale))
     return (o, lse) if return_lse else o
 
 

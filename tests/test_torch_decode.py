@@ -186,3 +186,27 @@ def test_sampling_uses_the_generator():
     assert torch.equal(a, b) and a.dtype == torch.int32
     top5 = torch.topk(logits, 5, dim=-1).indices
     assert all(int(a[i]) in top5[i].tolist() for i in range(4))
+
+
+def test_serving_entry_points_build_no_graph():
+    """The model forward is differentiable now; the serving entry points
+    keep their own no_grad, so params that require grad (as in a trainer
+    sharing them) still build no autograd graph and hold no activations."""
+    from dlrover_tpu_torch.serving.engine import BatchDecodeEngine
+
+    _, tc, _, tparams, tokens = _setup(use_flash=True)
+    for t in [*tparams["layers"].values(), tparams["tok_embed"],
+              tparams["lm_head"], tparams["final_norm"]]:
+        t.requires_grad_(True)
+    prompt = torch.from_numpy(tokens[:, :8])
+    logits, cache = td.prefill(tparams, prompt, tc, 16)
+    step_logits, cache = td.decode_step(tparams, prompt[:, -1], cache, tc)
+    out = td.generate(tparams, prompt, tc, None, 3, temperature=0.0)
+    assert all(t.grad_fn is None for t in (logits, step_logits, out))
+    assert all(t.grad_fn is None for t in cache["k"] + cache["v"])
+    engine = BatchDecodeEngine(tparams, tc, slots=2, cache_len=16,
+                               device="cpu")
+    engine.insert(engine.prefill_rows([3, 1, 4], 8), 0)
+    engine.step([1, 0], [True, False])
+    assert all(t.grad_fn is None for t in engine._k + engine._v)
+    assert tl.forward(tparams, prompt, tc).grad_fn is not None

@@ -4,7 +4,9 @@ The same seeded numpy inputs go through ``dlrover_tpu.ops.flash_attention``
 (Pallas in interpret mode on the CPU, as tests/test_flash_attention.py runs
 it) and through ``dlrover_tpu_torch.ops.flash_attention`` on CPU tensors,
 which takes the plain PyTorch version of each kernel. f32 throughout, at the
-reference's own tolerance (2e-5). The CUDA kernels themselves are held
+reference's own tolerances (2e-5 forward, 1e-4 for grads). The backward is
+held against ``jax.vjp`` of the Pallas ``flash_attention`` (its custom VJP,
+so the Pallas backward kernels). The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py.
 """
 
@@ -61,13 +63,112 @@ def test_flash_forward_default_output_is_o_only():
     assert isinstance(o, torch.Tensor) and o.shape == q.shape
 
 
-def test_flash_forward_refuses_grad_inputs():
+GRAD_ATOL = 1e-4
+BWD_CASES = [
+    (2, 3, 64, 64, 32, True),     # causal
+    (2, 3, 64, 64, 32, False),    # non-causal
+    (2, 3, 56, 56, 32, True),     # ragged: S not a block multiple
+    (2, 2, 32, 48, 16, False),    # cross: Sq < Sk
+    (2, 2, 40, 24, 16, True),     # cross + causal, Sq > Sk
+    (2, 2, 24, 40, 16, True),     # cross + causal, Sq < Sk
+]
+
+
+def _bwd_inputs(B, H, Sq, Sk, D, seed):
+    rng = np.random.default_rng(seed)
+    q = _normal(rng, (B, H, Sq, D))
+    k = _normal(rng, (B, H, Sk, D))
+    v = _normal(rng, (B, H, Sk, D))
+    do = _normal(rng, (B, H, Sq, D))
+    dlse = _normal(rng, (B, H, Sq))
+    return q, k, v, do, dlse
+
+
+def _jax_vjp(q, k, v, do, dlse, causal):
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=causal, block_q=16,
+                                   block_k=16, return_lse=True)
+
+    (o, lse), vjp = jax.vjp(f, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v))
+    return o, lse, vjp((jnp.asarray(do), jnp.asarray(dlse)))
+
+
+@pytest.mark.parametrize("with_dlse", [False, True])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", BWD_CASES)
+def test_flash_backward_matches_pallas_vjp(B, H, Sq, Sk, D, causal,
+                                           with_dlse):
+    q, k, v, do, dlse = _bwd_inputs(B, H, Sq, Sk, D, Sq * 7 + Sk)
+    if not with_dlse:
+        dlse = np.zeros_like(dlse)
+    _, _, ref = _jax_vjp(q, k, v, do, dlse, causal)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o, lse = tfa.flash_attention(tq, tk, tv, causal=causal, return_lse=True)
+    outs, cots = ((o, lse), (torch.from_numpy(do), torch.from_numpy(dlse)))
+    if not with_dlse:  # lse unused: its cotangent is absent, read as zeros
+        outs, cots = (o,), (torch.from_numpy(do),)
+    got = torch.autograd.grad(outs, (tq, tk, tv), cots)
+    for name, g, r in zip("dq dk dv".split(), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", BWD_CASES)
+def test_flash_backward_plain_matches_pallas_vjp(B, H, Sq, Sk, D, causal):
+    """The plain backward from the forward's saved (o, lse): what the CUDA
+    kernels are held against on the card."""
+    q, k, v, do, dlse = _bwd_inputs(B, H, Sq, Sk, D, Sq + Sk)
+    o, lse, ref = _jax_vjp(q, k, v, do, dlse, causal)
+    got = tfa.flash_attention_bwd_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse)),
+        torch.from_numpy(do), torch.from_numpy(dlse), causal=causal)
+    for name, g, r in zip("dq dk dv".split(), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_flash_backward_lse_only_cotangent():
+    """Grads flowing only through the returned lse (the ring-merge path),
+    against the reference test's dense oracle: jax.grad of sum(lse^2)."""
+    q, k, v, _, _ = _bwd_inputs(2, 2, 32, 32, 16, 11)
+
+    def loss_ref(q, k, v):
+        s = jnp.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+        return (jax.nn.logsumexp(s, axis=-1) ** 2).sum()
+
+    ref = jax.grad(loss_ref, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    _, lse = tfa.flash_attention(tq, tk, tv, causal=False, return_lse=True)
+    got = torch.autograd.grad((lse ** 2).sum(), (tq, tk, tv))
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL)
+
+
+def test_flash_backward_handles_strided_and_broadcast_cotangent():
+    """Autograd may hand the backward a transposed view or a broadcast as
+    ``do``; the result equals the one for the same values laid out
+    contiguously."""
+    q, k, v, do, _ = _bwd_inputs(1, 2, 16, 16, 8, 3)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv)
+    for cot in (torch.from_numpy(do).transpose(1, 2).contiguous()
+                .transpose(1, 2), torch.ones(()).expand_as(o)):
+        got = torch.autograd.grad(o, (tq, tk, tv), cot, retain_graph=True)
+        ref = torch.autograd.grad(o, (tq, tk, tv), cot.contiguous(),
+                                  retain_graph=True)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r)
+
+
+def test_flash_forward_under_no_grad_builds_no_graph():
     q = torch.zeros((1, 1, 8, 8), requires_grad=True)
     k = v = torch.zeros((1, 1, 8, 8))
-    with pytest.raises(NotImplementedError, match="backward"):
-        tfa.flash_attention(q, k, v)
     with torch.no_grad():
-        tfa.flash_attention(q, k, v)
+        o = tfa.flash_attention(q, k, v)
+    assert o.grad_fn is None and not o.requires_grad
+    assert tfa.flash_attention(q, k, v).grad_fn is not None
 
 
 def test_repeat_kv_matches_jnp_repeat():

@@ -93,6 +93,10 @@ def test_default_device_raises_without_cuda():
         BatchDecodeEngine(params, c, slots=2, cache_len=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_kv_cache(c, 2)
+    from dlrover_tpu_torch.trainer.elastic import ElasticTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticTrainer(None, None, 8, 4)
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
@@ -111,7 +115,8 @@ def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
 def test_build_knows_both_kernel_sources():
     from dlrover_tpu_torch.ops import _build
 
-    assert set(_build.sources()) == {"flash_fwd", "flash_decode"}
+    assert set(_build.sources()) == {"flash_fwd", "flash_bwd",
+                                     "flash_decode"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     name = _build.library_path("flash_fwd").name
     assert name.startswith("flash_fwd-") and name.endswith(".so")
