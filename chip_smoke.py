@@ -11,7 +11,10 @@ four phases, each printing one JSON line (the serving runs one each):
    plain version's time and, as a yardstick only, the time of PyTorch's
    ``scaled_dot_product_attention`` on the same inputs (forward, decode)
    or of its autograd backward (for the backward pair; the port never
-   calls it);
+   calls it). The forward (K1) is also held where its 128 x 128 tiles end
+   (S 127/128/129, Sq 1, Sk 64, Sk 0), on ragged, cross and head_dim-64
+   shapes and with q passed transposed, and timed at both prefill shapes
+   and the training shape with its TFLOP/s;
 2. ``generate`` — ``decode.generate`` on ``LlamaConfig()`` at full width
    and depth (the Llama-2-7B shape with 8 KV heads, random weights from a
    seed), batch 8, greedy: (a) bf16 cache, prompt 1024, 64 new tokens,
@@ -205,16 +208,38 @@ def _worst(checks):
 # ---------------------------------------------------------------------------
 
 
-def _fwd_case(gen, device, B, H, Sq, Sk, D, causal):
-    q, k, v = (torch.randn((B, H, s, D), generator=gen, device=device)
-               .to(torch.bfloat16) for s in (Sq, Sk, Sk))
+def _fwd_case(gen, device, B, H, Sq, Sk, D, causal, transposed_q=False):
+    """K1 against its plain version on one case; ``transposed_q`` passes q
+    as the ``(B, S, H, D) -> (B, H, S, D)`` view the models pass, and the
+    result must also equal the one for the same q laid out contiguously.
+    With Sk = 0 the plain version has no key to reduce over: every row must
+    then give o = 0 and lse = -1e30 exactly."""
+    shape = (B, Sq, H, D) if transposed_q else (B, H, Sq, D)
+    q = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    if transposed_q:
+        q = q.transpose(1, 2)
+    k, v = (torch.randn((B, H, Sk, D), generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(2))
     o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    tag = (f"flash_fwd B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal}"
+           + (" q transposed" if transposed_q else ""))
+    if Sk == 0:
+        if not (torch.equal(o, torch.zeros_like(o))
+                and bool((lse == fa.NEG_INF).all())):
+            raise AssertionError(f"{tag}: rows with no key must give o = 0 "
+                                 f"and lse = {fa.NEG_INF}")
+        return (q, k, v), dict(max_abs_err=0.0, rel_l2=0.0,
+                               share_of_limit=0.0)
     o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal=causal)
-    tag = f"flash_fwd B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal}"
     check = _check_close(tag, o, o_ref)
     lse_err = float((lse - lse_ref).abs().max())
     if not lse_err <= LSE_ATOL:
         raise AssertionError(f"{tag} lse: max err {lse_err:.4g} > {LSE_ATOL}")
+    if transposed_q:
+        o2, lse2 = fa.flash_attention(q.contiguous(), k, v, causal=causal,
+                                      return_lse=True)
+        if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"{tag}: differs from the contiguous q")
     return (q, k, v), check
 
 
@@ -294,36 +319,61 @@ def bwd_kernel_rows(gen, device, shape, iters):
     return rows
 
 
-def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10):
+def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
+                 fwd_timed=()):
     """Hold every kernel against its plain version; returns the JSON rows
-    of the kernel table (without launches)."""
+    of the kernel table (without launches). K1 is timed at ``fwd_shape``
+    and at each causal ``(B, H, S)`` of ``fwd_timed`` (same head_dim)."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     B, H, S, D = fwd_shape
     cases = {}
     (q, k, v), check = _fwd_case(gen, device, B, H, S, S, D, True)
-    extra = {  # ragged, cross (both causal alignments), head_dim 64
-        "ragged S1000": _fwd_case(gen, device, 2, 8, 1000, 1000, D,
-                                  True)[1],
-        "cross Sq300 Sk1000 D64": _fwd_case(gen, device, 2, 8, 300, 1000,
-                                            64, False)[1],
-        "cross causal Sq1000 Sk300 D64": _fwd_case(gen, device, 2, 8, 1000,
-                                                   300, 64, True)[1],
+    # edges of the 128 x 128 tiles, ragged and cross shapes (both causal
+    # alignments), head_dim 64, and q as the models pass it
+    extra = {
+        name: _fwd_case(gen, device, *args)[1] for name, args in (
+            ("S127", (2, 8, 127, 127, D, True)),
+            ("S128", (2, 8, 128, 128, D, True)),
+            ("S129", (2, 8, 129, 129, D, True)),
+            ("Sq1 Sk1000 causal", (2, 8, 1, 1000, D, True)),
+            ("Sq1 Sk1000", (2, 8, 1, 1000, D, False)),
+            ("Sq300 Sk64 causal", (2, 8, 300, 64, D, True)),
+            ("Sq300 Sk0 causal", (2, 8, 300, 0, D, True)),
+            ("ragged S1000", (2, 8, 1000, 1000, D, True)),
+            ("cross Sq300 Sk1000 D64", (2, 8, 300, 1000, 64, False)),
+            ("cross causal Sq1000 Sk300 D64", (2, 8, 1000, 300, 64, True)),
+            ("S1000 D64", (2, 8, 1000, 1000, 64, True)),
+            ("q transposed S1000", (2, 8, 1000, 1000, D, True, True)),
+        )
     }
-    nbytes = 4 * B * H * S * D * 2 + B * H * S * 4
-    flops = 4 * D * B * H * _visible_pairs(S, S, True)
-    bms, by = bound_ms(nbytes, flops)
+    timings = {}
+    for tb, th, ts in dict.fromkeys([(B, H, S), *fwd_timed]):
+        if (tb, th, ts) == (B, H, S):
+            tq, tk, tv = q, k, v
+        else:
+            tq, tk, tv = (torch.randn((tb, th, ts, D), generator=gen,
+                                      device=device).to(torch.bfloat16)
+                          for _ in range(3))
+        flops = 4 * D * tb * th * _visible_pairs(ts, ts, True)
+        bms, by = bound_ms(4 * tb * th * ts * D * 2 + tb * th * ts * 4, flops)
+        ms = time_ms(lambda: fa.flash_attention(tq, tk, tv, causal=True),
+                     iters, device)
+        timings[f"B{tb} H{th} S{ts}"] = dict(
+            ms=ms, tflops=flops / ms / 1e9, bound_ms=bms, bound_by=by,
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    tq, tk, tv, is_causal=True), iters, device))
+        del tq, tk, tv
+    main = timings[f"B{B} H{H} S{S}"]
     cases["flash_fwd"] = dict(
         shape=f"B{B} H{H} S{S} D{D} causal bf16", **check,
-        other_cases=extra,
-        ms=time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                   iters, device),
+        other_cases=extra, ms=main["ms"], tflops=main["tflops"],
         plain_ms=time_ms(lambda: fa.flash_attention_plain(q, k, v, True),
                          max(1, iters // 3), device),
-        bound_ms=bms, bound_by=by,
-        library_ms=time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True), iters, device),
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"],
         library="scaled_dot_product_attention (causal)",
+        timings=timings,
     )
     del q, k, v
     cases.update(bwd_kernel_rows(gen, device, bwd_shape, iters))
@@ -775,17 +825,27 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
 
 
 def _build_report():
+    """Build every kernel and report, per library, what ``-Xptxas -v``
+    says (registers, shared memory, spills) and any compiler warning. A
+    ``setmaxnreg`` that ptxas ignored (C7508) fails the run: the forward's
+    consumer warpgroups would then run without the registers they take."""
     t0 = time.perf_counter()
     libs = _build.build()
-    info = {}
+    info, warnings = {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".so.log")
         lines = log.read_text().splitlines() if log.exists() else []
         info[name] = [ln.replace("ptxas info    : ", "").strip()
                       for ln in lines if "Compiling entry" in ln
                       or "Used" in ln or "spill" in ln]
+        warnings[name] = [ln.strip() for ln in lines
+                          if "warning" in ln.lower() or "(C75" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "ptxas": info})
+          "ptxas": info, "warnings": warnings})
+    ignored = [w for ws in warnings.values() for w in ws
+               if "C7508" in w or "setmaxnreg ignored" in w]
+    if ignored:
+        raise AssertionError(f"ptxas ignored setmaxnreg: {ignored}")
 
 
 def main() -> int:
@@ -801,6 +861,8 @@ def main() -> int:
 
     config = llama.LlamaConfig()
     kernels = kernel_phase(device, fwd_shape=(8, 32, 2048, 128),
+                           fwd_timed=((8, 32, 1024), (8, 32, 2048),
+                                      (4, 32, 2048)),
                            bwd_shape=(4, 32, 2048, 128),
                            decode_shape=(8, config.n_kv_heads,
                                          config.n_heads // config.n_kv_heads,

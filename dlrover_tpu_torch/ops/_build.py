@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into a shared library, which is
-loaded with :mod:`ctypes`. No PyTorch header is compiled: a source builds
-in seconds where ``torch.utils.cpp_extension`` takes minutes. Libraries
-are named by a digest of their source and flags, so an edited source
-rebuilds and an unchanged one is reused. They land in ``ops/build/``
+loaded with :mod:`ctypes`; the ``csrc/*.cuh`` headers (the shared Hopper
+helpers) are included by the sources, not built on their own. No PyTorch
+header is compiled: a source builds in seconds where
+``torch.utils.cpp_extension`` takes minutes. Libraries are named by a
+digest of their source, every header and the flags, so an edited source or
+header rebuilds and an unchanged tree is reused. They land in ``ops/build/``
 (listed in ``.gitignore``); the compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside each as ``<lib>.log``.
 
@@ -58,10 +60,11 @@ def sources() -> Dict[str, Path]:
 
 
 def library_path(name: str) -> Path:
-    src = sources()[name]
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
+    h = hashlib.sha256(sources()[name].read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

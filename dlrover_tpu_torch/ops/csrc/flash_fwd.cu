@@ -7,51 +7,97 @@
 //   lse = m + log(l) per query row             (B, H, Sq), f32
 // with the mask `col < Sk` and, when causal, `col <= row` (top-left
 // alignment: row is the absolute query index, so Sq != Sk keeps the TPU
-// kernel's meaning, not FlashAttention-2's bottom-right one). Masked scores
-// are -1e30, never -inf; a row with no visible key gives o = 0 and
-// lse = -1e30.
+// kernel's meaning, not FlashAttention-2's bottom-right one). A row with no
+// visible key gives o = 0 and lse = -1e30 (the TPU kernel's masked score);
+// Sk = 0 is such a case for every row and takes a small fill kernel.
 //
-// What bounds it on this card: the two products are 4*D FLOP per visible
-// (query, key) pair, against 2*D*2 bytes of q and o and 2*D*2 bytes of k and
-// v per row; at the serving prefill's lengths (S >= 1024) that is far above
-// the H100's ~295 FLOP/byte ridge, so the tensor cores (989 TFLOP/s bf16)
-// bound it, not the 3.35 TB/s of HBM.
+// What bounds it on this card: operations. The two products are 4*D FLOP
+// per visible (query, key) pair against 2*D*2 bytes of q and o per query
+// row and 2*D*2 bytes of k and v per key row; at the serving prefill's and
+// the training step's lengths (S >= 1024) that is far above the H100's ~295
+// FLOP/byte ridge, so the tensor cores (989 TFLOP/s bf16) bound it.
 //
-// Design. The TPU kernel walks K blocks on a sequential grid axis and carries
-// the online-softmax state (m, l, acc) in VMEM scratch from one grid step to
-// the next. GPU blocks run in parallel and carry nothing over, so here one
-// block owns one (b, h, 64-row Q tile) and loops over the K tiles itself,
-// with the state in registers:
-//   - 4 warps, 16 query rows each. A warp's Q rows are loaded once into
-//     mma.sync A fragments (registers) and reused for every K tile.
-//   - Each 64-key tile of K is staged row-major and V transposed in shared
-//     memory (rows padded by 16 bytes so the fragment reads hit distinct
-//     banks). S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products
-//     with f32 accumulators; P goes from the S accumulators straight into
-//     the A fragments of the PV product (rounded to bf16), never through
-//     shared memory.
-//   - Row max and row sum live with the 4 lanes that share a row (quad
-//     shuffles); the running sum stays per lane and is reduced once at the
-//     end, since every lane of a row scales it by the same factor.
-//   - Under causal masking, K tiles wholly in the future of the Q tile are
-//     never loaded (the TPU kernel's `pl.when` skip).
-// Simple first: one tile in flight, no cp.async/TMA pipelining, no wgmma or
-// warp specialisation. Those are later work; see PERF.md for its times.
+// Design, for that bound. Only wgmma reaches the tensor cores' full rate,
+// and only if the operands are already in shared memory when it issues:
+//   - One CTA owns 128 query rows of one (b, h): two consumer warpgroups of
+//     64 rows each, and a producer warpgroup that gives its registers to the
+//     consumers (setmaxnreg 24 / 240). The roles split once and never
+//     reconverge.
+//   - The producer's one thread loads Q once and then K and V tiles of 128
+//     keys by TMA into a ring of kStages stages (128-byte swizzle; 4-D
+//     tensor maps over (D, S, H, B) with the caller's strides, so a
+//     transposed q needs no copy and rows past S arrive as zeros without
+//     touching the next head). Each stage has full and empty barriers for
+//     K and for V apart: Q K^T starts before V lands, and all 256 consumer
+//     threads release a K tile as soon as Q K^T has read it, so the next
+//     K tile loads while this tile's P V still runs.
+//   - S = Q K^T is wgmma m64n128k16 with Q and K both K-major in shared
+//     memory. P is the S accumulator rounded to bf16 in registers: for a
+//     16-bit type the accumulator layout of one product is the A-register
+//     fragment of the next, so O += P V is wgmma with P in registers and V
+//     read MN-major (the transpose bit), with no transposed copy of V.
+//   - Softmax in registers with ex2.approx and scale*log2(e) folded into one FMA;
+//     row max and sum across the 4 lanes of a row; masked scores are -inf
+//     inside the kernel, with the row max taken as 0 while a row has seen no
+//     visible key, so no inf - inf arises. Only tiles that cross the causal
+//     diagonal or the Sk edge compute the mask.
+//   - Under causal masking, K tiles wholly in the future are never loaded,
+//     and the Q tiles of a group of heads launch heaviest first, so the
+//     longest CTAs do not form the tail while the CTAs in flight share
+//     those heads' K and V in L2 (ordering the whole grid heaviest first
+//     spreads them over every head and sends each K/V tile to HBM again).
+//   - Within a consumer warpgroup, tile n's Q K^T is issued before tile
+//     n-1's P V, and tile n's softmax runs while that P V is still on the
+//     tensor cores. The two consumer warpgroups take turns to issue their
+//     products (named barriers), so one's softmax also runs while the
+//     other's products run.
+// o is stored straight from registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per block (16 per warp)
-constexpr int kBlockN = 64;  // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+constexpr int kBlockM = 128;  // query rows per CTA, 64 per consumer warpgroup
+constexpr int kBlockN = 128;  // keys per K/V tile
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kHeadGroup = 8;  // heads whose Q tiles are scheduled together
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kColBlockBytes = 128 * 128;  // one 64-wide column block of a 128-row tile
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Dynamic shared memory: Q, then the K stages, then the V stages, each tile
+// D / 64 column blocks of 128 rows x 128 bytes; then the barriers.
+template <int D>
+struct Smem {
+  static constexpr int kTileBytes = kBlockN * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kBlockM * D * 2;
+  static constexpr int kV = kK + kStages * kTileBytes;
+  static constexpr int kBars = kV + kStages * kTileBytes;
+  static constexpr int kBytes = kBars + (1 + 4 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024
+};
+
+// 2^x on the special-function unit (flush-to-zero). exp2f adds range
+// handling around the same instruction that this kernel does not need:
+// its arguments are <= 0 or -inf.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -59,186 +105,311 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// c += a * b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// S = Q K^T for one tile (64 rows x 128 keys), Q and K K-major: issued and
+// committed as one group, not waited for. A 16-wide k step moves 32 bytes
+// inside a 64-wide column block.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBlockN / 2], const uint8_t* q_s,
+                                         const uint8_t* k_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kColBlockBytes + (kk % 4) * 32;
+    wgmma_m64n128k16_ss<0, 0>(sc, wgmma_desc_sw128(q_s + off, 16, 1024),
+                              wgmma_desc_sw128(k_s + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V for one tile, P in registers, V MN-major (16 keys, 2 KB of rows,
+// per k step; column blocks kColBlockBytes apart): issued and committed.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         const uint32_t (&pa)[kBlockN / 16][4],
+                                         const uint8_t* v_s) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+    const uint64_t dv = wgmma_desc_sw128(v_s + kk * 16 * 128, kColBlockBytes, 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs<1>(acc, pa[kk], dv, 1);
+    else
+      wgmma_m64n64k16_rs<1>(acc, pa[kk], dv, 1);
+  }
+  wgmma_commit();
+}
+
+// Online softmax of one tile in the log2 domain. The accumulator element i
+// of this lane sits in row row0 + 8 * ((i >> 1) & 1) and column
+// k0 + 8 * (i / 4) + col_lane + (i & 1). Masks when asked (-inf inside the
+// kernel), turns sc into p, folds the tile into the running max m_i and sum
+// l_i, and leaves in alpha the factor that rescales each row's output.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBlockN / 2], float (&m_i)[2],
+                                             float (&l_i)[2], float (&alpha)[2],
+                                             bool mask, int k0, int row0, int col_lane,
+                                             int Sk, int causal, float scale_log2) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < kBlockN / 2; ++i) {
+      const int col = k0 + (i / 4) * 8 + col_lane + (i & 1);
+      const int row = row0 + ((i >> 1) & 1) * 8;
+      if (col >= Sk || (causal && col > row)) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float m_scaled[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // a row that has seen no visible key keeps max 0, so p = exp2(-inf) = 0
+    m_scaled[r] = mx[r] == -INFINITY ? 0.f : mx[r] * scale_log2;
+    alpha[r] = exp2_approx(m_i[r] * scale_log2 - m_scaled[r]);
+    m_i[r] = mx[r];
+    l_i[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -m_scaled[r]));
+    l_i[r] += sc[i];
+  }
+}
+
+// P as bf16 A fragments: k step kk covers keys 16kk..16kk+15, the
+// accumulator column tiles 2kk and 2kk+1.
+__device__ __forceinline__ void to_bf16_fragments(const float (&sc)[kBlockN / 2],
+                                                  uint32_t (&pa)[kBlockN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                 const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 int H, int Sq, int Sk,
-                 long long q_sb, long long q_sh, long long q_ss,
-                 long long k_sb, long long k_sh, long long k_ss,
-                 long long v_sb, long long v_sh, long long v_ss,
-                 float scale, int causal) {
-  constexpr int kKStride = D + 8;        // K tile row stride (elements)
-  constexpr int kVStride = kBlockN + 8;  // transposed V tile row stride
-  constexpr int kChunks = D / 8;         // 16-byte chunks per K/V row
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBlockN * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * kVStride];
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int H,
+                 int Sq, int Sk, float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int kColBlocks = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty_k = full_v + kStages;
+  uint64_t* empty_v = empty_k + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // fragment row within the warp's 16
-  const int t4 = lane & 3;   // fragment column pair
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kBlockM;
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
-
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t4;
-    qa[kc][0] = row0 < Sq ? ld32(qb + row0 * q_ss + c) : 0u;
-    qa[kc][1] = row1 < Sq ? ld32(qb + row1 * q_ss + c) : 0u;
-    qa[kc][2] = row0 < Sq ? ld32(qb + row0 * q_ss + c + 8) : 0u;
-    qa[kc][3] = row1 < Sq ? ld32(qb + row1 * q_ss + c + 8) : 0u;
-  }
-
-  float m_i[2] = {kNegInf, kNegInf};
-  float l_i[2] = {0.f, 0.f};  // this lane's share of the row sums
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-
+  // CTA order: heads in groups of kHeadGroup; inside a group, Q tiles from
+  // the last (heaviest under causal masking) to the first, the group's heads
+  // side by side. The CTAs in flight then share a few heads' K and V in L2.
+  const int n_m = (Sq + kBlockM - 1) / kBlockM;
+  const int BH = gridDim.x / n_m;
+  const int group = blockIdx.x / (kHeadGroup * n_m);
+  const int in_group = blockIdx.x - group * kHeadGroup * n_m;
+  const int g_heads = min(kHeadGroup, BH - group * kHeadGroup);
+  const int bh = group * kHeadGroup + in_group % g_heads;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int m0 = (n_m - 1 - in_group / g_heads) * kBlockM;
   int n_tiles = (Sk + kBlockN - 1) / kBlockN;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBlockM - 1) / kBlockN + 1);
+  if (causal) n_tiles = min(n_tiles, (m0 + kBlockM - 1) / kBlockN + 1);
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBlockN;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = tid; idx < kBlockN * kChunks; idx += kThreads) {
-      const int r = idx / kChunks;
-      const int c = (idx % kChunks) * 8;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < Sk) {
-        kv4 = *reinterpret_cast<const uint4*>(kb + (k0 + r) * k_ss + c);
-        vv4 = *reinterpret_cast<const uint4*>(vb + (k0 + r) * v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(&k_s[r * kKStride + c]) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) vt_s[(c + e) * kVStride + r] = ve[e];
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], kConsumers * 128);
+      mbar_init(&empty_v[s], kConsumers * 128);
     }
-    __syncthreads();
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T: this warp's 16 rows x 64 keys, 8 column tiles of 8 keys
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const __nv_bfloat16* kp = &k_s[(j * 8 + g) * kKStride + kc * 16 + 2 * t4];
-        mma16816(s[j], qa[kc], ld32(kp), ld32(kp + 8));
-      }
-    }
-
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-        const int row = (e < 2) ? row0 : row1;
-        const bool ok = col < Sk && (!causal || col <= row);
-        s[j][e] = ok ? s[j][e] * scale : kNegInf;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+  if (warp >= kConsumers * 4) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (warp == kConsumers * 4 && lane == 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_arrive_expect_tx(full_q, kBlockM * D * 2);
+      for (int cb = 0; cb < kColBlocks; ++cb)
+        tma_load_4d(smem + L::kQ + cb * kColBlockBytes, &tq, full_q, cb * 64, m0, h, b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kStages;
+        const uint32_t parity = ((n / kStages) & 1) ^ 1;
+        uint8_t* k_s = smem + L::kK + s * L::kTileBytes;
+        uint8_t* v_s = smem + L::kV + s * L::kTileBytes;
+        mbar_wait(&empty_k[s], parity);
+        mbar_arrive_expect_tx(&full_k[s], L::kTileBytes);
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load_4d(k_s + cb * kColBlockBytes, &tk, &full_k[s], cb * 64, n * kBlockN,
+                      h, b);
+        mbar_wait(&empty_v[s], parity);
+        mbar_arrive_expect_tx(&full_v[s], L::kTileBytes);
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load_4d(v_s + cb * kColBlockBytes, &tv, &full_v[s], cb * 64, n * kBlockN,
+                      h, b);
       }
     }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int row0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;  // and row0 + 8
+    const int col_lane = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+    const uint8_t* q_s = smem + L::kQ + wg * 64 * 128;  // this warpgroup's rows
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_i[2] = {-INFINITY, -INFINITY};
+    float l_i[2] = {0.f, 0.f};  // this lane's share of the row sums
+    float sc[kBlockN / 2];        // S, then P, of the current tile
+    uint32_t pa[kBlockN / 16][4];  // P of the previous tile as bf16 A fragments
     float alpha[2];
+    // a tile takes the mask when it crosses the Sk edge or, under causal
+    // masking, this warpgroup's diagonal
+    auto masked = [&](int n) {
+      const int k0 = n * kBlockN;
+      return k0 + kBlockN > Sk || (causal && k0 + kBlockN - 1 > m0 + wg * 64);
+    };
+
+    // The two warpgroups take turns to issue their products (named barriers
+    // 1 and 2), so one's softmax runs while the other's products run;
+    // warpgroup 0 goes first, and warpgroup 1 does not pass its last turn
+    // on, so every barrier sees as many arrivals as waits.
+    auto take_turn = [&] { named_barrier_sync(1 + wg, kConsumers * 128); };
+    auto pass_turn = [&](bool more) {
+      if (more) named_barrier_arrive(2 - wg, kConsumers * 128);
+    };
+    if (wg == 1) pass_turn(true);
+
+    // Tile n's S = Q K^T is issued before tile n-1's O += P V, and its
+    // softmax runs while that product is still on the tensor cores. There
+    // is at least one tile: Sk > 0 here, and every Q tile sees key 0.
+    mbar_wait(full_q, 0);
+    mbar_wait(&full_k[0], 0);
+    wgmma_fence();
+    take_turn();
+    issue_qk<D>(sc, q_s, smem + L::kK);
+    pass_turn(true);
+    wgmma_wait<0>();
+    fence_operands(sc);
+    mbar_arrive(&empty_k[0]);
+    softmax_tile(sc, m_i, l_i, alpha, masked(0), 0, row0, col_lane, Sk, causal,
+                 scale_log2);
+    to_bf16_fragments(sc, pa);
+    for (int n = 1; n < n_tiles; ++n) {
+      const int s = n % kStages;
+      const int sp = (n - 1) % kStages;
+      mbar_wait(&full_k[s], (n / kStages) & 1);
+      mbar_wait(&full_v[sp], ((n - 1) / kStages) & 1);
+      fence_operands(sc);
+      fence_operands(pa);
+      fence_operands(acc);
+      wgmma_fence();
+      take_turn();
+      issue_qk<D>(sc, q_s, smem + L::kK + s * L::kTileBytes);
+      issue_pv<D>(acc, pa, smem + L::kV + sp * L::kTileBytes);
+      pass_turn(true);
+      wgmma_wait<1>();  // S of tile n is ready; P V of tile n-1 may still run
+      fence_operands(sc);
+      mbar_arrive(&empty_k[s]);
+      softmax_tile(sc, m_i, l_i, alpha, masked(n), n * kBlockN, row0, col_lane, Sk,
+                   causal, scale_log2);
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(pa);
+      mbar_arrive(&empty_v[sp]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      to_bf16_fragments(sc, pa);
+    }
+    const int sl = (n_tiles - 1) % kStages;
+    mbar_wait(&full_v[sl], ((n_tiles - 1) / kStages) & 1);
+    fence_operands(pa);
+    fence_operands(acc);
+    wgmma_fence();
+    take_turn();
+    issue_pv<D>(acc, pa, smem + L::kV + sl * L::kTileBytes);
+    pass_turn(wg == 0);
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(&empty_v[sl]);
+
+    // epilogue: o = acc / l in bf16, lse = m * scale + log(l)
+    const long long row_base = static_cast<long long>(bh) * Sq;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r]);
-      alpha[r] = expf(m_i[r] - m_new);
-      m_i[r] = m_new;
-      l_i[r] *= alpha[r];
-    }
+      float l = l_i[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      const float inv = l == 0.f ? 0.f : 1.f / l;
+      __nv_bfloat16* orow = o + (row_base + row) * D + col_lane;
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-        const int row = (e < 2) ? row0 : row1;
-        const bool ok = col < Sk && (!causal || col <= row);
-        const float p = ok ? expf(s[j][e] - m_i[e >> 1]) : 0.f;
-        s[j][e] = p;
-        l_i[e >> 1] += p;
-      }
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      if (lane % 4 == 0)
+        lse[row_base + row] = l == 0.f ? kNegInf : m_i[r] * scale + logf(l);
     }
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
+  }
+}
 
-    // O += P V: P's accumulator layout is the A-fragment layout of the
-    // next product, 16 keys (two S column tiles) per k step
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* vp = &vt_s[(nd * 8 + g) * kVStride + kk * 16 + 2 * t4];
-        mma16816(acc[nd], pa, ld32(vp), ld32(vp + 8));
-      }
-    }
+// Sk = 0: no row sees a key, so o = 0 and lse = -1e30 everywhere.
+__global__ void flash_fwd_no_keys(__nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                                  long long rows, int D) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = blockIdx.x * blockDim.x + threadIdx.x; i < rows * D; i += stride) {
+    o[i] = __float2bfloat16(0.f);
+    if (i < rows) lse[i] = kNegInf;
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-  }
-  const long long bh = (long long)b * H + h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    if (row >= Sq) continue;
-    const float l = l_i[r];
-    const float safe = (l == 0.f) ? 1.f : l;
-    const float inv = 1.f / safe;
-    __nv_bfloat16* orow = o + (bh * Sq + row) * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(orow + nd * 8 + 2 * t4) =
-          pack_bf16(acc[nd][2 * r] * inv, acc[nd][2 * r + 1] * inv);
-    }
-    if (t4 == 0) lse[bh * Sq + row] = (l == 0.f) ? kNegInf : m_i[r] + logf(safe);
-  }
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+           int H, int Sq, int Sk, const long long (&qs)[3], const long long (&ks)[3],
+           const long long (&vs)[3], float scale, int causal, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  const uint64_t qdims[4] = {D, static_cast<uint64_t>(Sq), static_cast<uint64_t>(H),
+                             static_cast<uint64_t>(B)};
+  const uint64_t kdims[4] = {D, static_cast<uint64_t>(Sk), static_cast<uint64_t>(H),
+                             static_cast<uint64_t>(B)};
+  if (!make_tensor_map_4d_bf16(&tq, q, qdims, qs, 64, kBlockM) ||
+      !make_tensor_map_4d_bf16(&tk, k, kdims, ks, 64, kBlockN) ||
+      !make_tensor_map_4d_bf16(&tv, v, kdims, vs, 64, kBlockN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::kAlloc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = B * H * ((Sq + kBlockM - 1) / kBlockM);
+  flash_fwd_kernel<D><<<grid, kThreads, Smem<D>::kAlloc, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), H, Sq, Sk,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q/k/v: bf16 with the head dim contiguous and the given element strides
-// over (batch, head, sequence); o: contiguous (B, H, Sq, D) bf16; lse:
-// contiguous (B, H, Sq) f32. Returns cudaGetLastError() after the launch.
+// over (batch, head, sequence), each a multiple of 8 (16 bytes, as TMA
+// needs), 16-byte aligned bases; o: contiguous (B, H, Sq, D) bf16; lse:
+// contiguous (B, H, Sq) f32. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue when D is not 64 or 128 or a tensor map is
+// refused.
 extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int Sq, int Sk,
                               int D, long long q_sb, long long q_sh,
@@ -246,23 +417,20 @@ extern "C" int flash_fwd_bf16(const void* q, const void* k, const void* v,
                               long long k_ss, long long v_sb, long long v_sh,
                               long long v_ss, float scale, int causal,
                               void* stream) {
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  auto* lp = static_cast<float*>(lse);
-  if (D == 128) {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, lp, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-        v_sb, v_sh, v_ss, scale, causal);
-  } else if (D == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, lp, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-        v_sb, v_sh, v_ss, scale, causal);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (Sk == 0) {
+    const long long rows = static_cast<long long>(B) * H * Sq;
+    const int blocks = static_cast<int>(std::min((rows * D + 255) / 256, 4096LL));
+    flash_fwd_no_keys<<<blocks, 256, 0, st>>>(static_cast<__nv_bfloat16*>(o),
+                                              static_cast<float*>(lse), rows, D);
+    return static_cast<int>(cudaGetLastError());
   }
-  return static_cast<int>(cudaGetLastError());
+  // tensor-map strides of dims (S, H, B), innermost first
+  const long long qs[3] = {q_ss, q_sh, q_sb};
+  const long long ks[3] = {k_ss, k_sh, k_sb};
+  const long long vs[3] = {v_ss, v_sh, v_sb};
+  if (D == 128)
+    return launch<128>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, scale, causal, st);
+  return launch<64>(q, k, v, o, lse, B, H, Sq, Sk, qs, ks, vs, scale, causal, st);
 }

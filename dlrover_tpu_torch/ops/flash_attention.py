@@ -344,8 +344,10 @@ def flash_attention(
     tensors they run :func:`flash_attention_plain` and
     :func:`flash_attention_bwd_plain`.
 
-    ``block_q``/``block_k`` keep the JAX signature; the CUDA kernels tile
-    64 x 64 whatever they say, and the plain versions do not tile.
+    ``block_q``/``block_k`` keep the JAX signature; whatever they say, the
+    forward kernel tiles 128 x 128 and the backward kernels 64 x 64, and
+    the plain versions do not tile. q may be a strided view (the models
+    pass ``(B, S, H, D)`` transposed): the forward reads it in place.
     """
     del block_q, block_k
     if scale is None:

@@ -38,6 +38,14 @@ def _normal(rng, shape):
         (2, 3, 56, 56, 32, True),     # ragged: S not a block multiple
         (2, 2, 32, 48, 16, False),    # cross: Sq != Sk
         (2, 2, 40, 24, 16, True),     # cross + causal: top-left alignment
+        # where the CUDA kernel's 128 x 128 tiles end (the JAX function
+        # refuses Sk = 0, so that case is held on the card only)
+        (1, 2, 127, 127, 16, True),   # one row short of a tile
+        (1, 2, 128, 128, 16, True),   # exactly one tile
+        (1, 2, 129, 129, 16, True),   # one row into a second tile
+        (2, 2, 1, 40, 16, True),      # one query row, causal: sees key 0
+        (2, 2, 1, 40, 16, False),     # one query row sees every key
+        (1, 2, 100, 64, 16, True),    # Sk under one tile, Sq > Sk
     ],
 )
 def test_flash_forward_matches_pallas(B, H, Sq, Sk, D, causal):
@@ -51,6 +59,33 @@ def test_flash_forward_matches_pallas(B, H, Sq, Sk, D, causal):
     o, lse = tfa.flash_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal, block_q=16, block_k=16, return_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_takes_q_as_the_transposed_view(causal):
+    """The models pass q as the ``(B, S, H, D) -> (B, H, S, D)`` view of
+    their projection; the result equals the one for the same values laid
+    out contiguously, and the Pallas kernel's."""
+    rng = np.random.default_rng(5)
+    q_bshd = _normal(rng, (2, 40, 3, 16))
+    k = _normal(rng, (2, 3, 40, 16))
+    v = _normal(rng, (2, 3, 40, 16))
+    q_view = torch.from_numpy(q_bshd).transpose(1, 2)
+    assert not q_view.is_contiguous()
+    o, lse = tfa.flash_attention(q_view, torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=causal,
+                                 return_lse=True)
+    o_c, lse_c = tfa.flash_attention(q_view.contiguous(), torch.from_numpy(k),
+                                     torch.from_numpy(v), causal=causal,
+                                     return_lse=True)
+    torch.testing.assert_close(o, o_c, rtol=0, atol=0)
+    torch.testing.assert_close(lse, lse_c, rtol=0, atol=0)
+    o_ref, lse_ref = jfa.flash_attention(
+        jnp.asarray(q_bshd.transpose(0, 2, 1, 3)), jnp.asarray(k),
+        jnp.asarray(v), causal=causal, block_q=16, block_k=16,
+        return_lse=True)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), atol=ATOL)
 

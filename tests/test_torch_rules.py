@@ -122,6 +122,29 @@ def test_build_knows_both_kernel_sources():
     assert name.startswith("flash_fwd-") and name.endswith(".so")
 
 
+def test_library_digest_sees_the_shared_headers(monkeypatch, tmp_path):
+    """A kernel library is named by its source, the csrc headers and the
+    flags, so an edited header rebuilds instead of loading a stale
+    library; headers are not kernels of their own."""
+    import shutil
+
+    from dlrover_tpu_torch.ops import _build
+
+    src = tmp_path / "csrc"
+    shutil.copytree(_build.SRC_DIR, src)
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    names = set(_build.sources())
+    assert (src / "hopper.cuh").exists() and "hopper" not in names
+    before = _build.library_path("flash_fwd")
+    with open(src / "hopper.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = _build.library_path("flash_fwd")
+    assert after != before and after.name.startswith("flash_fwd-")
+    assert set(_build.sources()) == names
+    (src / "hopper.cuh").rename(src / "other.cuh")
+    assert _build.library_path("flash_fwd") not in (before, after)
+
+
 def test_launch_check_raises_on_cuda_error():
     from dlrover_tpu_torch.ops import _build
 
