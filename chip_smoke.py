@@ -14,7 +14,13 @@ four phases, each printing one JSON line (the serving runs one each):
    calls it). The forward (K1) is also held where its 128 x 128 tiles end
    (S 127/128/129, Sq 1, Sk 64, Sk 0), on ragged, cross and head_dim-64
    shapes and with q passed transposed, and timed at both prefill shapes
-   and the training shape with its TFLOP/s;
+   and the training shape with its TFLOP/s. The backward pair (K2, K3)
+   is held likewise where its tiles end (S 127/128/129, Sq 1, Sq 300 over
+   Sk 64, Sk 0 and Sq 0 exactly 0), on ragged, cross, head_dim-64 and
+   lse-cotangent shapes and with q and do transposed (bitwise equal to
+   contiguous), must give bitwise-equal results on two launches, and is
+   timed at the training shape with its TFLOP/s and the time of the
+   ``_delta`` pass before it;
 2. ``generate`` — ``decode.generate`` on ``LlamaConfig()`` at full width
    and depth (the Llama-2-7B shape with 8 KV heads, random weights from a
    seed), batch 8, greedy: (a) bf16 cache, prompt 1024, 64 new tokens,
@@ -250,44 +256,87 @@ def _visible_pairs(Sq, Sk, causal):
     return int(torch.clamp(rows + 1, max=Sk).sum())
 
 
-def _bwd_case(gen, device, B, H, Sq, Sk, D, causal, with_dlse):
+def _bwd_case(gen, device, B, H, Sq, Sk, D, causal, with_dlse=False,
+              transposed=False):
     """K1 forward, then K2 + K3 against the plain backward on the same
-    (o, lse, do, dlse); returns the inputs and the check of each output."""
-    q, k, v, do = (torch.randn((B, H, s, D), generator=gen, device=device)
-                   .to(torch.bfloat16) for s in (Sq, Sk, Sk, Sq))
+    (o, lse, do, dlse); returns the inputs and the check of each output.
+    ``transposed`` passes q and do as the ``(B, S, H, D) -> (B, H, S, D)``
+    views the models pass, and the result must also equal, bit for bit, the
+    one for the same values laid out contiguously. With Sk = 0 (no key) dq
+    must be exactly 0, and with Sq = 0 (no query) dk and dv."""
+
+    def rows(s):
+        shape = (B, s, H, D) if transposed else (B, H, s, D)
+        t = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        return t.transpose(1, 2) if transposed else t
+
+    q, do = rows(Sq), rows(Sq)
+    k, v = (torch.randn((B, H, Sk, D), generator=gen, device=device)
+            .to(torch.bfloat16) for _ in range(2))
     dlse = (torch.randn((B, H, Sq), generator=gen, device=device)
             if with_dlse else None)
     o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, dlse, causal)
-    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, causal)
     tag = (f"flash_bwd B{B} H{H} Sq{Sq} Sk{Sk} D{D} causal={causal} "
-           f"dlse={with_dlse}")
+           f"dlse={with_dlse}" + (" q, do transposed" if transposed else ""))
+    if Sk == 0 or Sq == 0:
+        zero = got[:1] if Sk == 0 else got[1:]
+        if not all(torch.equal(g, torch.zeros_like(g)) for g in zero):
+            raise AssertionError(f"{tag}: gradients with nothing to sum over "
+                                 "must be exactly 0")
+        none = dict(max_abs_err=0.0, rel_l2=0.0, share_of_limit=0.0)
+        return (q, k, v, o, lse, do), dict.fromkeys(("dq", "dk", "dv"), none)
+    ref = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, causal)
     checks = {name: _check_close(f"{tag} {name}", out, r)
               for name, out, r in zip(("dq", "dk", "dv"), got, ref)}
+    if transposed:
+        again = fa.flash_attention_bwd(q.contiguous(), k, v, o, lse,
+                                       do.contiguous(), dlse, causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{tag}: differs from contiguous q and do")
     return (q, k, v, o, lse, do), checks
 
 
 def bwd_kernel_rows(gen, device, shape, iters):
-    """K2 and K3 at the training shape (causal) and on the ragged, cross,
-    head_dim-64 and lse-cotangent cases; each timed alone by CUDA events
-    beside the plain backward and, as the library time of each, autograd
-    of SDPA timed for its backward alone (it computes dq, dk and dv
-    together: no single PyTorch call computes K2 or K3 alone)."""
+    """K2 and K3 at the training shape (causal) and where their tiles end
+    (S 127/128/129, Sq 1, Sq 300 over Sk 64, Sk 0, Sq 0), on ragged, cross
+    (both causal alignments), head_dim-64 and lse-cotangent cases and with
+    q and do passed transposed; two launches on the same inputs must agree
+    bit for bit. Each kernel is timed alone by CUDA events, with its
+    TFLOP/s, beside the plain backward and, as the library time of each,
+    autograd of SDPA timed for its backward alone (it computes dq, dk and
+    dv together: no single PyTorch call computes K2 or K3 alone). The rows
+    also give the time of ``_delta``, the plain PyTorch pass that every
+    backward call makes before the kernels."""
     B, H, S, D = shape
     (q, k, v, o, lse, do), checks = _bwd_case(gen, device, B, H, S, S, D,
-                                              True, False)
+                                              True)
     extra = {
-        "ragged S1000": _bwd_case(gen, device, 2, 8, 1000, 1000, D, True,
-                                  False)[1],
-        "cross Sq300 Sk1000 D64": _bwd_case(gen, device, 2, 8, 300, 1000,
-                                            64, False, False)[1],
-        "cross causal Sq1000 Sk300 D64": _bwd_case(gen, device, 2, 8, 1000,
-                                                   300, 64, True, False)[1],
-        "lse cotangent S1000": _bwd_case(gen, device, 2, 8, 1000, 1000, D,
-                                         True, True)[1],
+        name: _bwd_case(gen, device, *args)[1] for name, args in (
+            ("S127", (2, 8, 127, 127, D, True)),
+            ("S128", (2, 8, 128, 128, D, True)),
+            ("S129", (2, 8, 129, 129, D, True)),
+            # with an lse cotangent: without one, the single visible key
+            # gives ds = dp - delta = 0 up to rounding, and dq and dk would
+            # be held to f32 noise
+            ("Sq1 Sk1000 causal", (2, 8, 1, 1000, D, True, True)),
+            ("Sq1 Sk1000", (2, 8, 1, 1000, D, False)),
+            ("Sq300 Sk64 causal", (2, 8, 300, 64, D, True)),
+            ("Sq300 Sk0 causal", (2, 8, 300, 0, D, True)),
+            ("Sq0 Sk300 causal", (2, 8, 0, 300, D, True)),
+            ("ragged S1000", (2, 8, 1000, 1000, D, True)),
+            ("cross Sq300 Sk1000 D64", (2, 8, 300, 1000, 64, False)),
+            ("cross causal Sq300 Sk1000", (2, 8, 300, 1000, D, True)),
+            ("cross causal Sq1000 Sk300 D64", (2, 8, 1000, 300, 64, True)),
+            ("S1000 D64", (2, 8, 1000, 1000, 64, True)),
+            ("lse cotangent S1000", (2, 8, 1000, 1000, D, True, True)),
+            ("q, do transposed S1000", (2, 8, 1000, 1000, D, True, False,
+                                        True)),
+        )
     }
     scale = D ** -0.5
     delta = fa._delta(o, do, None).contiguous()
+    delta_ms = time_ms(lambda: fa._delta(o, do, None), iters, device)
     plain_ms = time_ms(lambda: fa.flash_attention_bwd_plain(
         q, k, v, o, lse, do, None, True), max(1, iters // 3), device)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
@@ -305,16 +354,26 @@ def bwd_kernel_rows(gen, device, shape, iters):
              reads + row_bytes, ("dq",)),
             ("flash_bwd_dkv", fa._flash_bwd_dkv_cuda, 8 * D * pairs,
              reads + 2 * row_bytes, ("dk", "dv"))):
+        def launch():
+            return fn(q, k, v, do, lse, delta, True, scale)
+
+        first, second = launch(), launch()
+        if name == "flash_bwd_dq":
+            first, second = (first,), (second,)
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 "differ")
         bms, by = bound_ms(nbytes, flops)
+        ms = time_ms(launch, iters, device)
         rows[name] = dict(
             shape=shape_tag, **_worst([checks[n] for n in outs]),
             other_cases={c: _worst([e[n] for n in outs])
                          for c, e in extra.items()},
-            ms=time_ms(lambda: fn(q, k, v, do, lse, delta, True, scale),
-                       iters, device),
+            deterministic=True, ms=ms, tflops=flops / ms / 1e9,
             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
             library_ms=sdpa_bwd_ms,
             library="scaled_dot_product_attention backward (dq, dk, dv)",
+            delta_ms=delta_ms,
         )
     return rows
 

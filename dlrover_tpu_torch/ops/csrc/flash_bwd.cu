@@ -14,388 +14,651 @@
 // the absolute query index). Keeping dq in a kernel of its own keeps it
 // deterministic: fusing it into K3 needs f32 atomics across key tiles.
 //
-// What bounds them on this card: K2 does 6*D FLOP per visible (query, key)
-// pair (s, dp, dq) and K3 8*D (s, dp, dv, dk), against 2*D*2 bytes per row of
-// each of q, k, v, do and the outputs. At training lengths (S = 2048) that is
-// far above the ~295 FLOP/byte ridge: the tensor cores bound both.
+// What bounds them on this card: operations. K2 does 6*D FLOP per visible
+// (query, key) pair (s, dp, dq) and K3 8*D (s, dp, dv, dk), against 2*D*2
+// bytes per row of each of q, k, v, do and the outputs. At training lengths
+// (S = 2048) that is far above the H100's ~295 FLOP/byte ridge: the tensor
+// cores (989 TFLOP/s bf16) bound both.
 //
-// Design. The TPU kernels walk the reduction axis on a sequential grid axis
-// and carry dq (K2) or dk/dv (K3) in VMEM scratch across grid steps. GPU
-// blocks carry nothing over, so one block owns one output tile and loops over
-// the reduction axis itself, with the sums in registers:
-//   - K2: one block per (b, h, 64-row Q tile); 4 warps of 16 rows. The warp's
-//     q and do rows live in registers as mma.sync A fragments; each 64-key
-//     tile of K and V is staged row-major in shared memory. S = Q K^T and
-//     dP = dO V^T come out in accumulator layout, which is the A-fragment
-//     layout of dS K (dS rounded to bf16), as P feeds P V in flash_fwd.cu.
-//     The B operand of dS K needs two keys of one column: read as a column
-//     pair of the row-major K tile (rows padded so the pairs hit distinct
-//     banks), no transposed copy.
-//   - K3: one block per (b, h, 64-key tile); 4 warps of 16 keys. The block
-//     computes S^T = K Q^T and dP^T = V dO^T with the keys as the M
-//     dimension, so P^T and dS^T come out in accumulator layout and feed
-//     dV += P^T dO and dK += dS^T Q as A fragments directly; lse and delta
-//     become per-column values. K and V stay in shared memory (their A
-//     fragments are reread there, so the dk/dv sums, 2*D/8*4 floats a
-//     thread, fit in registers); each 64-row tile of Q and dO is staged
-//     row-major beside them (70 KB at D=128: dynamic shared memory).
-//   - Work is taken in chunks of 16 columns so that only 16 floats of S and
-//     dP are live at once.
-//   - Causal skips: K2 never loads K tiles wholly in the future of its Q
-//     tile; K3 starts at the first Q tile that can see its keys.
-// Simple first: one tile in flight, no cp.async/TMA pipelining, no wgmma.
+// Design, for that bound: K1's (flash_fwd.cu). Only wgmma reaches the tensor
+// cores' full rate, and only with its operands already in shared memory.
+//   - Each CTA has two consumer warpgroups of 64 rows and a producer
+//     warpgroup that gives its registers to them (setmaxnreg 24 / 240). The
+//     producer's one thread loads the CTA's own tiles once and streams the
+//     others by TMA through a ring with full and empty barriers per operand
+//     (128-byte swizzle; 4-D tensor maps over (D, S, H, B) with the caller's
+//     strides, so the models' transposed q and do are read in place, and
+//     rows past S arrive as zeros).
+//   - K2: one CTA per (b, h, 128 query rows); Q and dO loaded once, K and V
+//     streamed in 64-key tiles. S = Q K^T and dP = dO V^T are wgmma with
+//     every operand K-major; dS = P (dP - delta) is rounded to bf16 in
+//     registers, where the accumulator layout is the A-fragment layout, and
+//     dQ += dS K reads the same K tile MN-major (the transpose bit). lse
+//     and delta are per row: registers for the whole CTA. Tile n's S and dP
+//     are issued before tile n-1's dS K, and tile n's dS is computed while
+//     that product runs; the two warpgroups take turns to issue (named
+//     barriers), as in K1.
+//   - K3: one CTA per (b, h, 128 keys); K and V loaded once, Q and dO
+//     streamed in 64-row tiles. The keys are the M dimension: S^T = K Q^T
+//     and dP^T = V dO^T (all K-major), so P^T and dS^T come out as A
+//     fragments of dV += P^T dO and dK += dS^T Q, which read the same Q and
+//     dO tiles MN-major. lse and delta are per column here: a second
+//     producer warp copies each Q tile's 64 values into the stage (ordinary
+//     loads: a row of them is Sq * 4 bytes, not the 16-byte multiple TMA
+//     needs) and arrives on the tile's full barrier.
+//   - The mask selects 0 after the exponential (a masked row's lse of -1e30
+//     overflows it) and is computed only on tiles that cross the causal
+//     diagonal or an Sq/Sk edge. Under causal masking K2 never loads key
+//     tiles wholly in its rows' future and K3 starts at the first Q tile
+//     that sees its keys; a K3 warpgroup skips the products of a Q tile
+//     that sees none of its keys. CTAs launch heaviest first within groups
+//     of 8 heads (K2: the last Q tile; K3: key tile 0), so the CTAs in
+//     flight share a few heads' operands in L2.
+//   - Sk = 0 (K2) and Sq = 0 (K3) write zeros: a tensor map cannot have a
+//     zero dimension.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kTile = 64;  // rows of the owned tile, and of each streamed tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kConsumers = 2;  // consumer warpgroups, 64 rows each
+constexpr int kThreads = (kConsumers + 1) * 128;
+constexpr int kHeadGroup = 8;  // heads whose CTAs are scheduled together
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Two bf16 of one column of a row-major tile: p[0] in the low half, p[stride]
-// in the high half (the B-fragment order of consecutive k).
-__device__ __forceinline__ uint32_t ld_col2(const __nv_bfloat16* p, int stride) {
-  __nv_bfloat162 v;
-  v.x = p[0];
-  v.y = p[stride];
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// K2: 128 query rows a CTA, K/V streamed in 64-key tiles
+constexpr int kDqRows = 128;
+constexpr int kDqKeys = 64;
+constexpr int kDqStages = 4;
+// K3: 128 keys a CTA, Q/dO streamed in 64-row tiles. Ring depths are powers
+// of two: the stage and phase are then a mask and a shift, which the
+// producer's 24 registers need (a 3-stage ring spilled there).
+constexpr int kDkvKeys = 128;
+constexpr int kDkvRows = 64;
+constexpr int kDkvStages = 4;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Bytes of one 64-wide column block (128-byte rows) of a tile of `rows`.
+__host__ __device__ constexpr int col_block(int rows) { return rows * 128; }
 
-// c += a * b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage rows [row0, row0 + 64) of a (rows, D) bf16 matrix with the given row
-// stride into shared memory, row stride D + 8; rows at or past `limit` are 0.
+// K2's dynamic shared memory: Q, dO, the K stages, the V stages, each tile
+// D / 64 column blocks; then the barriers.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int limit, int tid) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kStride = D + 8;
-  for (int idx = tid; idx < kTile * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(&dst[r * kStride + c]) = val;
+struct DqSmem {
+  static constexpr int kTileBytes = kDqKeys * D * 2;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kDqRows * D * 2;
+  static constexpr int kK = 2 * kDqRows * D * 2;
+  static constexpr int kV = kK + kDqStages * kTileBytes;
+  static constexpr int kBars = kV + kDqStages * kTileBytes;
+  static constexpr int kBytes = kBars + (1 + 4 * kDqStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024
+};
+
+// K3's: K, V, the Q stages, the dO stages, then per stage 64 lse * log2(e)
+// and 64 delta, then the barriers.
+template <int D>
+struct DkvSmem {
+  static constexpr int kKVBytes = kDkvKeys * D * 2;
+  static constexpr int kTileBytes = kDkvRows * D * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kKVBytes;
+  static constexpr int kQ = 2 * kKVBytes;
+  static constexpr int kDo = kQ + kDkvStages * kTileBytes;
+  static constexpr int kRowVals = kDo + kDkvStages * kTileBytes;
+  static constexpr int kBars = kRowVals + kDkvStages * 2 * kDkvRows * 4;
+  static constexpr int kBytes = kBars + (1 + 4 * kDkvStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// X Y^T for one 64 x 64 tile with both operands K-major: X is a warpgroup's
+// 64 rows of a CTA's own 128-row tile, Y a streamed tile of 64 rows; a
+// 16-wide k step moves 32 bytes inside a 64-wide column block. Issued, not
+// committed.
+template <int D>
+__device__ __forceinline__ void issue_xyt(float (&d)[32], const uint8_t* x_s,
+                                          const uint8_t* y_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int k_off = (kk % 4) * 32;
+    wgmma_m64n64k16_ss<0, 0>(
+        d, wgmma_desc_sw128(x_s + (kk / 4) * col_block(128) + k_off, 16, 1024),
+        wgmma_desc_sw128(y_s + (kk / 4) * col_block(64) + k_off, 16, 1024), kk > 0);
   }
 }
 
-// K2: dq for one (b, h, 64-row Q tile).
+// acc += A Y for 64 rows, A (64 x 64) as bf16 fragments in registers, Y a
+// tile of 64 rows read MN-major (16 rows, 2 KB, per k step; its column
+// blocks col_block(64) apart). Issued and committed.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk,
-                    long long q_sb, long long q_sh, long long q_ss,
-                    long long k_sb, long long k_sh, long long k_ss,
-                    long long v_sb, long long v_sh, long long v_ss,
-                    long long o_sb, long long o_sh, long long o_ss,
-                    float scale, int causal) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 k_s[kTile * kStride];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kTile * kStride];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row within the warp's 16
-  const int t4 = lane & 3;  // fragment column pair
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const long long bh = (long long)b * H + h;
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const __nv_bfloat16* ob = dout + b * o_sb + h * o_sh;
-  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0, row0 + 8
-  const int row1 = row0 + 8;
-
-  uint32_t qa[D / 16][4], da[D / 16][4];
+__device__ __forceinline__ void issue_ay(float (&acc)[D / 2], const uint32_t (&a)[4][4],
+                                         const uint8_t* y_s) {
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t4;
-    qa[kc][0] = row0 < Sq ? ld32(qb + row0 * q_ss + c) : 0u;
-    qa[kc][1] = row1 < Sq ? ld32(qb + row1 * q_ss + c) : 0u;
-    qa[kc][2] = row0 < Sq ? ld32(qb + row0 * q_ss + c + 8) : 0u;
-    qa[kc][3] = row1 < Sq ? ld32(qb + row1 * q_ss + c + 8) : 0u;
-    da[kc][0] = row0 < Sq ? ld32(ob + row0 * o_ss + c) : 0u;
-    da[kc][1] = row1 < Sq ? ld32(ob + row1 * o_ss + c) : 0u;
-    da[kc][2] = row0 < Sq ? ld32(ob + row0 * o_ss + c + 8) : 0u;
-    da[kc][3] = row1 < Sq ? ld32(ob + row1 * o_ss + c + 8) : 0u;
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t desc = wgmma_desc_sw128(y_s + kk * 16 * 128, col_block(64), 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs<1>(acc, a[kk], desc, 1);
+    else
+      wgmma_m64n64k16_rs<1>(acc, a[kk], desc, 1);
   }
-  float lse_r[2], delta_r[2];
-  lse_r[0] = row0 < Sq ? lse[bh * Sq + row0] : 0.f;
-  lse_r[1] = row1 < Sq ? lse[bh * Sq + row1] : 0.f;
-  delta_r[0] = row0 < Sq ? delta[bh * Sq + row0] : 0.f;
-  delta_r[1] = row1 < Sq ? delta[bh * Sq + row1] : 0.f;
+  wgmma_commit();
+}
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd)
-    acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+// ---------------------------------------------------------------------------
+// K2: dq
+// ---------------------------------------------------------------------------
 
-  int n_tiles = (Sk + kTile - 1) / kTile;
-  if (causal) n_tiles = min(n_tiles, (q0 + kTile - 1) / kTile + 1);
+// dS = P (dP - delta) of one K2 tile, in place in s, with P = exp2(S *
+// scale * log2(e) - lse * log2(e)). Element i of this lane sits in row row0 +
+// 8 * ((i >> 1) & 1) and column k0 + 8 * (i / 4) + col_lane + (i & 1).
+// When asked, masked elements select P = 0 after the exponential.
+__device__ __forceinline__ void dq_tile_ds(float (&s)[32], const float (&dp)[32],
+                                           const float (&lse2)[2], const float (&dlt)[2],
+                                           bool mask, int k0, int row0, int col_lane,
+                                           int Sk, int causal, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    float p = exp2_approx(fmaf(s[i], scale_log2, -lse2[r]));
+    if (mask) {
+      const int col = k0 + (i / 4) * 8 + col_lane + (i & 1);
+      if (col >= Sk || (causal && col > row0 + 8 * r)) p = 0.f;
+    }
+    s[i] = p * (dp[i] - dlt[r]);
+  }
+}
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kTile;
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<D>(k_s, kb, k_ss, k0, Sk, tid);
-    load_tile<D>(v_s, vb, v_ss, k0, Sk, tid);
-    __syncthreads();
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int H, int Sq, int Sk, float scale,
+                    int causal) {
+  using L = DqSmem<D>;
+  constexpr int kColBlocks = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::kBars);  // Q and dO
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kDqStages;
+  uint64_t* empty_k = full_v + kDqStages;
+  uint64_t* empty_v = empty_k + kDqStages;
 
+  // CTA order: heads in groups of kHeadGroup; inside a group, Q tiles from
+  // the last (heaviest under causal masking) to the first, the group's heads
+  // side by side.
+  const int n_m = (Sq + kDqRows - 1) / kDqRows;
+  const int BH = gridDim.x / n_m;
+  const int group = blockIdx.x / (kHeadGroup * n_m);
+  const int in_group = blockIdx.x - group * kHeadGroup * n_m;
+  const int g_heads = min(kHeadGroup, BH - group * kHeadGroup);
+  const int bh = group * kHeadGroup + in_group % g_heads;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int m0 = (n_m - 1 - in_group / g_heads) * kDqRows;
+  int n_tiles = (Sk + kDqKeys - 1) / kDqKeys;
+  if (causal) n_tiles = min(n_tiles, (min(m0 + kDqRows, Sq) - 1) / kDqKeys + 1);
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], kConsumers * 128);
+      mbar_init(&empty_v[s], kConsumers * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (warp == kConsumers * 4 && lane == 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tdo);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_arrive_expect_tx(full_q, 2 * kDqRows * D * 2);
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        tma_load_4d(smem + L::kQ + cb * col_block(kDqRows), &tq, full_q, cb * 64, m0, h, b);
+        tma_load_4d(smem + L::kDo + cb * col_block(kDqRows), &tdo, full_q, cb * 64, m0, h,
+                    b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % kDqStages;
+        const uint32_t parity = ((n / kDqStages) & 1) ^ 1;
+        uint8_t* k_s = smem + L::kK + s * L::kTileBytes;
+        uint8_t* v_s = smem + L::kV + s * L::kTileBytes;
+        mbar_wait(&empty_k[s], parity);
+        mbar_arrive_expect_tx(&full_k[s], L::kTileBytes);
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load_4d(k_s + cb * col_block(kDqKeys), &tk, &full_k[s], cb * 64,
+                      n * kDqKeys, h, b);
+        mbar_wait(&empty_v[s], parity);
+        mbar_arrive_expect_tx(&full_v[s], L::kTileBytes);
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load_4d(v_s + cb * col_block(kDqKeys), &tv, &full_v[s], cb * 64,
+                      n * kDqKeys, h, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each ----
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int row0 = m0 + wg * 64 + (warp % 4) * 16 + lane / 4;  // and row0 + 8
+    const int col_lane = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+    const uint8_t* q_s = smem + L::kQ + wg * 64 * 128;  // this warpgroup's rows
+    const uint8_t* do_s = smem + L::kDo + wg * 64 * 128;
+    const long long row_base = static_cast<long long>(bh) * Sq;
+    float lse2[2], dlt[2];
 #pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 keys at a time
-      float s[2][4], dp[2][4];
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < Sq ? lse[row_base + row] * kLog2e : 0.f;
+      dlt[r] = row < Sq ? delta[row_base + row] : 0.f;
+    }
+
+    float acc[D / 2];
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kk + jj;  // 8-key column tile
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float s[32], dp[32];  // S then dS, and dP, of the current tile
+    uint32_t dsa[4][4];   // dS of the previous tile as bf16 A fragments
+    auto masked = [&](int n) {
+      const int k0 = n * kDqKeys;
+      return k0 + kDqKeys > Sk || (causal && k0 + kDqKeys - 1 > m0 + wg * 64);
+    };
+    auto k_stage = [&](int n) { return smem + L::kK + (n % kDqStages) * L::kTileBytes; };
+    auto v_stage = [&](int n) { return smem + L::kV + (n % kDqStages) * L::kTileBytes; };
+
+    // The warpgroups take turns to issue their products (named barriers 1
+    // and 2), warpgroup 0 first; warpgroup 1 does not pass its last turn on,
+    // so every barrier sees as many arrivals as waits.
+    auto take_turn = [&] { named_barrier_sync(1 + wg, kConsumers * 128); };
+    auto pass_turn = [&](bool more) {
+      if (more) named_barrier_arrive(2 - wg, kConsumers * 128);
+    };
+    if (wg == 1) pass_turn(true);
+
+    // Tile n's S and dP are issued before tile n-1's dS K, and tile n's dS
+    // is computed while that product runs. There is at least one tile: Sk >
+    // 0 here, and every Q tile sees key 0.
+    mbar_wait(full_q, 0);
+    mbar_wait(&full_k[0], 0);
+    mbar_wait(&full_v[0], 0);
+    wgmma_fence();
+    take_turn();
+    issue_xyt<D>(s, q_s, k_stage(0));
+    issue_xyt<D>(dp, do_s, v_stage(0));
+    wgmma_commit();
+    pass_turn(true);
+    wgmma_wait<0>();
+    fence_operands(s);
+    fence_operands(dp);
+    mbar_arrive(&empty_v[0]);
+    dq_tile_ds(s, dp, lse2, dlt, masked(0), 0, row0, col_lane, Sk, causal, scale_log2);
+    to_bf16_fragments(s, dsa);
+    for (int n = 1; n < n_tiles; ++n) {
+      const uint32_t parity = (n / kDqStages) & 1;
+      mbar_wait(&full_k[n % kDqStages], parity);
+      mbar_wait(&full_v[n % kDqStages], parity);
+      fence_operands(s);
+      fence_operands(dp);
+      fence_operands(dsa);
+      fence_operands(acc);
+      wgmma_fence();
+      take_turn();
+      issue_xyt<D>(s, q_s, k_stage(n));
+      issue_xyt<D>(dp, do_s, v_stage(n));
+      wgmma_commit();
+      issue_ay<D>(acc, dsa, k_stage(n - 1));
+      pass_turn(true);
+      wgmma_wait<1>();  // S and dP of tile n are ready; dS K of tile n-1 may still run
+      fence_operands(s);
+      fence_operands(dp);
+      mbar_arrive(&empty_v[n % kDqStages]);
+      dq_tile_ds(s, dp, lse2, dlt, masked(n), n * kDqKeys, row0, col_lane, Sk, causal,
+                 scale_log2);
+      wgmma_wait<0>();
+      fence_operands(acc);
+      fence_operands(dsa);
+      mbar_arrive(&empty_k[(n - 1) % kDqStages]);
+      to_bf16_fragments(s, dsa);
+    }
+    fence_operands(dsa);
+    fence_operands(acc);
+    wgmma_fence();
+    take_turn();
+    issue_ay<D>(acc, dsa, k_stage(n_tiles - 1));
+    pass_turn(wg == 0);
+    wgmma_wait<0>();
+    fence_operands(acc);
+    fence_operands(dsa);
+    mbar_arrive(&empty_k[(n_tiles - 1) % kDqStages]);
+
+    // epilogue: dq = scale * acc in bf16, straight from registers
 #pragma unroll
-        for (int kc = 0; kc < D / 16; ++kc) {
-          const int off = (j * 8 + g) * kStride + kc * 16 + 2 * t4;
-          mma16816(s[jj], qa[kc], ld32(&k_s[off]), ld32(&k_s[off + 8]));
-          mma16816(dp[jj], da[kc], ld32(&v_s[off]), ld32(&v_s[off + 8]));
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= Sq) continue;
+      __nv_bfloat16* drow = dq + (row_base + row) * D + col_lane;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(drow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: dk, dv
+// ---------------------------------------------------------------------------
+
+// P^T of one K3 tile in place in s: P = exp2(S * scale * log2(e) - lse *
+// log2(e)), lse per column (query) from the stage. Element i of this lane
+// sits in row (key) key0 + 8 * ((i >> 1) & 1) and column (query) q0 + 8 *
+// (i / 4) + col_lane + (i & 1). When asked, masked elements select 0 after
+// the exponential.
+__device__ __forceinline__ void dkv_tile_p(float (&s)[32], const float* lse2_s, bool mask,
+                                           int q0, int key0, int col_lane, int Sq, int Sk,
+                                           int causal, float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(lse2_s + 8 * j + col_lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      float p = exp2_approx(fmaf(s[i], scale_log2, -((e & 1) ? l.y : l.x)));
+      if (mask) {
+        const int query = q0 + 8 * j + col_lane + (e & 1);
+        const int key = key0 + 8 * (e >> 1);
+        if (key >= Sk || query >= Sq || (causal && key > query)) p = 0.f;
+      }
+      s[i] = p;
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                     int H, int Sq, int Sk, float scale, int causal) {
+  using L = DkvSmem<D>;
+  constexpr int kColBlocks = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full_q = full_kv + 1;  // Q and its lse / delta
+  uint64_t* full_do = full_q + kDkvStages;
+  uint64_t* empty_q = full_do + kDkvStages;
+  uint64_t* empty_do = empty_q + kDkvStages;
+  auto row_vals = [&](int t) {  // lse * log2(e), then delta, of stage t's rows
+    return reinterpret_cast<float*>(smem + L::kRowVals) + (t % kDkvStages) * 2 * kDkvRows;
+  };
+
+  // CTA order: heads in groups of kHeadGroup; inside a group, key tiles from
+  // the first (heaviest under causal masking) to the last.
+  const int n_k = (Sk + kDkvKeys - 1) / kDkvKeys;
+  const int BH = gridDim.x / n_k;
+  const int group = blockIdx.x / (kHeadGroup * n_k);
+  const int in_group = blockIdx.x - group * kHeadGroup * n_k;
+  const int g_heads = min(kHeadGroup, BH - group * kHeadGroup);
+  const int bh = group * kHeadGroup + in_group % g_heads;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = (in_group / g_heads) * kDkvKeys;
+  // Q tiles t0 .. t0 + n_t - 1; earlier ones see none of these keys
+  const int t0 = causal ? k0 / kDkvRows : 0;
+  const int n_t = max(0, (Sq + kDkvRows - 1) / kDkvRows - t0);
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full_q[s], 1 + 32);  // the TMA thread and the row-value warp
+      mbar_init(&full_do[s], 1);
+      mbar_init(&empty_q[s], kConsumers * 128);
+      mbar_init(&empty_do[s], kConsumers * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {
+    // ---- producer warpgroup: one thread issues every TMA load, one warp
+    // copies lse and delta ----
+    warpgroup_reg_dealloc<kProducerRegs>();
+    if (warp == kConsumers * 4 && lane == 0 && n_t > 0) {
+      prefetch_tensor_map(&tq);
+      prefetch_tensor_map(&tdo);
+      prefetch_tensor_map(&tk);
+      prefetch_tensor_map(&tv);
+      mbar_arrive_expect_tx(full_kv, 2 * L::kKVBytes);
+      for (int cb = 0; cb < kColBlocks; ++cb) {
+        tma_load_4d(smem + L::kK + cb * col_block(kDkvKeys), &tk, full_kv, cb * 64, k0, h,
+                    b);
+        tma_load_4d(smem + L::kV + cb * col_block(kDkvKeys), &tv, full_kv, cb * 64, k0, h,
+                    b);
+      }
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % kDkvStages;
+        const uint32_t parity = ((t / kDkvStages) & 1) ^ 1;
+        const int q0 = (t0 + t) * kDkvRows;
+        uint8_t* q_s = smem + L::kQ + s * L::kTileBytes;
+        uint8_t* do_s = smem + L::kDo + s * L::kTileBytes;
+        mbar_wait(&empty_q[s], parity);
+        mbar_arrive_expect_tx(&full_q[s], L::kTileBytes);
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load_4d(q_s + cb * col_block(kDkvRows), &tq, &full_q[s], cb * 64, q0, h, b);
+        mbar_wait(&empty_do[s], parity);
+        mbar_arrive_expect_tx(&full_do[s], L::kTileBytes);
+        for (int cb = 0; cb < kColBlocks; ++cb)
+          tma_load_4d(do_s + cb * col_block(kDkvRows), &tdo, &full_do[s], cb * 64, q0, h,
+                      b);
+      }
+    } else if (warp == kConsumers * 4 + 1) {
+      const long long row_base = static_cast<long long>(bh) * Sq;
+      for (int t = 0; t < n_t; ++t) {
+        const int q0 = (t0 + t) * kDkvRows;
+        float* vals = row_vals(t);
+        mbar_wait(&empty_q[t % kDkvStages], ((t / kDkvStages) & 1) ^ 1);
+        for (int j = lane; j < kDkvRows; j += 32) {
+          const int row = q0 + j;
+          vals[j] = row < Sq ? lse[row_base + row] * kLog2e : 0.f;
+          vals[kDkvRows + j] = row < Sq ? delta[row_base + row] : 0.f;
         }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + j * 8 + 2 * t4 + (e & 1);
-          const int r = e >> 1;
-          const int row = r ? row1 : row0;
-          const bool ok = col < Sk && (!causal || col <= row);
-          const float p = ok ? expf(s[jj][e] * scale - lse_r[r]) : 0.f;
-          s[jj][e] = p * (dp[jj][e] - delta_r[r]);  // ds
-        }
-      }
-      // dS (16 rows x 16 keys) in accumulator layout = its A fragment
-      const uint32_t a[4] = {pack_bf16(s[0][0], s[0][1]),
-                             pack_bf16(s[0][2], s[0][3]),
-                             pack_bf16(s[1][0], s[1][1]),
-                             pack_bf16(s[1][2], s[1][3])};
-      // dq += dS K: B[key][d] is a column pair of the row-major K tile
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const __nv_bfloat16* kp = &k_s[(kk * 16 + 2 * t4) * kStride + nd * 8 + g];
-        mma16816(acc[nd], a, ld_col2(kp, kStride),
-                 ld_col2(kp + 8 * kStride, kStride));
+        mbar_arrive(&full_q[t % kDkvStages]);
       }
     }
-  }
+  } else {
+    // ---- consumer warpgroups: 64 keys each ----
+    warpgroup_reg_alloc<kConsumerRegs>();
+    const int wg = warp / 4;
+    const int kw0 = k0 + wg * 64;                       // this warpgroup's keys
+    const int key0 = kw0 + (warp % 4) * 16 + lane / 4;  // and key0 + 8
+    const int col_lane = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+    const uint8_t* k_s = smem + L::kK + wg * 64 * 128;
+    const uint8_t* v_s = smem + L::kV + wg * 64 * 128;
 
+    float dk_acc[D / 2], dv_acc[D / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row1 : row0;
-    if (row >= Sq) continue;
-    __nv_bfloat16* drow = dq + (bh * Sq + row) * D;
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    float s[32], dp[32];           // S^T then P^T, and dP^T then dS^T
+    uint32_t pa[4][4], dsa[4][4];  // P^T and dS^T as bf16 A fragments
+
+    if (n_t > 0) mbar_wait(full_kv, 0);
+    for (int t = 0; t < n_t; ++t) {
+      const int st = t % kDkvStages;
+      const uint32_t parity = (t / kDkvStages) & 1;
+      const int q0 = (t0 + t) * kDkvRows;
+      const uint8_t* q_s = smem + L::kQ + st * L::kTileBytes;
+      const uint8_t* do_s = smem + L::kDo + st * L::kTileBytes;
+      mbar_wait(&full_q[st], parity);
+      mbar_wait(&full_do[st], parity);
+      // a Q tile wholly before these keys (or keys all past Sk) adds nothing
+      if (kw0 < Sk && !(causal && kw0 > q0 + kDkvRows - 1)) {
+        const bool mask = q0 + kDkvRows > Sq || kw0 + 64 > Sk ||
+                          (causal && kw0 + 63 > q0);
+        const float* vals = row_vals(t);
+        fence_operands(s);
+        fence_operands(dp);
+        wgmma_fence();
+        issue_xyt<D>(s, k_s, q_s);
+        wgmma_commit();
+        issue_xyt<D>(dp, v_s, do_s);
+        wgmma_commit();
+        wgmma_wait<1>();  // S^T is ready; dP^T may still run
+        fence_operands(s);
+        dkv_tile_p(s, vals, mask, q0, key0, col_lane, Sq, Sk, causal, scale_log2);
+        wgmma_wait<0>();
+        fence_operands(dp);
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(drow + nd * 8 + 2 * t4) =
-          pack_bf16(acc[nd][2 * r] * scale, acc[nd][2 * r + 1] * scale);
+        for (int j = 0; j < 8; ++j) {
+          const float2 d = *reinterpret_cast<const float2*>(vals + kDkvRows + 8 * j + col_lane);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d.y : d.x));
+        }
+        // packed only now, so that P^T is not held both as floats and as
+        // fragments while dS^T is computed (registers)
+        to_bf16_fragments(s, pa);
+        to_bf16_fragments(dp, dsa);
+        fence_operands(dk_acc);
+        fence_operands(dv_acc);
+        wgmma_fence();
+        issue_ay<D>(dv_acc, pa, do_s);
+        issue_ay<D>(dk_acc, dsa, q_s);
+        wgmma_wait<1>();  // dV is done with dO; dK may still read Q
+        fence_operands(dv_acc);
+        fence_operands(pa);
+        mbar_arrive(&empty_do[st]);
+        wgmma_wait<0>();
+        fence_operands(dk_acc);
+        fence_operands(dsa);
+        mbar_arrive(&empty_q[st]);
+      } else {
+        mbar_arrive(&empty_do[st]);
+        mbar_arrive(&empty_q[st]);
+      }
+    }
+
+    // epilogue: dk = scale * dk_acc and dv in bf16, straight from registers;
+    // keys no query sees get zeros
+    const long long key_base = static_cast<long long>(bh) * Sk;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key0 + 8 * r;
+      if (key >= Sk) continue;
+      __nv_bfloat16* dkrow = dk + (key_base + key) * D + col_lane;
+      __nv_bfloat16* dvrow = dv + (key_base + key) * D + col_lane;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkrow + 8 * j) =
+            pack_bf16(dk_acc[4 * j + 2 * r] * scale, dk_acc[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dvrow + 8 * j) =
+            pack_bf16(dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return 4 * kTile * (D + 8) * 2 + 2 * kTile * 4;
-}
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
 
-// K3: dk and dv for one (b, h, 64-key tile).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, int H, int Sq, int Sk,
-                     long long q_sb, long long q_sh, long long q_ss,
-                     long long k_sb, long long k_sh, long long k_ss,
-                     long long v_sb, long long v_sh, long long v_ss,
-                     long long o_sb, long long o_sh, long long o_ss,
-                     float scale, int causal) {
-  constexpr int kStride = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* v_s = k_s + kTile * kStride;
-  __nv_bfloat16* q_s = v_s + kTile * kStride;
-  __nv_bfloat16* o_s = q_s + kTile * kStride;  // the do tile
-  float* lse_s = reinterpret_cast<float*>(o_s + kTile * kStride);
-  float* delta_s = lse_s + kTile;
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const long long bh = (long long)b * H + h;
-
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const __nv_bfloat16* ob = dout + b * o_sb + h * o_sh;
-  const int wrow = warp * 16 + g;  // this lane's keys: k0 + wrow, + 8
-  const int key0 = k0 + wrow;
-  const int key1 = key0 + 8;
-
-  load_tile<D>(k_s, kb, k_ss, k0, Sk, tid);
-  load_tile<D>(v_s, vb, v_ss, k0, Sk, tid);
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    dk_acc[nd][0] = dk_acc[nd][1] = dk_acc[nd][2] = dk_acc[nd][3] = 0.f;
-    dv_acc[nd][0] = dv_acc[nd][1] = dv_acc[nd][2] = dv_acc[nd][3] = 0.f;
-  }
-
-  const int n_q = (Sq + kTile - 1) / kTile;
-  const int it0 = causal ? k0 / kTile : 0;  // earlier Q tiles see no key here
-
-  for (int it = it0; it < n_q; ++it) {
-    const int q0 = it * kTile;
-    __syncthreads();  // every warp is done with the previous Q tile
-    load_tile<D>(q_s, qb, q_ss, q0, Sq, tid);
-    load_tile<D>(o_s, ob, o_ss, q0, Sq, tid);
-    if (tid < kTile) {
-      const int r = q0 + tid;
-      lse_s[tid] = r < Sq ? lse[bh * Sq + r] : 0.f;
-      delta_s[tid] = r < Sq ? delta[bh * Sq + r] : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {  // 16 queries at a time
-      float s[2][4], ds[2][4];  // S^T and dP^T: 16 keys x 16 queries
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-        ds[jj][0] = ds[jj][1] = ds[jj][2] = ds[jj][3] = 0.f;
-      }
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        const int aoff = wrow * kStride + kc * 16 + 2 * t4;
-        const uint32_t ka[4] = {ld32(&k_s[aoff]), ld32(&k_s[aoff + 8 * kStride]),
-                                ld32(&k_s[aoff + 8]),
-                                ld32(&k_s[aoff + 8 * kStride + 8])};
-        const uint32_t va[4] = {ld32(&v_s[aoff]), ld32(&v_s[aoff + 8 * kStride]),
-                                ld32(&v_s[aoff + 8]),
-                                ld32(&v_s[aoff + 8 * kStride + 8])};
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int boff = ((2 * kk + jj) * 8 + g) * kStride + kc * 16 + 2 * t4;
-          mma16816(s[jj], ka, ld32(&q_s[boff]), ld32(&q_s[boff + 8]));
-          mma16816(ds[jj], va, ld32(&o_s[boff]), ld32(&o_s[boff + 8]));
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = (2 * kk + jj) * 8 + 2 * t4 + (e & 1);  // in tile
-          const int qrow = q0 + col;
-          const int key = (e < 2) ? key0 : key1;
-          const bool ok = key < Sk && qrow < Sq && (!causal || key <= qrow);
-          const float p = ok ? expf(s[jj][e] * scale - lse_s[col]) : 0.f;
-          s[jj][e] = p;
-          ds[jj][e] = p * (ds[jj][e] - delta_s[col]);
-        }
-      }
-      // P^T and dS^T in accumulator layout = their A fragments
-      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]),
-                              pack_bf16(s[0][2], s[0][3]),
-                              pack_bf16(s[1][0], s[1][1]),
-                              pack_bf16(s[1][2], s[1][3])};
-      const uint32_t dsa[4] = {pack_bf16(ds[0][0], ds[0][1]),
-                               pack_bf16(ds[0][2], ds[0][3]),
-                               pack_bf16(ds[1][0], ds[1][1]),
-                               pack_bf16(ds[1][2], ds[1][3])};
-      // dv += P^T dO, dk += dS^T Q: B[query][d] is a column pair of the
-      // row-major dO / Q tile
-#pragma unroll
-      for (int nd = 0; nd < D / 8; ++nd) {
-        const int off = (kk * 16 + 2 * t4) * kStride + nd * 8 + g;
-        mma16816(dv_acc[nd], pa, ld_col2(&o_s[off], kStride),
-                 ld_col2(&o_s[off + 8 * kStride], kStride));
-        mma16816(dk_acc[nd], dsa, ld_col2(&q_s[off], kStride),
-                 ld_col2(&q_s[off + 8 * kStride], kStride));
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = r ? key1 : key0;
-    if (key >= Sk) continue;
-    __nv_bfloat16* dkrow = dk + (bh * Sk + key) * D;
-    __nv_bfloat16* dvrow = dv + (bh * Sk + key) * D;
-#pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      *reinterpret_cast<uint32_t*>(dkrow + nd * 8 + 2 * t4) =
-          pack_bf16(dk_acc[nd][2 * r] * scale, dk_acc[nd][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvrow + nd * 8 + 2 * t4) =
-          pack_bf16(dv_acc[nd][2 * r], dv_acc[nd][2 * r + 1]);
-    }
-  }
+// Tensor maps of q, k, v, do over (D, S, H, B) with the caller's strides
+// (s: q, k, v, do, each batch, head, sequence), boxes of 64 columns x
+// q_rows (q, do) or k_rows (k, v) rows. False when cuTensorMapEncodeTiled
+// refuses one.
+bool make_maps(Maps& m, const void* q, const void* k, const void* v, const void* dout,
+               int B, int H, int Sq, int Sk, int D, const long long (&s)[12], int q_rows,
+               int k_rows) {
+  const uint64_t qdims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(Sq),
+                             static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t kdims[4] = {static_cast<uint64_t>(D), static_cast<uint64_t>(Sk),
+                             static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  // tensor-map strides of dims (S, H, B), innermost first
+  const long long qs[3] = {s[2], s[1], s[0]};
+  const long long ks[3] = {s[5], s[4], s[3]};
+  const long long vs[3] = {s[8], s[7], s[6]};
+  const long long os[3] = {s[11], s[10], s[9]};
+  return make_tensor_map_4d_bf16(&m.q, q, qdims, qs, 64, q_rows) &&
+         make_tensor_map_4d_bf16(&m.k, k, kdims, ks, 64, k_rows) &&
+         make_tensor_map_4d_bf16(&m.v, v, kdims, vs, 64, k_rows) &&
+         make_tensor_map_4d_bf16(&m.o, dout, qdims, os, 64, q_rows);
 }
 
 template <int D>
-int launch_dkv(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
-               const __nv_bfloat16* k, const __nv_bfloat16* v,
-               const __nv_bfloat16* dout, const float* lse,
-               const float* delta, __nv_bfloat16* dk, __nv_bfloat16* dv,
-               int H, int Sq, int Sk, const long long* s, float scale,
-               int causal) {
-  constexpr int bytes = dkv_smem_bytes<D>();
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, __nv_bfloat16* dq, int B, int H,
+              int Sq, int Sk, const long long (&s)[12], float scale, int causal,
+              cudaStream_t st) {
+  Maps m;
+  if (!make_maps(m, q, k, v, dout, B, H, Sq, Sk, D, s, kDqRows, kDqKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, DqSmem<D>::kAlloc);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, bytes, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, H, Sq, Sk, s[0], s[1], s[2], s[3],
-      s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11], scale, causal);
+  const int grid = B * H * ((Sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, DqSmem<D>::kAlloc, st>>>(
+      m.q, m.k, m.v, m.o, lse, delta, dq, H, Sq, Sk, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, __nv_bfloat16* dk,
+               __nv_bfloat16* dv, int B, int H, int Sq, int Sk, const long long (&s)[12],
+               float scale, int causal, cudaStream_t st) {
+  Maps m;
+  if (!make_maps(m, q, k, v, dout, B, H, Sq, Sk, D, s, kDkvRows, kDkvKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, DkvSmem<D>::kAlloc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = B * H * ((Sk + kDkvKeys - 1) / kDkvKeys);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, DkvSmem<D>::kAlloc, st>>>(
+      m.q, m.k, m.v, m.o, lse, delta, dk, dv, H, Sq, Sk, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q/k/v/do: bf16 with the head dim contiguous and the given element strides
-// over (batch, head, sequence); lse, delta: contiguous (B, H, Sq) f32; dq:
-// contiguous (B, H, Sq, D) bf16. Returns cudaGetLastError() after the launch.
+// over (batch, head, sequence), each a multiple of 8 (16 bytes, as TMA
+// needs), 16-byte aligned bases; lse, delta: contiguous (B, H, Sq) f32; dq:
+// contiguous (B, H, Sq, D) bf16. Returns cudaGetLastError() after the launch,
+// or cudaErrorInvalidValue when D is not 64 or 128 or a tensor map is
+// refused.
 extern "C" int flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
@@ -403,27 +666,19 @@ extern "C" int flash_bwd_dq_bf16(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, float scale, int causal, void* stream) {
-  const dim3 grid((Sq + kTile - 1) / kTile, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* op = static_cast<const __nv_bfloat16*>(dout);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (Sk == 0)  // no key: dq = 0
+    return static_cast<int>(
+        cudaMemsetAsync(dq, 0, static_cast<size_t>(B) * H * Sq * D * 2, st));
+  const long long s[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                           v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const auto* lp = static_cast<const float*>(lse);
   const auto* dp = static_cast<const float*>(delta);
   auto* out = static_cast<__nv_bfloat16*>(dq);
-  if (D == 128) {
-    flash_bwd_dq_kernel<128><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, lp, dp, out, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,
-        k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal);
-  } else if (D == 64) {
-    flash_bwd_dq_kernel<64><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, op, lp, dp, out, H, Sq, Sk, q_sb, q_sh, q_ss, k_sb, k_sh,
-        k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (D == 128)
+    return launch_dq<128>(q, k, v, dout, lp, dp, out, B, H, Sq, Sk, s, scale, causal, st);
+  return launch_dq<64>(q, k, v, dout, lp, dp, out, B, H, Sq, Sk, s, scale, causal, st);
 }
 
 // As flash_bwd_dq_bf16; dk, dv: contiguous (B, H, Sk, D) bf16.
@@ -434,23 +689,23 @@ extern "C" int flash_bwd_dkv_bf16(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, float scale, int causal, void* stream) {
-  const dim3 grid((Sk + kTile - 1) / kTile, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (Sq == 0) {  // no query: dk = dv = 0
+    const size_t bytes = static_cast<size_t>(B) * H * Sk * D * 2;
+    cudaError_t err = cudaMemsetAsync(dk, 0, bytes, st);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dv, 0, bytes, st);
+    return static_cast<int>(err);
+  }
   const long long s[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                            v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  const auto* op = static_cast<const __nv_bfloat16*>(dout);
   const auto* lp = static_cast<const float*>(lse);
   const auto* dp = static_cast<const float*>(delta);
   auto* dkp = static_cast<__nv_bfloat16*>(dk);
   auto* dvp = static_cast<__nv_bfloat16*>(dv);
   if (D == 128)
-    return launch_dkv<128>(grid, st, qp, kp, vp, op, lp, dp, dkp, dvp, H, Sq,
-                           Sk, s, scale, causal);
-  if (D == 64)
-    return launch_dkv<64>(grid, st, qp, kp, vp, op, lp, dp, dkp, dvp, H, Sq,
-                          Sk, s, scale, causal);
-  return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dkv<128>(q, k, v, dout, lp, dp, dkp, dvp, B, H, Sq, Sk, s, scale, causal,
+                           st);
+  return launch_dkv<64>(q, k, v, dout, lp, dp, dkp, dvp, B, H, Sq, Sk, s, scale, causal,
+                        st);
 }

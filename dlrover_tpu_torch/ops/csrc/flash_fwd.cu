@@ -91,20 +91,6 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base to 1024
 };
 
-// 2^x on the special-function unit (flush-to-zero). exp2f adds range
-// handling around the same instruction that this kernel does not need:
-// its arguments are <= 0 or -inf.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // S = Q K^T for one tile (64 rows x 128 keys), Q and K K-major: issued and
 // committed as one group, not waited for. A 16-wide k step moves 32 bytes
 // inside a 64-wide column block.
@@ -173,18 +159,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBlockN / 2], float (&m
     const int r = (i >> 1) & 1;
     sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -m_scaled[r]));
     l_i[r] += sc[i];
-  }
-}
-
-// P as bf16 A fragments: k step kk covers keys 16kk..16kk+15, the
-// accumulator column tiles 2kk and 2kk+1.
-__device__ __forceinline__ void to_bf16_fragments(const float (&sc)[kBlockN / 2],
-                                                  uint32_t (&pa)[kBlockN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
   }
 }
 

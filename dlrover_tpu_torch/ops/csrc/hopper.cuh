@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's CUDA kernels:
 // mbarriers, TMA tensor loads, wgmma shared-memory descriptors and
-// instructions, warpgroup register reallocation, and the host-side encoding
-// of a TMA tensor map. Header-only; every kernel source that includes it is
-// still compiled on its own into one library with a plain C interface.
+// instructions, warpgroup register reallocation, the turning of an
+// accumulator into the A fragments of the next product, and the host-side
+// encoding of a TMA tensor map. Header-only; every kernel source that
+// includes it is still compiled on its own into one library with a plain C
+// interface.
 //
 // Conventions used throughout:
 // - Shared-memory tiles written by TMA use the 128-byte swizzle. A swizzle
@@ -19,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -210,6 +213,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
+// d (+)= A * B, m64n64k16, A and B read from shared memory through their
+// descriptors. kTransA / kTransB: 0 K-major, 1 MN-major.
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
+}
+
 // d (+)= A * B, m64n64k16, A from registers (the m64k16 bf16 fragment:
 // a[0..3] as for mma.sync m16n8k16, one 16-row slice per warp), B read from
 // shared memory. kTransB: 0 K-major, 1 MN-major.
@@ -266,6 +291,39 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(kTransB));
+}
+
+// ---------------------------------------------------------------------------
+// accumulators to operands
+// ---------------------------------------------------------------------------
+
+// 2^x on the special-function unit (flush-to-zero). exp2f adds range
+// handling around the same instruction that the attention kernels do not
+// need.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A wgmma accumulator of a 64 x N tile (N = kFloats * 2 columns) as the bf16
+// A fragments of the next product: for a 16-bit type the accumulator layout
+// is the A-register layout, so k step kk covers columns 16kk..16kk+15 (the
+// accumulator's 8-column tiles 2kk and 2kk+1).
+template <int kFloats>
+__device__ __forceinline__ void to_bf16_fragments(const float (&acc)[kFloats],
+                                                  uint32_t (&frag)[kFloats / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kFloats / 8; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      frag[kk][e] = pack_bf16(acc[8 * kk + 2 * e], acc[8 * kk + 2 * e + 1]);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -345,9 +345,11 @@ def flash_attention(
     :func:`flash_attention_bwd_plain`.
 
     ``block_q``/``block_k`` keep the JAX signature; whatever they say, the
-    forward kernel tiles 128 x 128 and the backward kernels 64 x 64, and
-    the plain versions do not tile. q may be a strided view (the models
-    pass ``(B, S, H, D)`` transposed): the forward reads it in place.
+    forward kernel tiles 128 query rows x 128 keys, the dq kernel 128 query
+    rows x 64 keys and the dk/dv kernel 128 keys x 64 query rows, and the
+    plain versions do not tile. q (and so do) may be a strided view (the
+    models pass ``(B, S, H, D)`` transposed): the kernels read them in
+    place.
     """
     del block_q, block_k
     if scale is None:

@@ -106,6 +106,14 @@ BWD_CASES = [
     (2, 2, 32, 48, 16, False),    # cross: Sq < Sk
     (2, 2, 40, 24, 16, True),     # cross + causal, Sq > Sk
     (2, 2, 24, 40, 16, True),     # cross + causal, Sq < Sk
+    # where the CUDA kernels' tiles end (K2: 128 query rows x 64 keys; K3:
+    # 128 keys x 64 query rows)
+    (1, 2, 127, 127, 16, True),   # one row short of a tile
+    (1, 2, 128, 128, 16, True),   # exactly one tile
+    (1, 2, 129, 129, 16, True),   # one row into a second tile
+    (2, 2, 1, 40, 16, True),      # one query row, causal: sees key 0
+    (2, 2, 1, 40, 16, False),     # one query row sees every key
+    (1, 2, 100, 64, 16, True),    # Sk under one tile, Sq > Sk
 ]
 
 
@@ -158,6 +166,37 @@ def test_flash_backward_plain_matches_pallas_vjp(B, H, Sq, Sk, D, causal):
         *(torch.from_numpy(x) for x in (q, k, v)),
         torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse)),
         torch.from_numpy(do), torch.from_numpy(dlse), causal=causal)
+    for name, g, r in zip("dq dk dv".split(), got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_takes_q_and_do_as_transposed_views(causal):
+    """The models pass q, and autograd then passes do, as ``(B, S, H, D) ->
+    (B, H, S, D)`` views; the backward equals the one for the same values
+    laid out contiguously, and the Pallas VJP."""
+    rng = np.random.default_rng(9)
+    q_bshd = _normal(rng, (2, 40, 3, 16))
+    do_bshd = _normal(rng, (2, 40, 3, 16))
+    k = _normal(rng, (2, 3, 40, 16))
+    v = _normal(rng, (2, 3, 40, 16))
+    q_view = torch.from_numpy(q_bshd).transpose(1, 2)
+    do_view = torch.from_numpy(do_bshd).transpose(1, 2)
+    assert not (q_view.is_contiguous() or do_view.is_contiguous())
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    o, lse = tfa.flash_attention(q_view, tk, tv, causal=causal,
+                                 return_lse=True)
+    got = tfa.flash_attention_bwd(q_view, tk, tv, o, lse, do_view,
+                                  causal=causal)
+    again = tfa.flash_attention_bwd(q_view.contiguous(), tk, tv, o, lse,
+                                    do_view.contiguous(), causal=causal)
+    for g, a in zip(got, again):
+        torch.testing.assert_close(g, a, rtol=0, atol=0)
+    q = q_bshd.transpose(0, 2, 1, 3)
+    do = do_bshd.transpose(0, 2, 1, 3)
+    _, _, ref = _jax_vjp(q, k, v, do, np.zeros(q.shape[:3], np.float32),
+                         causal)
     for name, g, r in zip("dq dk dv".split(), got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=GRAD_ATOL,
                                    err_msg=name)
