@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths on one GPU.
 
-    python3 chip_smoke.py        # from the repository root, one card
+    python3 chip_smoke.py            # from the repository root, one card
+    python3 chip_smoke.py --decode   # the decode kernel (K4) alone
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and runs
 four phases, each printing one JSON line (the serving runs one each):
@@ -20,7 +21,11 @@ four phases, each printing one JSON line (the serving runs one each):
    lse-cotangent shapes and with q and do transposed (bitwise equal to
    contiguous), must give bitwise-equal results on two launches, and is
    timed at the training shape with its TFLOP/s and the time of the
-   ``_delta`` pass before it;
+   ``_delta`` pass before it. The decode kernel (K4, bf16 and int8 cache)
+   is held where its 256-key splits and 64-key tiles end (positions 0,
+   255, 256, 257, T - 1 and past the cache, T 4100, G 1 and 8, Dh 64, one
+   row of T 32768), must give bitwise-equal results on two launches, and
+   is timed warm and with L2 flushed beside SDPA under a pinned backend;
 2. ``generate`` — ``decode.generate`` on ``LlamaConfig()`` at full width
    and depth (the Llama-2-7B shape with 8 KV heads, random weights from a
    seed), batch 8, greedy: (a) bf16 cache, prompt 1024, 64 new tokens,
@@ -41,7 +46,9 @@ four phases, each printing one JSON line (the serving runs one each):
    steps; a profile of one step, tokens/s and MFU.
 
 Then one JSON line with every kernel's numbers, the card's name and power
-limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``. Any
+limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
+``--decode`` builds K4 alone and runs only its rows, with no result line:
+the quick loop for work on that kernel. Any
 mismatch, refused launch or fault exits non-zero. Without CUDA the script
 exits non-zero and prints no result.
 
@@ -122,11 +129,52 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, iters, device):
+# cycles the card idles before a timed window (about 0.3 ms per call timed)
+# while the host queues the calls, so the events measure the device's work
+# and not the host's: the decode kernel's wrapper takes longer on the host
+# than the kernel takes on the card
+QUEUE_AHEAD_CYCLES = 500_000
+
+
+def _queued_ms(fn, iters, cycles, before=None):
+    """Device time per call of ``iters`` calls of ``fn`` queued while the
+    card idles ``cycles`` (after ``before()``, untimed). Taken again with
+    twice the idle while the card reached the window's first event before
+    the host had queued the last call (the window would then hold host
+    time); fails after four tries."""
+    for _ in range(4):
+        if before is not None:
+            before()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        queued_in_time = not start.query()
+        end.record()
+        end.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+        print(f"timing: window retaken with {cycles} idle cycles",
+              file=sys.stderr, flush=True)
+    raise AssertionError(
+        f"timing: the host still queued calls after the card had idled "
+        f"{cycles // 2} cycles; the window would measure the host")
+
+
+def time_ms(fn, iters, device, queue_ahead=True):
     """Mean time of ``fn`` over ``iters`` calls after one warm-up call:
-    CUDA events on the card, the host clock elsewhere."""
+    CUDA events on the card, the host clock elsewhere. With
+    ``queue_ahead`` the calls are queued while the card idles, so the
+    time is the device's; without it they run back to back as the host
+    issues them, so it is what a caller that waits on each call pays,
+    host included."""
     fn()
     _sync(device)
+    if device.type == "cuda" and queue_ahead:
+        return _queued_ms(fn, iters, QUEUE_AHEAD_CYCLES * iters)
     if device.type == "cuda":
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -142,11 +190,12 @@ def time_ms(fn, iters, device):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_profile(fn, iters, device, top=5):
+def device_profile(fn, iters, device, top=5, match=None):
     """``fn`` run ``iters`` times under ``torch.profiler`` (device activity
     only, so the host pays little for the tracing): wall time and device
-    kernel time per call, the device's idle share, and the ``top`` kernels
-    that took most of it."""
+    kernel time per call, the device's idle share, the ``top`` kernels
+    that took most of it and, with ``match``, the device time per call of
+    the kernels whose name contains it."""
     from torch.profiler import ProfilerActivity, profile
 
     act = (ProfilerActivity.CUDA if device.type == "cuda"
@@ -162,12 +211,16 @@ def device_profile(fn, iters, device, top=5):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
-    return dict(
+    out = dict(
         steps=iters, wall_ms=wall_s * 1e3 / iters,
         device_busy_ms=busy_s * 1e3 / iters, idle_share=1 - busy_s / wall_s,
         top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3 / iters]
                         for e in ranked],
     )
+    if match is not None:
+        out[f"{match}_ms"] = sum(e.self_device_time_total for e in kernels
+                                 if match in e.key) / 1e3 / iters
+    return out
 
 
 def bound_ms(nbytes, flops):
@@ -378,6 +431,140 @@ def bwd_kernel_rows(gen, device, shape, iters):
     return rows
 
 
+def _decode_case(gen, device, B, KV, G, Dh, T, pos, quant):
+    """K4 on one case: two launches must be bitwise equal, and the output
+    must agree with ``flash_decode_plain``. Returns the inputs and the
+    check."""
+    q = torch.randn((B, KV, G, Dh), generator=gen,
+                    device=device).to(torch.bfloat16)
+    kf = torch.randn((B, KV, T, Dh), generator=gen, device=device)
+    vf = torch.randn((B, KV, T, Dh), generator=gen, device=device)
+    if quant:
+        (k, ks), (v, vs) = decode._quantize(kf), decode._quantize(vf)
+    else:
+        k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
+        ks = vs = None
+    del kf, vf
+    pos = torch.tensor(pos, dtype=torch.int32, device=device)
+    out = fa.flash_decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+    again = fa.flash_decode_attention(q, k, v, pos, k_scale=ks, v_scale=vs)
+    tag = (f"flash_decode_{'int8' if quant else 'bf16'} B{B} KV{KV} G{G} "
+           f"Dh{Dh} T{T} pos {pos.tolist()}")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{tag}: two launches on the same inputs differ")
+    ref = fa.flash_decode_plain(q, k, v, pos, k_scale=ks, v_scale=vs)
+    return (q, k, v, ks, vs, pos), _check_close(tag, out, ref)
+
+
+def _sdpa_decode(q, k, v, pos):
+    """K4's function as one SDPA call under a pinned backend: cuDNN, the
+    fastest fused backend that takes a bool mask with ``enable_gqa`` on
+    the card (EFFICIENT_ATTENTION does not take ``enable_gqa`` and was
+    slower with the G heads as query rows; FLASH takes no mask). The G
+    query heads of a KV head are its ``enable_gqa`` group. SDPA reads all
+    T keys; K4 reads [0, pos]."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    B, KV, G, Dh = q.shape
+    T = k.shape[2]
+    qh = q.reshape(B, KV * G, 1, Dh)
+    mask = (torch.arange(T, device=q.device)[None, :]
+            <= pos[:, None])[:, None, None, :]           # (B, 1, 1, T)
+
+    def call():
+        with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qh, k, v, attn_mask=mask, enable_gqa=True)
+    return call, ("scaled_dot_product_attention, backend pinned to "
+                  "CUDNN_ATTENTION (enable_gqa, bool mask; reads all T "
+                  "keys)")
+
+
+def _cold_ms(fn, iters, device):
+    """Mean device time of ``fn`` over ``iters`` launches, each timed alone
+    by CUDA events after 128 MB are written, so its inputs start outside
+    the 50 MB L2 cache as they do between the layers of a decode step (the
+    card idles between the write and the launch while the host queues
+    it)."""
+    if device.type != "cuda":
+        return time_ms(fn, iters, device)
+    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=device)
+    fn()
+    return sum(_queued_ms(fn, 1, QUEUE_AHEAD_CYCLES, before=flush.zero_)
+               for _ in range(iters)) / iters
+
+
+def decode_kernel_rows(gen, device, shape, iters):
+    """K4, bf16 and int8 cache, at the timed row ``shape`` (B, KV, G, Dh,
+    T) with ragged positions that include 0 and T - 1, and on the cases
+    where its 256-key splits and 64-key tiles end: positions 0, 255, 256,
+    257, T - 1 and one past the cache; T = 4100 (a tail tile in a partial
+    last split); G 1 and 8; Dh 64; one row of T = 32768. Every case takes
+    two launches that must agree bit for bit. Timed by CUDA events: warm
+    (the mean of ``iters`` launches queued while the card idles), with L2
+    flushed before each launch, and back to back as the host issues them
+    (the host's cost included); beside the plain version and (bf16) SDPA
+    under a pinned backend on the same inputs."""
+    B, KV, G, Dh, T = shape
+    rng = np.random.default_rng(SEED)
+    pos_np = rng.integers(0, T, B)
+    pos_np[0], pos_np[-1] = 0, T - 1  # both ends of the cache
+    visible = KV * int((np.minimum(pos_np, T - 1) + 1).sum())
+    extra_cases = (
+        ("pos 0/255/256/257/T-1/T+5", (6, KV, G, Dh, T,
+                                       [0, 255, 256, 257, T - 1, T + 5])),
+        ("T4100", (3, KV, G, Dh, 4100, [4099, 4096, 1000])),
+        ("G1", (2, KV, 1, Dh, T, [T - 1, 1234])),
+        ("G8", (2, KV, 8, Dh, T, [T - 1, 1234])),
+        ("Dh64", (2, KV, G, 64, T, [T - 1, 777])),
+        ("B1 KV1 T32768", (1, 1, G, Dh, 32768, [32767])),
+    )
+    rows = {}
+    for name, quant in (("flash_decode_bf16", False),
+                        ("flash_decode_int8", True)):
+        (q, k, v, ks, vs, pos), check = _decode_case(
+            gen, device, B, KV, G, Dh, T, pos_np.tolist(), quant)
+        extra = {c: _decode_case(gen, device, *args, quant)[1]
+                 for c, args in extra_cases}
+        per_vec = Dh + 4 if quant else 2 * Dh
+        nbytes = 2 * visible * per_vec + 2 * q.numel() * 2 + B * 4
+        flops = 4 * G * Dh * visible
+        bms, by = bound_ms(nbytes, flops)
+
+        def launch():
+            return fa.flash_decode_attention(q, k, v, pos, k_scale=ks,
+                                             v_scale=vs)
+
+        library_ms = cold_library_ms = b2b_library_ms = library = None
+        if not quant:
+            sdpa, library = _sdpa_decode(q, k, v, pos)
+            library_ms = time_ms(sdpa, iters, device)
+            b2b_library_ms = time_ms(sdpa, iters, device, queue_ahead=False)
+            cold_library_ms = _cold_ms(sdpa, iters, device)
+        rows[name] = dict(
+            shape=(f"B{B} KV{KV} G{G} Dh{Dh} T{T} ragged pos "
+                   f"{pos_np.tolist()}"),
+            **check, other_cases=extra, deterministic=True,
+            grid=[B * KV, fa._decode_splits(T)],
+            ms=time_ms(launch, iters, device),
+            # host included: the wrapper's checks, workspace and ctypes
+            # call, which a decode step that waits on the host pays
+            back_to_back_ms=time_ms(launch, iters, device,
+                                    queue_ahead=False),
+            cold_ms=_cold_ms(launch, iters, device),
+            # device time per call of the split and the combine kernel
+            profile=device_profile(launch, iters, device, top=2),
+            plain_ms=time_ms(lambda: fa.flash_decode_plain(
+                q, k, v, pos, k_scale=ks, v_scale=vs),
+                max(1, iters // 3), device),
+            bound_ms=bms, bound_by=by, library_ms=library_ms,
+            back_to_back_library_ms=b2b_library_ms,
+            cold_library_ms=cold_library_ms, library=library,
+        )
+        del q, k, v, ks, vs
+    return rows
+
+
 def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
                  fwd_timed=()):
     """Hold every kernel against its plain version; returns the JSON rows
@@ -437,56 +624,7 @@ def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
     del q, k, v
     cases.update(bwd_kernel_rows(gen, device, bwd_shape, iters))
 
-    B, KV, G, Dh, T = decode_shape
-    rng = np.random.default_rng(SEED)
-    pos_np = rng.integers(0, T, B)
-    pos_np[0], pos_np[-1] = 0, T - 1  # both ends of the cache
-    pos = torch.tensor(pos_np, dtype=torch.int32, device=device)
-    q = torch.randn((B, KV, G, Dh), generator=gen,
-                    device=device).to(torch.bfloat16)
-    kf = torch.randn((B, KV, T, Dh), generator=gen, device=device)
-    vf = torch.randn((B, KV, T, Dh), generator=gen, device=device)
-    visible = KV * int((pos_np + 1).sum())
-    for name, quant in (("flash_decode_bf16", False),
-                        ("flash_decode_int8", True)):
-        if quant:
-            k, ks = decode._quantize(kf)
-            v, vs = decode._quantize(vf)
-            per_vec = Dh + 4
-        else:
-            k, v = kf.to(torch.bfloat16), vf.to(torch.bfloat16)
-            ks = vs = None
-            per_vec = 2 * Dh
-        out = fa.flash_decode_attention(q, k, v, pos, k_scale=ks,
-                                        v_scale=vs)
-        ref = fa.flash_decode_plain(q, k, v, pos, k_scale=ks, v_scale=vs)
-        check = _check_close(f"{name} B{B} KV{KV} G{G} Dh{Dh} T{T}", out,
-                             ref)
-        nbytes = 2 * visible * per_vec + 2 * q.numel() * 2 + B * 4
-        flops = 4 * G * Dh * visible
-        bms, by = bound_ms(nbytes, flops)
-        library_ms = library = None
-        if not quant:
-            library = "scaled_dot_product_attention (bool mask, enable_gqa)"
-            mask = (torch.arange(T, device=device)[None, :]
-                    <= pos[:, None])[:, None, None, :]
-            qh = q.reshape(B, KV * G, 1, Dh)
-            library_ms = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qh, k, v, attn_mask=mask, enable_gqa=True),
-                iters, device)
-        cases[name] = dict(
-            shape=(f"B{B} KV{KV} G{G} Dh{Dh} T{T} ragged pos "
-                   f"{pos_np.tolist()}"),
-            **check,
-            ms=time_ms(lambda: fa.flash_decode_attention(
-                q, k, v, pos, k_scale=ks, v_scale=vs), iters, device),
-            plain_ms=time_ms(lambda: fa.flash_decode_plain(
-                q, k, v, pos, k_scale=ks, v_scale=vs),
-                max(1, iters // 3), device),
-            bound_ms=bms, bound_by=by, library_ms=library_ms,
-            library=library,
-        )
+    cases.update(decode_kernel_rows(gen, device, decode_shape, iters))
     emit({"phase": "kernels", **cases})
     return cases
 
@@ -577,7 +715,7 @@ def generate_phase(params, config, device, tag, batch, prompt_len, new,
     _sync(device)
     decode_s = time.perf_counter() - t0
     # where the time goes: device kernels vs the rest (host)
-    profile = device_profile(step, 4, device)
+    profile = device_profile(step, 4, device, match="flash_decode")
     prefill_profile = device_profile(
         lambda: decode.prefill(params, prompt, config, T, quantize), 1,
         device)
@@ -883,13 +1021,14 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
 # ---------------------------------------------------------------------------
 
 
-def _build_report():
-    """Build every kernel and report, per library, what ``-Xptxas -v``
-    says (registers, shared memory, spills) and any compiler warning. A
-    ``setmaxnreg`` that ptxas ignored (C7508) fails the run: the forward's
-    consumer warpgroups would then run without the registers they take."""
+def _build_report(names=None):
+    """Build the named kernels (default: all) and report, per library, what
+    ``-Xptxas -v`` says (registers, shared memory, spills) and any compiler
+    warning. A ``setmaxnreg`` that ptxas ignored (C7508) fails the run: the
+    forward's consumer warpgroups would then run without the registers they
+    take."""
     t0 = time.perf_counter()
-    libs = _build.build()
+    libs = _build.build(names)
     info, warnings = {}, {}
     for name, path in libs.items():
         log = path.with_suffix(".so.log")
@@ -907,7 +1046,15 @@ def _build_report():
         raise AssertionError(f"ptxas ignored setmaxnreg: {ignored}")
 
 
-def main() -> int:
+def _print_card():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
               file=sys.stderr)
@@ -916,16 +1063,24 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    config = llama.LlamaConfig()
+    decode_shape = (8, config.n_kv_heads, config.n_heads // config.n_kv_heads,
+                    config.head_dim, 4096)
+    if argv[1:] == ["--decode"]:
+        # K4 alone: its checks and times, no result line
+        _build_report(["flash_decode"])
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        emit({"phase": "kernels",
+              **decode_kernel_rows(gen, device, decode_shape, 10)})
+        _print_card()
+        return 0
     _build_report()
 
-    config = llama.LlamaConfig()
     kernels = kernel_phase(device, fwd_shape=(8, 32, 2048, 128),
                            fwd_timed=((8, 32, 1024), (8, 32, 2048),
                                       (4, 32, 2048)),
                            bwd_shape=(4, 32, 2048, 128),
-                           decode_shape=(8, config.n_kv_heads,
-                                         config.n_heads // config.n_kv_heads,
-                                         config.head_dim, 4096))
+                           decode_shape=decode_shape)
     torch.cuda.empty_cache()
 
     params = llama.init_params(
@@ -977,12 +1132,10 @@ def main() -> int:
             plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
             bound_by=k["bound_by"], library_ms=k["library_ms"],
             library=k["library"]))
+        if "back_to_back_ms" in k:
+            rows[-1]["back_to_back_ms"] = k["back_to_back_ms"]
     emit({"kernels": rows})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    _print_card()
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
@@ -990,4 +1143,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

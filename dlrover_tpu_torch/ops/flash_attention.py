@@ -56,11 +56,11 @@ _SIGNATURES = {
         + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     ),
     "flash_decode_bf16": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p]
     ),
     "flash_decode_int8": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p]
     ),
 }
@@ -363,6 +363,18 @@ def flash_attention(
 # ---------------------------------------------------------------------------
 
 
+# keys per split of the decode kernel (``kSplit`` in ``flash_decode.cu``):
+# one CTA per split of each (batch row, KV head)
+DECODE_SPLIT = 256
+
+
+def _decode_splits(T: int) -> int:
+    """Splits of the decode kernel's grid for a cache of ``T`` keys,
+    ``ceil(T / DECODE_SPLIT)``: a function of T alone, never of the
+    positions, so the launch reads nothing back from the device."""
+    return -(-T // DECODE_SPLIT)
+
+
 def _pos_vector(pos, batch: int, device) -> torch.Tensor:
     """``pos`` (int, 0-d or ``(B,)`` tensor) → ``(B,)`` int32 on device."""
     p = torch.as_tensor(pos, dtype=torch.int32).to(device)
@@ -425,22 +437,28 @@ def _flash_decode_cuda(q, k, v, pos, scale, k_scale, v_scale):
                      f"flash_decode: {name} must be contiguous f32 "
                      f"({B}, {KV}, {T}) on {q.device}")
     qc = q.contiguous()
+    if qc.data_ptr() % 16:  # the kernel reads q in aligned pairs
+        qc = qc.clone()
     p_b = _pos_vector(pos, B, q.device)
     out = torch.empty_like(qc)
     if out.numel() == 0:
         return out
+    # each split's unnormalised o (G, Dh), then its m and l (G each), f32
+    ws = torch.empty(B * KV * _decode_splits(T) * G * (Dh + 2),
+                     dtype=torch.float32, device=q.device)
     if quantized:
         name = "flash_decode_int8"
         rc = _entry("flash_decode", name)(
             qc.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
-            v_scale.data_ptr(), p_b.data_ptr(), out.data_ptr(),
-            B, KV, G, T, Dh, float(scale), _stream(q),
+            v_scale.data_ptr(), p_b.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), B, KV, G, T, Dh, float(scale), _stream(q),
         )
     else:
         name = "flash_decode_bf16"
         rc = _entry("flash_decode", name)(
             qc.data_ptr(), k.data_ptr(), v.data_ptr(), p_b.data_ptr(),
-            out.data_ptr(), B, KV, G, T, Dh, float(scale), _stream(q),
+            ws.data_ptr(), out.data_ptr(), B, KV, G, T, Dh, float(scale),
+            _stream(q),
         )
     _build.check(rc, name)
     LAUNCHES[name] += 1
@@ -463,10 +481,16 @@ def flash_decode_attention(
     ``k_scale``/``v_scale`` ``(B, KV, T)`` f32, k/v are int8 and the kernel
     folds the per-vector scales in without dequantizing the cache.
 
-    On CUDA tensors it launches ``flash_decode.cu`` (bf16 or int8 cache);
-    on CPU tensors it runs :func:`flash_decode_plain`. ``block_k`` keeps
-    the JAX signature: the kernel tiles 64 keys and masks its own tail, so
-    T need not divide by it. Returns ``(B, KV, G, Dh)`` in q's dtype.
+    On CUDA tensors it launches ``flash_decode.cu`` (bf16 or int8 cache):
+    a split kernel on a ``(B * KV, ceil(T / DECODE_SPLIT))`` grid, each CTA
+    taking up to 256 keys of one row and KV head (those past the row's
+    position exit at once), then a combine kernel that merges the splits'
+    partial results in a fixed order, so the output is deterministic. The
+    wrapper allocates the f32 workspace between them. On CPU tensors it
+    runs :func:`flash_decode_plain`. ``block_k`` keeps the JAX signature:
+    the kernel's splits and 64-key tiles mask their own tail, so T need not
+    divide by it. A position past the cache attends all T keys. Returns
+    ``(B, KV, G, Dh)`` in q's dtype.
     """
     del block_k
     if k_scale is not None and v_scale is None:

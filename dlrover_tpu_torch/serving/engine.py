@@ -201,6 +201,10 @@ class BatchDecodeEngine:
         act = torch.tensor(list(active), dtype=torch.bool, device=dev)
         pos = self._pos
         rows = torch.arange(self.slots, device=dev)
+        # the write index stops at the last row, as the JAX engine's
+        # dynamic_update_slice clamps its start: a slot that has run past
+        # the cache overwrites its own row T - 1 and no other slot's
+        wpos = pos.clamp(max=T - 1)
         x = params["tok_embed"][tok][:, None, :]        # (S, 1, D)
         positions = pos[:, None]
         mask = (torch.arange(T, device=dev)[None, :]
@@ -216,12 +220,12 @@ class BatchDecodeEngine:
                 ksb, vsb = self._ks[li], self._vs[li]
                 for buf, sbuf, new in ((kb, ksb, k_new), (vb, vsb, v_new)):
                     vals, sc = _quantize(new)
-                    buf[rows, :, pos] = vals[:, :, 0]
-                    sbuf[rows, :, pos] = sc[:, :, 0]
+                    buf[rows, :, wpos] = vals[:, :, 0]
+                    sbuf[rows, :, wpos] = sc[:, :, 0]
             else:
                 ksb = vsb = None
-                kb[rows, :, pos] = k_new[:, :, 0].to(c.dtype)
-                vb[rows, :, pos] = v_new[:, :, 0].to(c.dtype)
+                kb[rows, :, wpos] = k_new[:, :, 0].to(c.dtype)
+                vb[rows, :, wpos] = v_new[:, :, 0].to(c.dtype)
             if self._flash:
                 out = _attend(q, kb, vb, mask, scale, pos=pos, flash=True,
                               k_scale=ksb, v_scale=vsb)

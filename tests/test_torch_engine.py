@@ -121,3 +121,41 @@ def test_prefill_rows_validates_lengths():
         teng.prefill_rows(list(range(1, 10)), 8)
     with pytest.raises(ValueError, match="exceeds cache length"):
         teng.prefill_rows([1, 2], 64)
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("kernel_route", [False, True])
+def test_slot_past_cache_end_leaves_live_slots(quantize, kernel_route,
+                                               monkeypatch):
+    """A slot whose prompt fills all but the last cache row steps on past
+    the end (pos == cache_len, then beyond) beside live slots. The JAX
+    engine's write clamps to row T - 1 of that slot; the port's must do the
+    same: the live slots' tokens equal the JAX engine's, and so do the
+    overflowing slot's, on the dense and the kernel route."""
+    jeng, _ = _engines(quantize)
+    if kernel_route:
+        monkeypatch.setattr(te, "flash_decode_wanted", lambda *a, **k: True)
+    _, teng = _engines(quantize)
+    assert teng._flash == kernel_route
+    rng = np.random.default_rng(5)
+    # (slot, prompt length, bucket): slot 0 fills CACHE_LEN - 1 rows
+    admits = [(0, CACHE_LEN - 1, CACHE_LEN), (1, 5, 8), (2, 10, 16)]
+    prompts = [rng.integers(1, 64, n).tolist() for _, n, _ in admits]
+
+    def serve(engine):
+        last = [0] * SLOTS
+        for (slot, _, bucket), prompt in zip(admits, prompts):
+            last[slot] = engine.insert(engine.prefill_rows(prompt, bucket),
+                                       slot)
+        steps = []
+        for _ in range(4):  # slot 0 writes at 47, then 48, 49, 50
+            last = engine.step(last, [True] * SLOTS)
+            steps.append(last)
+        return steps
+
+    ref = serve(jeng)
+    out = serve(teng)
+    assert int(teng._pos[0]) == CACHE_LEN + 3
+    assert [s[1:] for s in out] == [s[1:] for s in ref]  # live slots
+    assert [s[0] for s in out] == [s[0] for s in ref]    # the overflowing one
+

@@ -332,6 +332,60 @@ def test_flash_decode_rejects_k_scale_without_v_scale():
             3, k_scale=torch.from_numpy(ks))
 
 
+def test_flash_decode_pos_past_cache_attends_every_key():
+    """A position past the cache (a serving slot that ran over its end)
+    attends all T keys, as the kernel's clamp at T - 1 and the JAX
+    engine's full mask do: each row equals the call at T - 1."""
+    inputs = _decode_inputs(True, seed=4, B=2)
+    pos = torch.tensor([64, 75], dtype=torch.int32)
+    _, out = _decode_pair(inputs, 63, pos)
+    ref, _ = _decode_pair(inputs, 63, 63)
+    np.testing.assert_allclose(out, ref, atol=ATOL)
+
+
+def test_decode_splits_cover_the_cache():
+    """The decode kernel's grid: one split of DECODE_SPLIT keys per CTA,
+    ceil(T / DECODE_SPLIT) of them, whatever the positions; the constant
+    is the kernel's own kSplit."""
+    import re
+
+    from dlrover_tpu_torch.ops import _build
+
+    src = _build.sources()["flash_decode"].read_text()
+    assert re.search(r"constexpr int kSplit = (\d+);", src).group(1) == str(
+        tfa.DECODE_SPLIT)
+    assert tfa.DECODE_SPLIT == 256
+    for T, want in ((1, 1), (255, 1), (256, 1), (257, 2), (4096, 16),
+                    (4100, 17), (32768, 128)):
+        assert tfa._decode_splits(T) == want
+        assert (want - 1) * tfa.DECODE_SPLIT < T <= want * tfa.DECODE_SPLIT
+    assert tfa._decode_splits(0) == 0
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Every C entry point in csrc/ is called through ctypes with exactly
+    the parameter types its declaration has (a missing or extra pointer,
+    such as the decode kernel's workspace, would shift every argument)."""
+    import ctypes
+    import re
+
+    from dlrover_tpu_torch.ops import _build
+
+    kinds = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    found = {}
+    for src in _build.sources().values():
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            found[name] = [
+                kinds[re.sub(r"\s*\w+$", "", p.strip()).replace(" *", "*")]
+                for p in params.split(",")]
+    assert set(found) == set(tfa._SIGNATURES)
+    for name, want in found.items():
+        assert tfa._SIGNATURES[name] == want, name
+
+
 def test_launch_counts_stay_zero_on_cpu():
     tfa.reset_launch_counts()
     q, k, v, _, _ = _decode_inputs(False)
