@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --decode   # the decode kernel (K4) alone
+    python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and runs
-four phases, each printing one JSON line (the serving runs one each):
+six phases, each printing one JSON line (the serving runs one each):
 
 1. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in bf16 at its path's shapes, with the error, the kernel's time, the
@@ -45,10 +46,35 @@ four phases, each printing one JSON line (the serving runs one each):
    path against the dense path; a fixed batch whose loss must fall over 3
    steps; a profile of one step, tokens/s and MFU.
 
+5. ``ckpt`` — Flash Checkpoint on the train phase's state (bf16 params,
+   f32 moments: 16.8 GB at 8 layers), after ``worker.init`` (NCCL, one
+   rank) and with the state as DTensors on a mesh of 1. The free bytes of
+   ``/dev/shm`` and of the storage directory come first; when the state
+   does not fit both, the phase keeps the most layers that do and says
+   so. A ``save_to_memory`` is followed at once by a ``train_step``, which
+   writes the state in place: the snapshot must hold the values from
+   before the step. Then a ``save_to_storage``, a ``load`` from shm and
+   one from storage, each bitwise equal to the saved state, leaf by leaf,
+   on the card. Prints the save's training pause, the drain, storage and
+   restore rates, and the step time with and without a save in flight;
+6. ``resume`` — a kill drill across processes with
+   ``examples/llama_elastic_pretrain_torch.py``'s ``train`` in child
+   processes: ``LlamaConfig()`` widths, 2 layers, global batch 8,
+   sequence 2048, memory saves every step, storage every 5. Two unkilled
+   runs of 10 steps must agree bitwise; a third SIGKILLs itself once step
+   7's memory frame is sealed, and a fourth must resume from shm at step
+   7 (not from storage's step 5) and give the unkilled run's losses for
+   steps 8-10.
+
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
 ``--decode`` builds K4 alone and runs only its rows, with no result line:
-the quick loop for work on that kernel. Any
+the quick loop for work on that kernel.
+``--multi N`` runs the twin across N cards of one host (fsdp N, NCCL, each
+rank saving its own shards): its losses and grad norms against one card's
+(step 1 at the trainer tests' limits, later steps looser), two unkilled
+runs against each other, and phase 6's drill across the ranks; no result
+line. Any
 mismatch, refused launch or fault exits non-zero. Without CUDA the script
 exits non-zero and prints no result.
 
@@ -57,8 +83,11 @@ the card are full f32.
 """
 
 import dataclasses
+import importlib.util
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -66,6 +95,7 @@ import time
 import numpy as np
 import torch
 
+from dlrover_tpu_torch import worker
 from dlrover_tpu_torch.models import decode, llama
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as fa
@@ -1015,10 +1045,449 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
         lm_head_f32_gemm_ms=lm_head_ms,
         lm_head_f32_share_of_step=3 * accum * lm_head_ms / 1e3 / step_mean,
     ))
-    return counts
+    batch_shape = (accum, trainer.micro_batch_global, seq + 1)
+    return counts, dict(config=c, state=state, trainer=trainer,
+                        batch_shape=batch_shape, step_s=step_mean)
 
 
 # ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _state_tensors(state):
+    from dlrover_tpu_torch.convert import named_leaves
+
+    return [(name, _local(x)) for name, x in named_leaves(state)
+            if isinstance(x, torch.Tensor)]
+
+
+def _state_bytes(state):
+    return sum(t.numel() * t.element_size() for _, t in _state_tensors(state))
+
+
+def _unequal_leaves(state, saved):
+    return [name for (name, t), s in zip(_state_tensors(state), saved)
+            if not torch.equal(t, s)]
+
+
+def _first_layers(state, n_layers):
+    """The state cut to its first ``n_layers`` layers (copies)."""
+    def cut(tree, path=()):
+        if isinstance(tree, dict):
+            return {k: cut(v, path + (k,)) for k, v in tree.items()}
+        return tree[:n_layers].clone() if "layers" in path else tree
+    return cut(state)
+
+
+def ckpt_phase(trained, device, ckpt_root):
+    """Flash Checkpoint on the train phase's state (see the module
+    docstring, phase 5). Returns the launches of its two train steps."""
+    from dlrover_tpu_torch.ckpt.engine import CheckpointEngine
+    from dlrover_tpu_torch.parallel.mesh import build_mesh
+    from dlrover_tpu_torch.parallel.sharding import shard_tree
+
+    ctx = worker.init(device=device.type)  # NCCL (gloo on the CPU), 1 rank
+    c, trainer = trained["config"], trained["trainer"]
+    rng = np.random.default_rng(SEED + 5)
+    batches = [rng.integers(0, c.vocab_size, trained["batch_shape"],
+                            dtype=np.int32) for _ in range(2)]
+    state = trained["state"]
+    shm_free = shutil.disk_usage("/dev/shm").free
+    disk_free = shutil.disk_usage(ckpt_root).free
+    full_bytes = _state_bytes(state)
+    per_layer = sum(t.numel() * t.element_size()
+                    for name, t in _state_tensors(state)
+                    if "['layers']" in name) // c.n_layers
+    fixed = full_bytes - per_layer * c.n_layers
+    room = min(shm_free, disk_free) * 0.9
+    layers = c.n_layers
+    while layers > 1 and fixed + per_layer * layers > room:
+        layers -= 1
+    if layers != c.n_layers:
+        state = _first_layers(state, layers)
+        c = dataclasses.replace(c, n_layers=layers)
+        trainer._loss_fn = lambda p, t, c=c: llama.next_token_loss(p, t, c)
+        torch.cuda.empty_cache()
+    emit({"phase": "ckpt_space", "dev_shm_free_bytes": shm_free,
+          "storage_free_bytes": disk_free, "storage_dir": ckpt_root,
+          "state_bytes_8_layers": full_bytes, "layers": layers,
+          "cut": layers != trained["config"].n_layers})
+    # the state as DTensors on a mesh of 1 (same storage, no copy)
+    mesh = build_mesh(plan_mesh(1), device.type)
+    axes = llama.param_logical_axes(c)
+    state = {**state,
+             "params": shard_tree(mesh, state["params"], axes),
+             "opt_state": {**state["opt_state"],
+                           "mu": shard_tree(mesh, state["opt_state"]["mu"],
+                                            axes),
+                           "nu": shard_tree(mesh, state["opt_state"]["nu"],
+                                            axes)}}
+    nbytes = _state_bytes(state)
+    engine = CheckpointEngine(
+        os.path.join(ckpt_root, "ckpt"), job_name=f"chipsmoke{os.getpid()}",
+        node_rank=0, local_rank=0, rank=0, world_size=1,
+        local_world_size=1, ipc_socket="/nonexistent")
+    try:
+        return _ckpt_checks(engine, state, trainer, batches, device,
+                            nbytes, trained["step_s"], ctx)
+    finally:
+        engine._shm.unlink()
+
+
+def _ckpt_checks(engine, state, trainer, batches, device, nbytes,
+                 step_s_train, ctx):
+    gb = nbytes / 1e9
+    # warm: the first save creates and populates the shm segment
+    _sync(device)
+    t0 = time.perf_counter()
+    if not engine.save_to_memory(0, state) or not engine.wait_drained():
+        raise AssertionError("ckpt: warm-up save failed")
+    cold = dict(engine.last_save, wall_s=time.perf_counter() - t0)
+    saved = [t.clone() for _, t in _state_tensors(state)]
+    step0 = int(state["step"])
+    _sync(device)
+
+    fa.reset_launch_counts()
+    # a memory save, then at once a step that writes the state in place
+    t0 = time.perf_counter()
+    if not engine.save_to_memory(step0, state):
+        raise AssertionError("ckpt: save_to_memory skipped")
+    pause_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, res = trainer.train_step(state, batches[0])
+    loss_in_flight = float(res.loss)
+    step_with_save_s = time.perf_counter() - t0
+    if not engine.wait_drained():
+        raise AssertionError("ckpt: drain failed")
+    drain = dict(engine.last_save)
+    moved = _unequal_leaves(state, saved)
+    if "['params']['lm_head']" not in moved:
+        raise AssertionError(f"ckpt: the step left lm_head as it was "
+                             f"({moved})")
+    # restore from shm over the stepped state: the pre-step values
+    state, step = engine.load(state)
+    shm_restore = dict(engine.last_restore)
+    bad = _unequal_leaves(state, saved)
+    if step != step0 or shm_restore["medium"] != "shm" or bad:
+        raise AssertionError(f"ckpt: shm restore step {step} "
+                             f"{shm_restore}, leaves differ: {bad}")
+    if not engine.save_to_storage(step0, state):
+        raise AssertionError("ckpt: save_to_storage skipped")
+    storage = dict(engine.last_save)
+    # a step with no save in flight, then restore from storage over it
+    _sync(device)
+    t0 = time.perf_counter()
+    state, res = trainer.train_step(state, batches[1])
+    float(res.loss)
+    step_without_save_s = time.perf_counter() - t0
+    counts = _launches()
+    engine._shm.unlink()
+    state, step = engine.load(state)
+    storage_restore = dict(engine.last_restore)
+    bad = _unequal_leaves(state, saved)
+    if step != step0 or storage_restore["medium"] != "storage" or bad:
+        raise AssertionError(f"ckpt: storage restore step {step} "
+                             f"{storage_restore}, leaves differ: {bad}")
+    persist_s = storage["storage_s"] - storage["drain_s"]
+    emit(dict(
+        phase="ckpt", state_bytes=nbytes, leaves=len(saved),
+        world_size=ctx.world_size, launches=counts,
+        save_pause_ms=pause_s * 1e3,
+        drain_s=drain["drain_s"], drain_gb_per_s=gb / drain["drain_s"],
+        cold_drain_s=cold["drain_s"],
+        cold_drain_gb_per_s=gb / cold["drain_s"],
+        storage_persist_s=persist_s, storage_gb_per_s=gb / persist_s,
+        storage_save_s=storage["storage_s"],
+        restore_shm_s=shm_restore["seconds"],
+        restore_shm_gb_per_s=gb / shm_restore["seconds"],
+        restore_storage_s=storage_restore["seconds"],
+        restore_storage_gb_per_s=gb / storage_restore["seconds"],
+        step_s_with_save_in_flight=step_with_save_s,
+        step_s_without_save=step_without_save_s,
+        step_s_train_phase=step_s_train,
+        loss_with_save_in_flight=loss_in_flight,
+        snapshot_holds_pre_step_values=True, restores_bitwise=True,
+    ))
+    del saved
+    return counts
+
+
+def resume_child(args) -> int:
+    """One run of the twin's ``train`` (a child of :func:`resume_phase`)."""
+    spec = importlib.util.spec_from_file_location(
+        "llama_elastic_pretrain_torch",
+        os.path.join(REPO, "examples", "llama_elastic_pretrain_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    device = torch.device(args["device"])
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    config = llama.LlamaConfig(**{
+        k: (getattr(torch, v) if k == "dtype" else v)
+        for k, v in args["config"].items()})
+    ctx = worker.init(device=device.type)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = twin.train(config, args["steps"], args["global_batch"],
+                     args["seq"], args["ckpt_dir"], ctx,
+                     ckpt_every=args["storage_every"],
+                     kill_at_step=args.get("kill_at"))
+    engine = out["checkpointer"].engine
+    print("RESUME " + json.dumps(dict(
+        start_step=out["start_step"], restored_from=out["restored_from"],
+        restore=engine.last_restore, losses=out["losses"],
+        grad_norms=out["grad_norms"],
+        launches=_launches(), seconds=time.perf_counter() - t0,
+        last_save=engine.last_save)), flush=True)
+    worker.shutdown()
+    return 0
+
+
+def _run_children(args, job, ranks=1, timeout=900):
+    """The twin's ``train`` in ``ranks`` child processes, one rank (and
+    card) each, over ``torch.distributed`` when more than one. Returns
+    ``[(exit code, output, RESUME result or None)]`` by rank."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DLROVER_TPU_")}
+    env["DLROVER_TPU_JOB_NAME"] = job
+    if ranks > 1:
+        import socket
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env.update(DLROVER_TPU_WORLD_SIZE=str(ranks),
+                   DLROVER_TPU_LOCAL_WORLD_SIZE=str(ranks),
+                   DLROVER_TPU_COORDINATOR_ADDR=f"127.0.0.1:{port}")
+    logs, procs = [], []
+    for r in range(ranks):
+        env.update(DLROVER_TPU_RANK=str(r), DLROVER_TPU_LOCAL_RANK=str(r))
+        logs.append(os.path.join(os.path.dirname(args["ckpt_dir"]),
+                                 f"{job}_{r}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--resume-child",
+                 json.dumps(args)], env=dict(env), stdout=log,
+                stderr=subprocess.STDOUT, text=True, cwd=REPO))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for p, path in zip(procs, logs):
+        with open(path) as f:
+            text = f.read()
+        os.remove(path)
+        lines = [ln for ln in text.splitlines() if ln.startswith("RESUME ")]
+        result = json.loads(lines[-1][len("RESUME "):]) if lines else None
+        if result is not None:
+            for key in ("losses", "grad_norms"):
+                result[key] = {int(k): v for k, v in result[key].items()}
+        out.append((p.returncode, text, result))
+    return out
+
+
+def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
+                 storage_every, kill_at):
+    """The kill drill (see the module docstring, phase 6). Returns the
+    launches of the children's runs."""
+    from dlrover_tpu_torch.ckpt.shm_handler import shm_name
+    from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
+
+    cfg = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    cfg["dtype"] = str(config.dtype).removeprefix("torch.")
+
+    def args(name, kill=None):
+        return dict(device=str(device), config=cfg, steps=steps,
+                    global_batch=global_batch, seq=seq,
+                    storage_every=storage_every, kill_at=kill,
+                    ckpt_dir=os.path.join(ckpt_root, name))
+
+    def run(name, job, kill=None):
+        rc, out, res = _run_children(args(name, kill), job)[0]
+        if kill is None and (rc != 0 or res is None):
+            raise AssertionError(f"resume: run {name} failed ({rc}):\n"
+                                 f"{out[-6000:]}")
+        return rc, out, res
+
+    def drop(name, job):
+        unlink_shared_memory(shm_name(job, 0, 0))
+        shutil.rmtree(os.path.join(ckpt_root, name), ignore_errors=True)
+
+    tag = os.getpid()
+    results, counts = {}, []
+    for name in ("unkilled_a", "unkilled_b"):
+        _, _, results[name] = run(name, f"resume_{name}_{tag}")
+        drop(name, f"resume_{name}_{tag}")
+        counts.append(results[name]["launches"])
+    a, b = results["unkilled_a"]["losses"], results["unkilled_b"]["losses"]
+    if sorted(a) != list(range(1, steps + 1)) or sorted(b) != sorted(a):
+        raise AssertionError(f"resume: unkilled runs took steps {sorted(a)}"
+                             f" and {sorted(b)}")
+    spread = max(abs(a[s] - b[s]) / abs(a[s]) for s in a)
+    job = f"resume_drill_{tag}"
+    try:
+        rc, out, killed = run("drill", job, kill=kill_at)
+        if rc != -signal.SIGKILL or killed is not None:
+            raise AssertionError(
+                f"resume: the drill's first run ended {rc}, not by SIGKILL "
+                f"after step {kill_at}:\n{out[-6000:]}")
+        _, _, resumed = run("drill", job)
+    finally:
+        drop("drill", job)
+    counts.append(resumed["launches"])
+    got = resumed["losses"]
+    tail = list(range(kill_at + 1, steps + 1))
+    worst = max(abs(got.get(s, float("nan")) - a[s]) / abs(a[s])
+                for s in tail)
+    ok = (resumed["start_step"] == kill_at
+          and resumed["restored_from"] == "shm"
+          and sorted(got) == tail and worst <= spread)
+    emit(dict(
+        phase="resume", config=dict(dim=config.dim, n_layers=config.n_layers,
+                                    dtype=cfg["dtype"]),
+        global_batch=global_batch, seq_len=seq, steps=steps,
+        storage_every=storage_every, kill_at=kill_at,
+        unkilled_losses=[a[s] for s in sorted(a)],
+        unkilled_bitwise_equal=a == b, unkilled_max_rel_spread=spread,
+        resumed_start_step=resumed["start_step"],
+        resumed_from=resumed["restored_from"], restore=resumed["restore"],
+        resumed_losses=[got.get(s) for s in tail],
+        resumed_max_rel_diff=worst,
+        run_seconds={k: v["seconds"] for k, v in results.items()},
+        resumed_run_seconds=resumed["seconds"],
+        launches_per_run=counts))
+    if not ok:
+        raise AssertionError(
+            f"resume: resumed at {resumed['start_step']} from "
+            f"{resumed['restored_from']}, losses {got} vs unkilled {a} "
+            f"(spread {spread})")
+    return counts
+
+
+# --multi: the ranks against one card. Step 1 starts from the same params,
+# so only the order of the f32 sums differs (the trainer tests' limits);
+# later steps also carry bf16 params rounded from updates that differ in
+# their last bits, so they are held looser. A fault in the reduction (a
+# grad not averaged over the ranks, a rank on the wrong rows) moves the
+# step-1 grad norm by far more than its limit.
+MULTI_FIRST_LOSS_TOL, MULTI_FIRST_NORM_TOL = 1e-5, 1e-4
+MULTI_LATER_LOSS_TOL, MULTI_LATER_NORM_TOL = 1e-3, 1e-2
+
+
+def multi_phase(config, device, ckpt_root, ranks, global_batch, seq, steps,
+                storage_every, kill_at):
+    """The twin across ``ranks`` cards of one host (``--multi``): the
+    params as DTensors sharded over fsdp, NCCL collectives in the step,
+    each rank saving its own shards. Its losses against one card's, the
+    same drill as phase 6 across the ranks, and the ranks' launches."""
+    from dlrover_tpu_torch.ckpt.shm_handler import shm_name
+    from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
+
+    cfg = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    cfg["dtype"] = str(config.dtype).removeprefix("torch.")
+    tag = os.getpid()
+
+    def run(name, n, kill=None):
+        job = f"multi_{name}_{tag}"
+        args = dict(device=str(device), config=cfg, steps=steps,
+                    global_batch=global_batch, seq=seq,
+                    storage_every=storage_every, kill_at=kill,
+                    ckpt_dir=os.path.join(ckpt_root, job))
+        out = _run_children(args, job, ranks=n)
+        bad = [(r, rc) for r, (rc, _, res) in enumerate(out)
+               if (rc != -signal.SIGKILL if kill else rc != 0 or res is None)]
+        if bad:
+            raise AssertionError(f"multi: run {name} ranks {bad} failed:\n"
+                                 + out[bad[0][0]][1][-6000:])
+        return job, [res for _, _, res in out]
+
+    def drop(job, n):
+        for r in range(n):
+            unlink_shared_memory(shm_name(job, 0, r))
+        shutil.rmtree(os.path.join(ckpt_root, job), ignore_errors=True)
+
+    jobs, runs = [], {}
+    try:
+        for name, n in (("one", 1), ("a", ranks), ("b", ranks)):
+            job, runs[name] = run(name, n)
+            drop(job, n)
+        job, _ = run("drill", ranks, kill=kill_at)
+        jobs.append(job)
+        _, runs["resumed"] = run("drill", ranks)
+    finally:
+        for job in jobs:
+            drop(job, ranks)
+    one = runs["one"][0]["losses"]
+    a, b = runs["a"][0]["losses"], runs["b"][0]["losses"]
+    if any(res["losses"] != v[0]["losses"] for v in runs.values()
+           for res in v):
+        raise AssertionError("multi: the ranks of one run disagree on loss")
+    # step 1 starts from the same params: the ranks only sum in another
+    # order (the trainer tests' f32 limits); later steps also carry
+    # bf16 params rounded from f32 updates that differ in their last bits
+    norm_one = runs["one"][0]["grad_norms"]
+    norm_a = runs["a"][0]["grad_norms"]
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    first = dict(loss=rel(a[1], one[1]), grad_norm=rel(norm_a[1], norm_one[1]))
+    later = dict(loss=max(rel(a[s], one[s]) for s in one if s > 1),
+                 grad_norm=max(rel(norm_a[s], norm_one[s])
+                               for s in one if s > 1))
+    spread = max(abs(a[s] - b[s]) / abs(a[s]) for s in a)
+    resumed = runs["resumed"]
+    tail = list(range(kill_at + 1, steps + 1))
+    got = resumed[0]["losses"]
+    worst = max(abs(got.get(s, float("nan")) - a[s]) / abs(a[s])
+                for s in tail)
+    ok = (first["loss"] <= MULTI_FIRST_LOSS_TOL
+          and first["grad_norm"] <= MULTI_FIRST_NORM_TOL
+          and later["loss"] <= MULTI_LATER_LOSS_TOL
+          and later["grad_norm"] <= MULTI_LATER_NORM_TOL
+          and worst <= spread
+          and all(r["start_step"] == kill_at and r["restored_from"] == "shm"
+                  for r in resumed))
+    counts = {k: sum(res["launches"][k] for res in runs["a"])
+              for k in runs["a"][0]["launches"]}
+    emit(dict(
+        phase="multi", ranks=ranks, config=dict(
+            dim=config.dim, n_layers=config.n_layers, dtype=cfg["dtype"]),
+        global_batch=global_batch, seq_len=seq, steps=steps,
+        kill_at=kill_at, one_card_losses=[one[s] for s in sorted(one)],
+        losses=[a[s] for s in sorted(a)],
+        one_card_grad_norms=[norm_one[s] for s in sorted(norm_one)],
+        grad_norms=[norm_a[s] for s in sorted(norm_a)],
+        rel_vs_one_card_step_1=first, rel_vs_one_card_later=later,
+        unkilled_bitwise_equal=a == b, unkilled_max_rel_spread=spread,
+        resumed_start_steps=[r["start_step"] for r in resumed],
+        resumed_from=[r["restored_from"] for r in resumed],
+        restore_s=[r["restore"].get("seconds") for r in resumed],
+        resumed_losses=[got.get(s) for s in tail],
+        resumed_max_rel_diff=worst,
+        run_seconds={k: v[0]["seconds"] for k, v in runs.items()},
+        launches_per_run_all_ranks=counts))
+    if not ok:
+        raise AssertionError(
+            f"multi: vs one card, step 1 {first}, later {later}, "
+            f"resumed {[(r['start_step'], r['restored_from'])
+                        for r in resumed]} losses {got} vs {a} "
+            f"(spread {spread})")
+    return counts
 
 
 def _build_report(names=None):
@@ -1055,6 +1524,8 @@ def _print_card():
 
 
 def main(argv) -> int:
+    if argv[1:2] == ["--resume-child"]:
+        return resume_child(json.loads(argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
               file=sys.stderr)
@@ -1066,6 +1537,25 @@ def main(argv) -> int:
     config = llama.LlamaConfig()
     decode_shape = (8, config.n_kv_heads, config.n_heads // config.n_kv_heads,
                     config.head_dim, 4096)
+    if argv[1:2] == ["--multi"]:
+        # the twin across the host's cards (see multi_phase); no result line
+        ranks = int(argv[2]) if argv[2:] else torch.cuda.device_count()
+        if ranks < 2 or torch.cuda.device_count() < ranks:
+            print(f"chip_smoke --multi: needs {max(ranks, 2)} cards, has "
+                  f"{torch.cuda.device_count()}", file=sys.stderr)
+            return 2
+        _build_report()
+        root = os.path.join(REPO, ".chip_ckpt")
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        try:
+            multi_phase(dataclasses.replace(config, n_layers=2), device,
+                        root, ranks, global_batch=8, seq=2048, steps=6,
+                        storage_every=5, kill_at=4)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        _print_card()
+        return 0
     if argv[1:] == ["--decode"]:
         # K4 alone: its checks and times, no result line
         _build_report(["flash_decode"])
@@ -1104,9 +1594,23 @@ def main(argv) -> int:
         len_range=(100, 1500), new_range=(16, 48), n_teacher=4))
     del params  # the serving weights make room for the training state
     torch.cuda.empty_cache()
-    main_path.append(train_phase(
+    counts, trained = train_phase(
         dataclasses.replace(config, n_layers=8), device, global_batch=8,
-        micro_batch=4, seq=2048, steps=3, lr=3e-4))
+        micro_batch=4, seq=2048, steps=3, lr=3e-4)
+    main_path.append(counts)
+    ckpt_root = os.path.join(REPO, ".chip_ckpt")
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    os.makedirs(ckpt_root)
+    try:
+        main_path.append(ckpt_phase(trained, device, ckpt_root))
+        del trained
+        torch.cuda.empty_cache()
+        main_path.extend(resume_phase(
+            dataclasses.replace(config, n_layers=2), device, ckpt_root,
+            global_batch=8, seq=2048, steps=10, storage_every=5, kill_at=7))
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+        worker.shutdown()
 
     replaces = {
         "flash_fwd": ("dlrover_tpu_torch/ops/csrc/flash_fwd.cu",

@@ -20,6 +20,15 @@ flash-attention backward is two more hand-written kernels
 (``ops/csrc/flash_bwd.cu``: dq, and dk/dv) behind a
 ``torch.autograd.Function``.
 
+Slice 3 is the rest of the elastic pretraining loop: ``worker.py``
+(``init`` on ``torch.distributed`` from the agent's environment, with
+trimmed copies of the control-plane clients under ``agent/`` and
+``common/``), ``parallel/sharding.py`` and ``parallel/mesh.py`` (the
+reference's sharding rules as DTensor placements on a DeviceMesh), the
+trainer across ranks, and Flash Checkpoint (``ckpt/``) in the reference's
+frame format, so the JAX package's agent and engine read the port's frames
+and the reverse.
+
 Entry points take an explicit ``device`` (default ``"cuda"``) and never
 fall back to the CPU on their own; the CPU tests pass ``device="cpu"``.
 """

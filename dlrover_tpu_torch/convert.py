@@ -69,3 +69,62 @@ def train_state_from_jax(state: Dict[str, Any], device="cuda"
                       "nu": moments(adam.nu)},
         "step": scalar(state["step"]),
     }
+
+
+# -- leaf names shared with the JAX package's checkpoints -------------------
+#
+# The checkpoint engines name each leaf by jax's ``keystr`` of its path in
+# the JAX train state: ``['params']['layers']['wq']``, ``['step']``, and the
+# adam moments under the optax chain's first state,
+# ``['opt_state'][0].count`` / ``.mu[...]`` / ``.nu[...]``. The port's state
+# keeps ``opt_state = {"count", "mu", "nu"}``; these two functions map
+# between its paths and those names, so either engine restores the other's
+# frames.
+
+
+def jax_leaf_name(path) -> str:
+    """The JAX ``keystr`` name of the port state's leaf at ``path`` (a
+    tuple of dict keys)."""
+    path = tuple(path)
+    if len(path) >= 2 and path[0] == "opt_state":
+        return ("['opt_state'][0]." + path[1]
+                + "".join(f"[{k!r}]" for k in path[2:]))
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def port_leaf_path(name: str):
+    """Inverse of :func:`jax_leaf_name`: the port state's path of the leaf
+    the JAX package names ``name``."""
+    import ast
+
+    head = "['opt_state'][0]."
+    path = []
+    if name.startswith(head):
+        rest = name[len(head):]
+        attr, _, rest = rest.partition("[")
+        path += ["opt_state", attr]
+        name = "[" + rest if rest else ""
+    while name:
+        if not name.startswith("["):
+            raise ValueError(f"not a dict-key path: {name!r}")
+        end = name.index("]")
+        path.append(ast.literal_eval(name[1:end]))
+        name = name[end + 1:]
+    return tuple(path)
+
+
+def named_leaves(state, path=()):
+    """``[(jax name, leaf)]`` of a nested-dict state, in jax's flatten
+    order (sorted keys)."""
+    if isinstance(state, dict):
+        return [item for key in sorted(state)
+                for item in named_leaves(state[key], path + (key,))]
+    return [(jax_leaf_name(path), state)]
+
+
+def map_named(fn, state, path=()):
+    """The state with each leaf replaced by ``fn(jax name, leaf)``."""
+    if isinstance(state, dict):
+        return {key: map_named(fn, state[key], path + (key,))
+                for key in state}
+    return fn(jax_leaf_name(path), state)

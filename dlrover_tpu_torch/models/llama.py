@@ -128,6 +128,27 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     }
 
 
+def param_logical_axes(config: LlamaConfig) -> Dict:
+    """Logical sharding axes per param (the reference's names; the rules
+    in parallel/sharding.py map them to mesh axes)."""
+    return {
+        "tok_embed": ("vocab", "embed"),
+        "layers": {
+            "attn_norm": ("layers", "norm"),
+            "wq": ("layers", "embed", "heads"),
+            "wk": ("layers", "embed", "kv_heads"),
+            "wv": ("layers", "embed", "kv_heads"),
+            "wo": ("layers", "heads", "embed"),
+            "ffn_norm": ("layers", "norm"),
+            "w1": ("layers", "embed", "mlp"),
+            "w3": ("layers", "embed", "mlp"),
+            "w2": ("layers", "mlp", "embed"),
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
+
+
 def layer_params(params: Dict, li: int) -> Dict:
     """Layer ``li``'s weights out of the stacked ``params['layers']``."""
     return {name: w[li] for name, w in params["layers"].items()}

@@ -12,6 +12,20 @@ accumulators. Then it divides by ``accum``, takes the global norm, runs the
 optimizer and writes ``(p.f32 + u).astype(p.dtype)`` into the params in
 place (the reference donates the state to the same end).
 
+Across ranks the params are DTensors (``parallel.sharding.shard_tree``).
+The kernels take plain tensors through ``ctypes``, so a step gathers each
+param whole (``full_tensor``), runs the micro steps on this rank's rows of
+the global batch, reduces the f32 accumulators to each leaf's placement as
+the mean over the batch ranks (``reduce_scatter_tensor`` along a dim the
+data axes shard, ``all_reduce`` over the data axes that replicate it),
+takes the global norm with one ``all_reduce`` and runs AdamW on the local
+shards. On one rank, or with plain tensors, no collective runs and the
+step is the single-card step bit for bit.
+
+Before it writes the state in place the step waits for the registered
+readers of it (``common.state_fence``: a checkpoint snapshot still
+streaming to the host).
+
 Not ported yet: the memory-ledger claims and the compile-watch signature
 of the reference's ``train_step`` (they need the port's own observability
 planes).
@@ -20,9 +34,13 @@ planes).
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from dlrover_tpu_torch.common import state_fence
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.parallel import sharding
 from dlrover_tpu_torch.parallel.mesh import MeshPlan, plan_mesh
 from dlrover_tpu_torch.trainer.optim import tree_leaves, tree_unflatten
 
@@ -120,9 +138,10 @@ class ElasticTrainer:
 
     def train_step(self, state, batch):
         """batch: ``(accum, micro_batch_global, ...)`` tokens (numpy or a
-        tensor; moved to the trainer's device). Returns ``(new_state,
-        TrainStepResult(loss, grad_norm))``; the params tensors are updated
-        in place and the optimizer state is advanced in place."""
+        tensor; moved to the trainer's device), the whole global batch on
+        every rank. Returns ``(new_state, TrainStepResult(loss,
+        grad_norm))``; the params tensors are updated in place and the
+        optimizer state is advanced in place."""
         batch = torch.as_tensor(batch).to(self.device)
         accum = self.grad_accum_steps
         if batch.shape[0] != accum:
@@ -130,11 +149,20 @@ class ElasticTrainer:
                 f"batch leading axis {batch.shape[0]} != grad_accum {accum}")
         params = state["params"]
         leaves = tree_leaves(params)
+        mesh = next((p.device_mesh for p in leaves
+                     if isinstance(p, DTensor)), None)
+        spread = mesh is not None and mesh.size() > 1
+        if spread:
+            full = [p.full_tensor() if isinstance(p, DTensor) else p
+                    for p in leaves]
+            batch = self._rows_of_this_rank(mesh, batch)
+        else:
+            full = [_local(p) for p in leaves]
         # aliases that require grad, so the caller's tensors keep their flags
-        live = [p.detach().requires_grad_() for p in leaves]
+        live = [p.detach().requires_grad_() for p in full]
         live_params = tree_unflatten(params, live)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-               for p in leaves]
+               for p in full]
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
         with torch.enable_grad():
             for microbatch in batch:
@@ -143,15 +171,105 @@ class ElasticTrainer:
                 torch._foreach_add_(acc, grads)
                 del grads
                 loss_sum += loss.detach().float()
-        del live, live_params
+        del live, live_params, full
         torch._foreach_div_(acc, accum)
-        grad_norm = global_norm(acc)
-        updates, opt_state = self._optimizer.update(
-            tree_unflatten(params, acc), state["opt_state"], params)
+        loss = loss_sum / accum
+        if spread:
+            acc, grad_norm, loss = _reduce_to_placements(
+                mesh, leaves, acc, loss)
+        else:
+            grad_norm = global_norm(acc)
+        local_params = tree_unflatten(params, [_local(p) for p in leaves])
+        opt_state = state["opt_state"]
+        local_opt = {k: (tree_unflatten(v, [_local(t) for t in tree_leaves(v)])
+                         if isinstance(v, dict) else v)
+                     for k, v in opt_state.items()}
+        state_fence.wait_readers()
+        updates, new_local = self._optimizer.update(
+            tree_unflatten(params, acc), local_opt, local_params)
+        new_opt = {k: (opt_state[k] if isinstance(opt_state.get(k), dict)
+                       else v) for k, v in new_local.items()}
         with torch.no_grad():
             upd = tree_leaves(updates)
-            torch._foreach_add_(upd, leaves)  # p.f32 + u, in f32
-            torch._foreach_copy_(leaves, upd)  # rounded to the param dtype
-        new_state = {"params": params, "opt_state": opt_state,
+            ps = tree_leaves(local_params)
+            torch._foreach_add_(upd, ps)  # p.f32 + u, in f32
+            torch._foreach_copy_(ps, upd)  # rounded to the param dtype
+        new_state = {**state, "params": params, "opt_state": new_opt,
                      "step": state["step"] + 1}
-        return new_state, TrainStepResult(loss_sum / accum, grad_norm)
+        return new_state, TrainStepResult(loss, grad_norm)
+
+    @staticmethod
+    def _rows_of_this_rank(mesh, batch):
+        """This rank's rows of every micro batch: the micro batch split
+        over the data axes (dcn, dp, fsdp) in mesh order."""
+        sizes = sharding.mesh_sizes(mesh)
+        coords = sharding.mesh_coords(mesh)
+        n, idx = 1, 0
+        for axis in sharding.BATCH_AXES:
+            n *= sizes[axis]
+            idx = idx * sizes[axis] + coords[axis]
+        rows = batch.shape[1]
+        if rows % n:
+            raise ValueError(f"micro batch {rows} rows over {n} data ranks")
+        return batch[:, idx * rows // n:(idx + 1) * rows // n]
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _reduce_to_placements(mesh, leaves, acc, loss):
+    """Per-rank f32 grads of the whole params → each leaf's local shard of
+    the mean over the data ranks, the global grad norm, and the mean
+    loss. Ranks that differ only in model axes (tp, pp, ...) ran the same
+    rows, so their grads already agree: they just keep their region."""
+    sizes = sharding.mesh_sizes(mesh)
+    coords = sharding.mesh_coords(mesh)
+    n_data = 1
+    for axis in sharding.BATCH_AXES:
+        n_data *= sizes[axis]
+    out = []
+    sq = torch.zeros((), dtype=torch.float32, device=loss.device)
+    for p, g in zip(leaves, acc):
+        spec = (sharding.dtensor_spec(p) if isinstance(p, DTensor)
+                else (None,) * g.ndim)
+        model_spec = tuple(
+            tuple(a for a in sharding.entry_axes(e)
+                  if a not in sharding.BATCH_AXES) or None
+            for e in spec)
+        start, shape = sharding.region_for(g.shape, model_spec, sizes, coords)
+        g = sharding.local_region(g, start, shape)
+        used = {a for e in spec for a in sharding.entry_axes(e)}
+        group = sharding.axis_group(
+            mesh, [a for a in sharding.BATCH_AXES if a not in used])
+        if group is not None:
+            g = g.contiguous()
+            dist.all_reduce(g, group=group)
+        for d, e in enumerate(spec):
+            data_axes = [a for a in sharding.entry_axes(e)
+                         if a in sharding.BATCH_AXES]
+            group = sharding.axis_group(mesh, data_axes)
+            if group is None:
+                continue
+            if len(data_axes) != len(sharding.entry_axes(e)):
+                raise NotImplementedError(
+                    f"dim {d} mixes data and model axes: {e}")
+            k = dist.get_world_size(group)
+            chunks = torch.stack(g.chunk(k, dim=d))
+            piece = torch.empty_like(chunks[0])
+            dist.reduce_scatter_tensor(
+                piece, chunks.reshape(-1, *piece.shape[1:]), group=group)
+            g = piece
+        g = g / n_data if n_data > 1 else g.contiguous()
+        owner = all(coords[a] == 0
+                    for a in sharding.replica_axes(spec, sizes))
+        if owner:
+            sq = sq + torch.sum(torch.square(g))
+        out.append(g)
+    dist.all_reduce(sq)
+    if n_data > 1:
+        loss = loss.clone()
+        dist.all_reduce(loss, group=sharding.axis_group(
+            mesh, sharding.BATCH_AXES))
+        loss = loss / n_data
+    return out, torch.sqrt(sq), loss

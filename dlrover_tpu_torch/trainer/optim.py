@@ -62,10 +62,9 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
         leaves = tree_leaves(params)
         device = leaves[0].device
 
-        def zeros():
+        def zeros():  # DTensor params give DTensor moments, same layout
             return tree_unflatten(params, [
-                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in leaves])
+                torch.zeros_like(p, dtype=torch.float32) for p in leaves])
 
         return {"count": torch.zeros((), dtype=torch.int32, device=device),
                 "mu": zeros(), "nu": zeros()}

@@ -1,9 +1,11 @@
 """The port's standing rules.
 
-- ``dlrover_tpu_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+- ``dlrover_tpu_torch``, ``chip_smoke.py`` and the port's example
+  ``examples/llama_elastic_pretrain_torch.py`` import neither ``jax`` nor
   anything of ``dlrover_tpu`` (checked on the source, and on
   ``sys.modules`` after importing every port module in a fresh
-  interpreter);
+  interpreter), and the port needs neither ``msgpack`` nor ``ml_dtypes``
+  (the card machine installs neither);
 - entry points default to the card and raise on a box without CUDA, never
   drifting to the CPU;
 - the kernel build raises a clear error when ``nvcc`` is absent.
@@ -33,8 +35,12 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "dlrover_tpu")
 
 
+TWIN = REPO / "examples" / "llama_elastic_pretrain_torch.py"
+
+
 @pytest.mark.parametrize("path",
-                         sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"],
+                         sorted(PKG.rglob("*.py"))
+                         + [REPO / "chip_smoke.py", TWIN],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_no_jax_and_no_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -46,6 +52,33 @@ def test_port_source_imports_no_jax_and_no_jax_package(path):
             if _forbidden(node.module or ""):
                 bad.append(node.module)
     assert not bad, f"{path} imports {bad}"
+
+
+def test_port_imports_without_msgpack_and_ml_dtypes():
+    """Every port module and the twin import with ``msgpack`` and
+    ``ml_dtypes`` blocked, as on the card machine."""
+    code = (
+        "import importlib, importlib.util, sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        f"    'twin', {str(TWIN)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "from dlrover_tpu_torch.common import msgpack\n"
+        "assert msgpack.unpackb(msgpack.packb({'a': [1, b'x']})) == "
+        "{'a': [1, b'x']}\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dlrover_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_forbidden_prefix_spares_the_port_itself():
