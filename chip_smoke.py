@@ -4,11 +4,13 @@
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --decode   # the decode kernel (K4) alone
     python3 chip_smoke.py --serve    # the serving replica (phase 7) alone
+    python3 chip_smoke.py --elastic  # the agent's fault drill (phase 8)
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
+    python3 chip_smoke.py --node-drill 4  # its node drill alone
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and runs
-seven phases, each printing one JSON line (the serving runs one each);
-phase 7 runs after phase 3, on the same weights:
+eight phases, each printing one JSON line (the serving runs one each);
+phase 7 runs after phase 3, on the same weights, phase 8 after phase 6:
 
 1. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in bf16 at its path's shapes, with the error, the kernel's time, the
@@ -67,6 +69,28 @@ phase 7 runs after phase 3, on the same weights:
    7's memory frame is sealed, and a fourth must resume from shm at step
    7 (not from storage's step 5) and give the unkilled run's losses for
    steps 8-10.
+8. ``elastic`` — the port's ``dlrover-run`` (``python -m
+   dlrover_tpu_torch.agent.run --standalone --nproc-per-node=1
+   --max-restarts=3 --save-at-breakpoint``, its master in the agent
+   process; started as ``python -c`` around ``run.main``, which then
+   checks the agent's modules) drives the twin at phase 6's sizes on the card, through three
+   faults keyed on the agent's restart count: a SIGKILL once step 3's
+   frame is sealed (the agent's breakpoint save, then a restore from shm
+   at 3); a torn step-6 frame (``DLROVER_FAULT_SCHEDULE=
+   "shm.write:torn@step=6"``) and a SIGKILL after it (the saver refuses
+   the frame by its CRC, the restore comes from storage at 5 and replays
+   6); a wedge after step 8 outside the training span (the master's hang
+   rule, with ``hang_downtime_s`` 1.5 × phase 6's longest step-report gap
+   + 10 s, queues a wedged ``RESTART_WORKER``; the restore comes from shm
+   at 8). Held: the agent exits 0 after 3 restarts, each restore's medium
+   and step, storage holding 3, 5 and 8 and never 6, every step's last
+   loss equal to phase 6's unkilled loss within the unkilled runs'
+   spread, K1-K3 launched in every incarnation, no JAX module in the
+   agent or any worker. Prints each fault's detect (fault → the agent
+   acts) and restart (fault → the next incarnation's first step) seconds
+   and restore, the rendezvous rounds, each incarnation's start-up
+   seconds, and ``wall_s`` and ``goodput_pct`` (``compute_goodput`` over
+   the run's event files).
 7. ``serve`` — the serving replica behind the port's master servicer and
    router: replica A in this process (``DecodeReplica`` around phase 2's
    weights: int8 cache, 8 slots, 4096 cache slots, buckets 512/1024/2048,
@@ -94,12 +118,19 @@ Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
 ``--decode`` builds K4 alone and runs only its rows, with no result line:
 the quick loop for work on that kernel. ``--serve`` builds the kernels and
-runs phase 7 alone, with no result line.
+runs phase 7 alone, with no result line. ``--elastic`` runs phase 8
+alone, held against its own unkilled run, with no result line.
 ``--multi N`` runs the twin across N cards of one host (fsdp N, NCCL, each
 rank saving its own shards): its losses and grad norms against one card's
 (step 1 at the trainer tests' limits, later steps looser), two unkilled
-runs against each other, and phase 6's drill across the ranks; no result
-line. Any
+runs against each other, phase 6's drill across the ranks, and the node
+drill: a port master in this process and two port agents of N/2 workers,
+agent 1's process group SIGKILLed once storage holds step 5, the
+survivor at N/2 ranks
+with twice the accumulation steps restored from storage, agent 1 back
+and the world at N again, the losses against the unkilled run at the
+later-step limits; no result line. ``--node-drill N`` runs the node
+drill alone, held against its own unkilled run across N cards. Any
 mismatch, refused launch or fault exits non-zero. Without CUDA the script
 exits non-zero and prints no result.
 
@@ -1673,19 +1704,356 @@ def resume_child(args) -> int:
     ctx = worker.init(device=device.type)
     fa.reset_launch_counts()
     t0 = time.perf_counter()
+    step_s = {}
+
+    def on_step(step, loss):
+        step_s[step] = time.perf_counter() - t0
+
     out = twin.train(config, args["steps"], args["global_batch"],
                      args["seq"], args["ckpt_dir"], ctx,
                      ckpt_every=args["storage_every"],
-                     kill_at_step=args.get("kill_at"))
+                     kill_at_step=args.get("kill_at"), on_step=on_step)
     engine = out["checkpointer"].engine
     print("RESUME " + json.dumps(dict(
         start_step=out["start_step"], restored_from=out["restored_from"],
         restore=engine.last_restore, losses=out["losses"],
-        grad_norms=out["grad_norms"],
+        grad_norms=out["grad_norms"], step_s=step_s,
         launches=_launches(), seconds=time.perf_counter() - t0,
         last_save=engine.last_save)), flush=True)
     worker.shutdown()
     return 0
+
+
+# phase 8: the faults of the drill, keyed on the incarnation (the agent's
+# restart count), never on the step alone: the first incarnation is killed
+# once step 3's memory frame is sealed; the second tears its step-6 frame
+# (the injector) and is killed after it, waiting at its storage step until
+# storage holds that step (so the step-6 frame is not skipped as busy);
+# the third wedges after step 8, outside the training span
+ELASTIC_PLAN = {0: ("kill", 3), 1: ("kill", 6), 2: ("hang", 8)}
+ELASTIC_TORN_SCHEDULE = "shm.write:torn@step=6"
+
+
+def elastic_child(args) -> int:
+    """One incarnation of the twin under the port's agent (phase 8): its
+    steps, losses and launches as ``STEP`` lines, its restore as a
+    ``START`` line, its fault as the twin's kill line or a ``WEDGE``
+    line."""
+    from dlrover_tpu_torch.ckpt.ckpt_saver import latest_step
+    from dlrover_tpu_torch.common.constants import EnvKey, env_int
+
+    restart = env_int(EnvKey.RESTART_COUNT, 0)
+    if restart != 1:
+        # the torn frame is the second incarnation's fault alone
+        os.environ.pop("DLROVER_FAULT_SCHEDULE", None)
+    spec = importlib.util.spec_from_file_location(
+        "llama_elastic_pretrain_torch",
+        os.path.join(REPO, "examples", "llama_elastic_pretrain_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    device = torch.device(args["device"])
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    config = llama.LlamaConfig(**{
+        k: (getattr(torch, v) if k == "dtype" else v)
+        for k, v in args["config"].items()})
+    ctx = worker.init(device=device.type)
+    fa.reset_launch_counts()
+    kind, at = ELASTIC_PLAN.get(restart, (None, None))
+
+    def emit_line(tag, **data):
+        print(f"{tag} " + json.dumps(dict(restart=restart, t=time.time(),
+                                          **data)), flush=True)
+
+    engine = []
+
+    def on_start(start_step, ckpt, trainer):
+        engine.append(ckpt.engine)
+        emit_line("START", start_step=start_step,
+                  restore=ckpt.engine.last_restore,
+                  grad_accum=trainer.grad_accum_steps)
+        # the model is built and restored: everything is imported by now
+        emit_line("MODULES", forbidden=sorted(
+            m for m in sys.modules
+            if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu")))
+
+    def on_step(step, loss):
+        emit_line("STEP", step=step, loss=float(loss),
+                  launches=_launches())
+        if kind == "hang" and step + 1 == at:
+            # the hang restores the wedged step's frame: the drill waits
+            # out this drain so that step's save is not skipped as busy
+            engine[0].wait_drained()
+        if (kind == "kill" and at > step
+                and step % args["storage_every"] == 0):
+            deadline = time.monotonic() + 300
+            while (latest_step(args["ckpt_dir"]) < step
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+
+    steps = at if kind == "hang" else args["steps"]
+    twin.train(config, steps, args["global_batch"], args["seq"],
+               args["ckpt_dir"], ctx, ckpt_every=args["storage_every"],
+               kill_at_step=at if kind == "kill" else None,
+               on_step=on_step, on_start=on_start)
+    if kind == "hang":
+        emit_line("WEDGE", step=at)
+        time.sleep(3600)  # until the hang rule's restart kills this worker
+    worker.shutdown()
+    return 0
+
+
+def node_child(args) -> int:
+    """One worker of the node drill (``--multi``): the twin at a fixed
+    micro batch of 1 a replica, so a smaller world takes more
+    accumulation steps; its restore as a ``START`` line and, on rank 0 of
+    the world, its steps as ``STEP`` lines."""
+    from dlrover_tpu_torch.common.constants import EnvKey, env_int
+
+    spec = importlib.util.spec_from_file_location(
+        "llama_elastic_pretrain_torch",
+        os.path.join(REPO, "examples", "llama_elastic_pretrain_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    device = torch.device(args["device"])
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    config = llama.LlamaConfig(**{
+        k: (getattr(torch, v) if k == "dtype" else v)
+        for k, v in args["config"].items()})
+    ctx = worker.init(device=device.type)
+    fa.reset_launch_counts()
+    restart = env_int(EnvKey.RESTART_COUNT, 0)
+    node = env_int(EnvKey.NODE_RANK, 0)
+
+    def emit_line(tag, **data):
+        print(f"{tag} " + json.dumps(dict(
+            node=node, restart=restart, rank=ctx.rank,
+            world=ctx.world_size, t=time.time(), **data)), flush=True)
+
+    def on_start(start_step, ckpt, trainer):
+        if ctx.rank == 0:
+            emit_line("START", start_step=start_step,
+                      restore=ckpt.engine.last_restore,
+                      grad_accum=trainer.grad_accum_steps)
+
+    def on_step(step, loss):
+        if ctx.rank == 0:
+            emit_line("STEP", step=step, loss=float(loss),
+                      launches=_launches())
+        # pace the drill: the kill lands while the full world trains, and
+        # the returning node joins while the small world has steps left
+        time.sleep(args["pace_s"])
+
+    twin.train(config, args["steps"], args["global_batch"], args["seq"],
+               args["ckpt_dir"], ctx, ckpt_every=args["storage_every"],
+               on_step=on_step, on_start=on_start,
+               micro_batch_per_replica=1)
+    worker.shutdown()
+    return 0
+
+
+ELASTIC_AGENT = (
+    "import sys\n"
+    "from dlrover_tpu_torch.agent import run\n"
+    "code = run.main(sys.argv[1:])\n"
+    "bad = sorted(m for m in sys.modules\n"
+    "             if m.split('.')[0] in ('jax', 'jaxlib', 'dlrover_tpu'))\n"
+    "print('AGENT_MODULES ' + ','.join(bad), flush=True)\n"
+    "sys.exit(code or (3 if bad else 0))\n"
+)
+
+
+def _lines(text, tag):
+    """The JSON objects of a log's ``TAG {...}`` lines; a line another
+    process wrote into is skipped."""
+    out = []
+    for ln in text.splitlines():
+        if ln.startswith(tag + " "):
+            try:
+                out.append(json.JSONDecoder().raw_decode(
+                    ln, len(tag) + 1)[0])
+            except ValueError:
+                continue
+    return out
+
+
+def _step_gaps(result):
+    """Gaps between consecutive step reports of one run, the first from
+    the run's start (model build and restore included)."""
+    times = [0.0] + [result["step_s"][k]
+                     for k in sorted(result["step_s"], key=int)]
+    return [b - a for a, b in zip(times, times[1:])]
+
+
+def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
+                  storage_every, reference, hang_downtime_s, timeout=900):
+    """The twin under the port's ``dlrover-run`` with three faults (module
+    docstring, phase 8). ``reference``: the unkilled run's losses and the
+    spread of two unkilled runs. Returns the launches of every
+    incarnation."""
+    from dlrover_tpu_torch.ckpt import manifest
+    from dlrover_tpu_torch.common.event import (
+        AgentEvent,
+        compute_goodput,
+        load_events,
+    )
+    from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
+
+    cfg = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    cfg["dtype"] = str(config.dtype).removeprefix("torch.")
+    job = f"el{os.getpid()}"
+    ckpt_dir = os.path.join(ckpt_root, job)
+    event_dir = os.path.join(ckpt_root, f"{job}_events")
+    os.makedirs(event_dir)
+    args = dict(device=str(device), config=cfg, steps=steps,
+                global_batch=global_batch, seq=seq,
+                storage_every=storage_every, ckpt_dir=ckpt_dir)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DLROVER_")}
+    env.update({
+        "PYTHONPATH": REPO,
+        "DLROVER_TPU_EVENT_DIR": event_dir,
+        "DLROVER_TPU_HEARTBEAT_INTERVAL_S": "1",
+        "DLROVER_TPU_HANG_RESTART_WORKERS": "1",
+        "DLROVER_TPU_HANG_DOWNTIME_S": str(hang_downtime_s),
+        "DLROVER_TPU_DIAGNOSIS_INTERVAL_S": "1",
+        "DLROVER_FAULT_SCHEDULE": ELASTIC_TORN_SCHEDULE,
+    })
+    log_path = os.path.join(ckpt_root, f"{job}.log")
+    t0 = time.time()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", ELASTIC_AGENT, "--standalone",
+             "--nproc-per-node=1", "--max-restarts=3",
+             "--save-at-breakpoint", "--monitor-interval=0.1",
+             f"--job_name={job}", f"--ckpt_dir={ckpt_dir}",
+             os.path.abspath(__file__), "--elastic-child", json.dumps(args)],
+            env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
+            cwd=REPO, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    wall_s = time.time() - t0
+    with open(log_path) as f:
+        text = f.read()
+    os.remove(log_path)
+    for name in os.listdir("/dev/shm"):
+        if name.startswith(f"dlrtpu_{job}_"):
+            unlink_shared_memory(name)
+    records = []
+    for i, name in enumerate(sorted(os.listdir(event_dir))):
+        for r in load_events(os.path.join(event_dir, name)):
+            records.append(dict(r, event_id=(i, r.get("event_id"))))
+    agent = [r for r in records if r["target"] == "agent_0"]
+    stored = sorted(s for s in range(steps + 1)
+                    if manifest.manifest_links(ckpt_dir, s))
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    shutil.rmtree(event_dir, ignore_errors=True)
+    starts = {r["restart"]: r for r in _lines(text, "START")}
+    step_lines = _lines(text, "STEP")
+    kills = {r["killed_at_step"]: r["ts"] for r in
+             (json.loads(ln) for ln in text.splitlines()
+              if ln.startswith('{"killed_at_step"'))}
+    wedges = _lines(text, "WEDGE")
+    modules = _lines(text, "MODULES")
+    agent_modules = [ln for ln in text.splitlines()
+                     if ln.startswith("AGENT_MODULES")]
+    fails = [r for r in agent if r["name"] == AgentEvent.WORKER_FAIL]
+    restarts = [r for r in agent if r["name"] == AgentEvent.RESTART]
+    spawns = [r for r in agent if r["name"] == AgentEvent.WORKER_SPAWN]
+    rounds = [r["content"]["round"] for r in agent
+              if r["name"] == AgentEvent.RENDEZVOUS and r["phase"] == "END"]
+    bp_saves = [r["content"] for r in agent
+                if r["name"] == AgentEvent.CKPT_SAVE and r["phase"] == "END"]
+    losses, launches, first_step = {}, {}, {}
+    for r in step_lines:  # in order: a later incarnation's step wins
+        losses[r["step"]] = r["loss"]
+        launches[r["restart"]] = r["launches"]
+        first_step.setdefault(r["restart"], r["t"])
+
+    def fault(restart, t_fault, acted):
+        nxt = starts.get(restart + 1, {})
+        restore = nxt.get("restore", {})
+        return dict(
+            detect_s=(acted - t_fault) if acted else None,
+            restart_s=(first_step[restart + 1] - t_fault
+                       if restart + 1 in first_step else None),
+            medium=restore.get("medium"), step=restore.get("step"),
+            restore_s=restore.get("seconds"),
+            restore_gb_per_s=(restore["bytes"] / restore["seconds"] / 1e9
+                              if restore.get("seconds") else None))
+
+    faults = {
+        "kill_after_3": fault(0, kills.get(3), fails[0]["ts"]
+                              if fails else None),
+        "torn_6_kill_after_6": fault(1, kills.get(6), fails[1]["ts"]
+                                     if len(fails) > 1 else None),
+        "hang_after_8": fault(
+            2, wedges[0]["t"] if wedges else None,
+            next((r["ts"] for r in restarts
+                  if "diagnosis action" in r["content"]["reason"]), None)),
+    }
+    startup_s = {sp["content"]["restart_count"]:
+                 first_step.get(sp["content"]["restart_count"], 0) - sp["ts"]
+                 for sp in spawns}
+    goodput = compute_goodput(records)
+    want = reference["losses"]
+    worst = max(abs(losses.get(s, float("nan")) - want[s]) / abs(want[s])
+                for s in want)
+    per_run = [launches.get(r, {}) for r in range(4)]
+    expect = {"kill_after_3": ("shm", 3), "torn_6_kill_after_6":
+              ("storage", 5), "hang_after_8": ("shm", 8)}
+    problems = []
+    if rc != 0:
+        problems.append(f"the agent exited {rc}")
+    if len(spawns) != 4 or len(fails) != 2:
+        problems.append(f"{len(spawns)} spawns, {len(fails)} failures")
+    for name, (medium, step) in expect.items():
+        if (faults[name]["medium"], faults[name]["step"]) != (medium, step):
+            problems.append(f"{name} restored {faults[name]}")
+    if "chaos: injected torn" not in text or (
+            "refusing to persist" not in text):
+        problems.append("the torn frame was not injected and refused")
+    if 6 in stored or not {3, 5, 8} <= set(stored):
+        problems.append(f"storage holds steps {stored}")
+    if sorted(losses) != list(range(1, steps + 1)) or not (
+            worst <= reference["spread"]):
+        problems.append(f"losses {losses} vs {want}")
+    if (len(modules) != 4 or any(m["forbidden"] for m in modules)
+            or agent_modules != ["AGENT_MODULES "]):
+        problems.append(f"modules {modules} {agent_modules}")
+    for r, c in enumerate(per_run):
+        if not all(c.get(k) for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")):
+            problems.append(f"incarnation {r} launches {c}")
+    emit(dict(
+        phase="elastic", config=dict(dim=config.dim,
+                                     n_layers=config.n_layers,
+                                     dtype=cfg["dtype"]),
+        global_batch=global_batch, seq_len=seq, steps=steps,
+        storage_every=storage_every, hang_downtime_s=hang_downtime_s,
+        agent_exit=rc, restarts=len(spawns) - 1, faults=faults,
+        rendezvous_rounds=rounds, startup_s=startup_s,
+        breakpoint_saves=bp_saves, storage_steps=stored,
+        losses=[losses.get(s) for s in range(1, steps + 1)],
+        max_rel_diff_vs_unkilled=worst,
+        unkilled_spread=reference["spread"],
+        launches_per_incarnation=per_run,
+        wall_s=wall_s, goodput_pct=100.0 * goodput["goodput"],
+        goodput_wall_s=goodput["wall_s"],
+        jax_modules_agent=agent_modules,
+        jax_modules_workers=[m["forbidden"] for m in modules]))
+    if problems:
+        raise AssertionError("elastic: " + "; ".join(problems)
+                             + "\n" + text[-6000:])
+    return per_run
 
 
 def _run_children(args, job, ranks=1, timeout=900):
@@ -1740,7 +2108,9 @@ def _run_children(args, job, ranks=1, timeout=900):
 def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
                  storage_every, kill_at):
     """The kill drill (see the module docstring, phase 6). Returns the
-    launches of the children's runs."""
+    launches of the children's runs and the reference phase 8 holds its
+    run against: the unkilled losses, their spread and the longest gap
+    between two step reports of any run."""
     from dlrover_tpu_torch.ckpt.shm_handler import shm_name
     from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
 
@@ -1794,6 +2164,8 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
     ok = (resumed["start_step"] == kill_at
           and resumed["restored_from"] == "shm"
           and sorted(got) == tail and worst <= spread)
+    max_gap = max(max(_step_gaps(r))
+                  for r in (*results.values(), resumed))
     emit(dict(
         phase="resume", config=dict(dim=config.dim, n_layers=config.n_layers,
                                     dtype=cfg["dtype"]),
@@ -1807,13 +2179,20 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
         resumed_max_rel_diff=worst,
         run_seconds={k: v["seconds"] for k, v in results.items()},
         resumed_run_seconds=resumed["seconds"],
-        launches_per_run=counts))
+        max_step_gap_s=max_gap, launches_per_run=counts))
     if not ok:
         raise AssertionError(
             f"resume: resumed at {resumed['start_step']} from "
             f"{resumed['restored_from']}, losses {got} vs unkilled {a} "
             f"(spread {spread})")
-    return counts
+    return counts, dict(losses=a, spread=spread, max_gap_s=max_gap)
+
+
+def hang_downtime_for(max_gap_s: float) -> float:
+    """The hang rule's downtime for phase 8: half again the longest gap
+    between two step reports phase 6 saw, plus 10 s, so no healthy gap
+    (a storage save, a restore and the first step) reads as a hang."""
+    return float(np.ceil(1.5 * max_gap_s + 10.0))
 
 
 # --multi: the ranks against one card. Step 1 starts from the same params,
@@ -1831,7 +2210,9 @@ def multi_phase(config, device, ckpt_root, ranks, global_batch, seq, steps,
     """The twin across ``ranks`` cards of one host (``--multi``): the
     params as DTensors sharded over fsdp, NCCL collectives in the step,
     each rank saving its own shards. Its losses against one card's, the
-    same drill as phase 6 across the ranks, and the ranks' launches."""
+    same drill as phase 6 across the ranks, then the node drill under the
+    port's agents and master (:func:`node_drill`). Returns the ranks'
+    launches and the node drill's."""
     from dlrover_tpu_torch.ckpt.shm_handler import shm_name
     from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
 
@@ -1926,7 +2307,240 @@ def multi_phase(config, device, ckpt_root, ranks, global_batch, seq, steps,
             f"resumed {[(r['start_step'], r['restored_from'])
                         for r in resumed]} losses {got} vs {a} "
             f"(spread {spread})")
-    return counts
+    drill = node_drill(config, device, ckpt_root, ranks, global_batch, seq,
+                       steps, storage_every, rejoin_at=8, reference=a)
+    return counts, drill
+
+
+def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
+               storage_every, rejoin_at, reference):
+    """The kill-shrink-rejoin drill across cards (``--multi``): a port
+    master in this process and two port agents of ``ranks // 2`` workers
+    each (one card a worker, NCCL, fsdp over the world), their steps paced
+    4 s apart. Agent 1's process group is SIGKILLed as soon as storage
+    holds step ``storage_every``; the master's connection-drop grace
+    declares its node dead and the survivor re-forms the world at half
+    the ranks with twice the accumulation steps, restored from storage
+    (the dead node's shards are in no survivor's shm); agent 1 comes back
+    once the small world has done step ``rejoin_at``, and the world
+    returns to ``ranks``. Each step's
+    loss (its last incarnation's) is held against ``reference``, the
+    unkilled run at ``ranks``, at the ``MULTI_LATER`` limits."""
+    from dlrover_tpu_torch.ckpt.ckpt_saver import latest_step
+    from dlrover_tpu_torch.common.config import get_context
+    from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+
+    cfg = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    cfg["dtype"] = str(config.dtype).removeprefix("torch.")
+    job = f"nd{os.getpid()}"
+    ckpt_dir = os.path.join(ckpt_root, job)
+    args = dict(device=str(device), config=cfg, steps=steps,
+                global_batch=global_batch, seq=seq,
+                storage_every=storage_every, ckpt_dir=ckpt_dir,
+                pace_s=4.0)
+    per_node = ranks // 2
+    ctx = get_context()
+    ctx.heartbeat_interval_s = 1.0
+    master = LocalJobMaster(job_name=job, node_num=2, min_nodes=1,
+                            max_nodes=2)
+    master.prepare()
+    logs = []
+
+    def start_agent(rank):
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("DLROVER_")}
+        env.update({"PYTHONPATH": REPO,
+                    "DLROVER_TPU_HEARTBEAT_INTERVAL_S": "1"})
+        if device.type == "cuda":
+            env["CUDA_VISIBLE_DEVICES"] = ",".join(
+                str(rank * per_node + i) for i in range(per_node))
+        logs.append(os.path.join(ckpt_root, f"{job}_agent{rank}_{len(logs)}"))
+        with open(logs[-1], "w") as log:
+            return subprocess.Popen(
+                [sys.executable, "-c", ELASTIC_AGENT,
+                 f"--master-addr={master.addr}", "--nnodes=1:2",
+                 f"--node-rank={rank}", f"--nproc-per-node={per_node}",
+                 f"--job_name={job}", "--monitor-interval=0.1",
+                 "--max-restarts=3", f"--ckpt_dir={ckpt_dir}",
+                 os.path.abspath(__file__), "--node-child",
+                 json.dumps(args)],
+                env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
+                cwd=REPO, start_new_session=True)
+
+    def step_lines():
+        out = []
+        for path in logs:
+            with open(path) as f:
+                out.extend(_lines(f.read(), "STEP"))
+        return out
+
+    def logs_tail():
+        keep = ("Error", "error", "commit", "persist", "skip", "restor",
+                "rendezvous", "restart", "failure", "released")
+        out = []
+        for path in logs:
+            with open(path) as f:
+                out += [f"{os.path.basename(path)}: {ln[:300]}"
+                        for ln in f.read().splitlines()
+                        if any(k in ln for k in keep)]
+        return "\n".join(out[-80:])
+
+    def wait(cond, what, timeout=300):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            gone = [r for r, p in agents.items() if p.poll() is not None]
+            if time.monotonic() > deadline or gone:
+                raise AssertionError(
+                    f"node drill: no {what} (agents exited: {gone}):\n"
+                    + logs_tail())
+            time.sleep(0.2)
+
+    agents = {0: start_agent(0), 1: start_agent(1)}
+    try:
+        # the small world restores from storage: it must hold a step
+        wait(lambda: latest_step(ckpt_dir) >= storage_every,
+             f"storage commit of step {storage_every}")
+        killed_after = max(r["step"] for r in step_lines())
+        os.killpg(agents[1].pid, signal.SIGKILL)
+        t_kill = time.time()
+        agents.pop(1).wait()
+        wait(lambda: master.job_manager.nodes[1].is_released,
+             "the master declaring node 1 dead", 120)
+        detect_s = time.time() - t_kill
+        wait(lambda: any(r["world"] == per_node and r["step"] >= rejoin_at
+                         for r in step_lines()), f"step {rejoin_at} at "
+             f"world {per_node}")
+        agents[1] = start_agent(1)
+        codes = {r: p.wait(timeout=900) for r, p in agents.items()}
+    finally:
+        for p in agents.values():
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        master.stop()
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(f"dlrtpu_{job}_"):
+                unlink_shared_memory(name)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    text = ""
+    for path in logs:
+        with open(path) as f:
+            text += f.read()
+        os.remove(path)
+    starts = _lines(text, "START")
+    steps_seen = sorted(_lines(text, "STEP"), key=lambda r: r["t"])
+    losses, launches = {}, {}
+    for r in steps_seen:
+        losses[r["step"]] = r["loss"]
+        launches[(r["node"], r["restart"])] = r["launches"]
+    segments = []
+    for r in sorted(starts, key=lambda r: r["t"]):
+        segments.append(dict(world=r["world"], grad_accum=r["grad_accum"],
+                             start_step=r["start_step"],
+                             medium=r["restore"].get("medium"),
+                             restore_s=r["restore"].get("seconds")))
+    worst = max(abs(losses.get(s, float("nan")) - reference[s])
+                / abs(reference[s]) for s in reference)
+    shrink = [g for g in segments if g["world"] == per_node]
+    back = [g for g in segments[segments.index(shrink[0]):]
+            if g["world"] == ranks and g["start_step"] < steps] if shrink \
+        else []
+    worlds = [g["world"] for g in segments]
+    emit(dict(
+        phase="node_drill", ranks=ranks, per_node=per_node, steps=steps,
+        killed_after_step=killed_after, rejoin_at=rejoin_at,
+        agent_exit=codes,
+        detect_s=detect_s, segments=segments,
+        losses=[losses.get(s) for s in range(1, steps + 1)],
+        max_rel_diff_vs_unkilled=worst,
+        launches_rank0=[launches[k] for k in sorted(launches)]))
+    ok = (codes == {0: 0, 1: 0} and sorted(losses) == list(
+        range(1, steps + 1)) and worst <= MULTI_LATER_LOSS_TOL
+        and worlds[:1] == [ranks] and bool(shrink) and bool(back)
+        and shrink[0]["medium"] == "storage"
+        and shrink[0]["grad_accum"] == 2 * segments[0]["grad_accum"]
+        and back[0]["grad_accum"] == segments[0]["grad_accum"])
+    if not ok:
+        raise AssertionError(f"node drill: segments {segments}, losses "
+                             f"{losses} vs {reference} (worst {worst}), "
+                             f"exits {codes}:\n{text[-6000:]}")
+    return list(launches.values())
+
+
+def node_drill_alone(config, device, ranks):
+    """``--node-drill N``: one unkilled run across N cards as the
+    reference, then the node drill."""
+    from dlrover_tpu_torch.ckpt.shm_handler import shm_name
+    from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
+
+    cfg = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    cfg["dtype"] = str(config.dtype).removeprefix("torch.")
+    root = os.path.join(REPO, ".chip_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    job = f"node_ref_{os.getpid()}"
+    try:
+        args = dict(device=str(device), config=cfg, steps=10,
+                    global_batch=8, seq=2048, storage_every=5, kill_at=None,
+                    ckpt_dir=os.path.join(root, "ref"))
+        out = _run_children(args, job, ranks=ranks)
+        for r in range(ranks):
+            unlink_shared_memory(shm_name(job, 0, r))
+        bad = [(r, rc) for r, (rc, _, res) in enumerate(out)
+               if rc != 0 or res is None]
+        if bad:
+            raise AssertionError(f"node drill: reference ranks {bad} "
+                                 f"failed:\n{out[bad[0][0]][1][-6000:]}")
+        ref = out[0][2]["losses"]
+        emit({"phase": "node_drill_reference", "ranks": ranks,
+              "losses": [ref[s] for s in sorted(ref)],
+              "seconds": out[0][2]["seconds"]})
+        shutil.rmtree(args["ckpt_dir"], ignore_errors=True)
+        return node_drill(config, device, root, ranks, global_batch=8,
+                          seq=2048, steps=10, storage_every=5, rejoin_at=8,
+                          reference=ref)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def elastic_alone(config, device):
+    """``--elastic``: one unkilled run of phase 6's child as the
+    reference, then phase 8."""
+    cfg = {f.name: getattr(config, f.name)
+           for f in dataclasses.fields(config)}
+    cfg["dtype"] = str(config.dtype).removeprefix("torch.")
+    root = os.path.join(REPO, ".chip_ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    job = f"elastic_ref_{os.getpid()}"
+    try:
+        args = dict(device=str(device), config=cfg, steps=10,
+                    global_batch=8, seq=2048, storage_every=5, kill_at=None,
+                    ckpt_dir=os.path.join(root, "ref"))
+        rc, out, ref = _run_children(args, job)[0]
+        if rc != 0 or ref is None:
+            raise AssertionError(f"elastic: reference run failed ({rc}):\n"
+                                 f"{out[-6000:]}")
+        from dlrover_tpu_torch.ckpt.shm_handler import shm_name
+        from dlrover_tpu_torch.common.multi_process import (
+            unlink_shared_memory,
+        )
+
+        unlink_shared_memory(shm_name(job, 0, 0))
+        max_gap = max(_step_gaps(ref))
+        emit({"phase": "elastic_reference", "losses": [
+            ref["losses"][s] for s in sorted(ref["losses"])],
+            "max_step_gap_s": max_gap, "seconds": ref["seconds"]})
+        return elastic_phase(
+            config, device, root, global_batch=8, seq=2048, steps=10,
+            storage_every=5,
+            reference=dict(losses=ref["losses"], spread=0.0),
+            hang_downtime_s=hang_downtime_for(max_gap))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _build_report(names=None):
@@ -1965,6 +2579,10 @@ def _print_card():
 def main(argv) -> int:
     if argv[1:2] == ["--resume-child"]:
         return resume_child(json.loads(argv[2]))
+    if argv[1:2] == ["--elastic-child"]:
+        return elastic_child(json.loads(argv[2]))
+    if argv[1:2] == ["--node-child"]:
+        return node_child(json.loads(argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
               file=sys.stderr)
@@ -1989,10 +2607,29 @@ def main(argv) -> int:
         os.makedirs(root)
         try:
             multi_phase(dataclasses.replace(config, n_layers=2), device,
-                        root, ranks, global_batch=8, seq=2048, steps=6,
+                        root, ranks, global_batch=8, seq=2048, steps=10,
                         storage_every=5, kill_at=4)
         finally:
             shutil.rmtree(root, ignore_errors=True)
+        _print_card()
+        return 0
+    if argv[1:2] == ["--node-drill"]:
+        # the node drill alone across the host's cards; no result line
+        ranks = int(argv[2]) if argv[2:] else torch.cuda.device_count()
+        if ranks < 2 or ranks % 2 or torch.cuda.device_count() < ranks:
+            print(f"chip_smoke --node-drill: needs an even number of cards "
+                  f"(>= 2), has {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            return 2
+        _build_report()
+        node_drill_alone(dataclasses.replace(config, n_layers=2), device,
+                         ranks)
+        _print_card()
+        return 0
+    if argv[1:] == ["--elastic"]:
+        # phase 8 alone, held against its own unkilled run; no result line
+        _build_report()
+        elastic_alone(dataclasses.replace(config, n_layers=2), device)
         _print_card()
         return 0
     if argv[1:] == ["--serve"]:
@@ -2054,9 +2691,15 @@ def main(argv) -> int:
         main_path.append(ckpt_phase(trained, device, ckpt_root))
         del trained
         torch.cuda.empty_cache()
-        main_path.extend(resume_phase(
+        counts, reference = resume_phase(
             dataclasses.replace(config, n_layers=2), device, ckpt_root,
-            global_batch=8, seq=2048, steps=10, storage_every=5, kill_at=7))
+            global_batch=8, seq=2048, steps=10, storage_every=5, kill_at=7)
+        main_path.extend(counts)
+        main_path.extend(elastic_phase(
+            dataclasses.replace(config, n_layers=2), device, ckpt_root,
+            global_batch=8, seq=2048, steps=10, storage_every=5,
+            reference=reference,
+            hang_downtime_s=hang_downtime_for(reference["max_gap_s"])))
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
         worker.shutdown()

@@ -1,11 +1,14 @@
-"""The worker's and the serving replica's client of the master RPC.
+"""The agent's, the worker's and the serving replica's client of the
+master RPC.
 
-The port's trim of ``dlrover_tpu/agent/master_client.py`` to the calls the
-training loop makes (``report_global_step`` and the KV store) and those a
-decode replica makes (``serve_register``, ``serve_deregister``,
-``serve_replicas``, ``heartbeat``). Method names and messages on the wire
-are the reference's, so the JAX package's master serves them as it serves
-its own workers and replicas.
+The port's copy of ``dlrover_tpu/agent/master_client.py``, trimmed to the
+calls the port makes: the agent's (rendezvous, node status, heartbeats,
+failures, events, pre-check, run config, shard-lease recovery), the
+worker's (steps, KV, barrier, data shards) and a decode replica's
+(``serve_*``, ``heartbeat``). Method names and messages on the wire are
+the reference's, so either package's master serves either package's
+clients. The rendezvous calls retry patiently, a heartbeat gives up fast
+(a beat that cannot get through is a signal), an event is one attempt.
 """
 
 import threading
@@ -14,7 +17,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.constants import EnvKey, env_int, env_str
+from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.rpc import RPCClient
+
+# retry budgets: a rendezvous rides out a slow master, a heartbeat fails
+# fast, telemetry is one attempt
+_RDZV_RETRIES = 60
+_HEARTBEAT_RETRIES = 2
 
 
 class MasterClient:
@@ -35,6 +44,126 @@ class MasterClient:
     def node_id(self) -> int:
         return self._node_id
 
+    # -- rendezvous ----------------------------------------------------------
+
+    def join_rendezvous(self, rdzv_name: str, node_rank: int,
+                        local_world_size: int, host: str = "",
+                        free_port: int = 0, node_unit: int = 1) -> int:
+        resp = self._client.call(
+            "join_rendezvous",
+            comm.JoinRendezvousRequest(
+                node_id=self._node_id, node_rank=node_rank,
+                local_world_size=local_world_size, rdzv_name=rdzv_name,
+                node_unit=node_unit, host=host, free_port=free_port),
+            retries=_RDZV_RETRIES)
+        return resp.round
+
+    def get_comm_world(self, rdzv_name: str, node_rank: int
+                       ) -> Tuple[int, int, Dict[int, comm.NodeMeta], str]:
+        resp = self._client.call(
+            "get_comm_world",
+            comm.CommWorldRequest(node_id=node_rank, rdzv_name=rdzv_name),
+            retries=_RDZV_RETRIES)
+        return resp.round, resp.group, resp.world, resp.coordinator_addr
+
+    def num_nodes_waiting(self, rdzv_name: str) -> int:
+        resp = self._client.call(
+            "num_nodes_waiting",
+            comm.WaitingNodeNumRequest(node_id=self._node_id,
+                                       rdzv_name=rdzv_name),
+            retries=_HEARTBEAT_RETRIES)
+        return resp.waiting_num
+
+    def barrier(self, name: str, node_rank: int, world_size: int,
+                timeout_s: float = 300.0) -> bool:
+        resp = self._client.call(
+            "barrier",
+            comm.BarrierRequest(barrier_name=name, node_rank=node_rank,
+                                world_size=world_size, timeout_s=timeout_s),
+            retries=_RDZV_RETRIES)
+        return resp.passed
+
+    # -- node lifecycle ------------------------------------------------------
+
+    def update_node_status(self, status: str, exit_reason: str = "",
+                           restart_count: int = 0) -> None:
+        self._client.call(
+            "update_node_status",
+            comm.NodeStatusRequest(node_id=self._node_id, status=status,
+                                   exit_reason=exit_reason,
+                                   restart_count=restart_count))
+
+    def report_failure(self, error_data: str, level: str,
+                       restart_count: int = 0) -> None:
+        self._client.call(
+            "report_failure",
+            comm.NodeFailureReport(node_id=self._node_id,
+                                   error_data=error_data, level=level,
+                                   restart_count=restart_count))
+
+    def report_event(self, kind: str, data: Optional[Dict[str, Any]] = None
+                     ) -> None:
+        """Append an event to the master's record; one attempt, failures
+        swallowed."""
+        try:
+            self._client.call(
+                "report_event",
+                comm.EventReport(node_id=self._node_id, kind=kind,
+                                 data=data or {}),
+                retries=1)
+        except Exception:  # noqa: BLE001 — telemetry must not stall us
+            logger.debug("report_event %r dropped", kind, exc_info=True)
+
+    def get_pre_check_result(self) -> Tuple[str, str]:
+        resp = self._client.call(
+            "get_pre_check_result",
+            comm.PreCheckRequest(node_id=self._node_id))
+        return resp.status, resp.reason
+
+    def get_run_config(self) -> Dict:
+        resp = self._client.call("get_run_config", comm.BaseRequest())
+        return resp.data or {}
+
+    def ping(self) -> bool:
+        try:
+            self._client.call("ping", comm.BaseRequest(), retries=1)
+            return True
+        except (ConnectionError, OSError, RuntimeError):
+            return False
+
+    # -- data shards ---------------------------------------------------------
+
+    def setup_dataset(self, params: comm.DatasetShardParams) -> bool:
+        return self._client.call("setup_dataset", params).success
+
+    def get_task(self, dataset_name: str) -> comm.TaskMessage:
+        return self._client.call(
+            "get_task", comm.TaskRequest(dataset_name=dataset_name,
+                                         node_id=self._node_id))
+
+    def report_task_result(self, dataset_name: str, task_id: int,
+                           success: bool = True) -> None:
+        self._client.call(
+            "report_task_result",
+            comm.TaskResult(dataset_name=dataset_name, task_id=task_id,
+                            node_id=self._node_id, success=success))
+
+    def get_shard_checkpoint(self, dataset_name: str) -> str:
+        return self._client.call(
+            "get_shard_checkpoint",
+            comm.ShardCheckpointRequest(dataset_name=dataset_name)).content
+
+    def restore_shard_checkpoint(self, content: str) -> None:
+        self._client.call("restore_shard_checkpoint",
+                          comm.ShardCheckpointResponse(content=content))
+
+    def recover_shard_tasks(self) -> None:
+        """Requeue this node's shard leases (around a worker restart)."""
+        self._client.call("recover_shard_tasks",
+                          comm.TaskRequest(node_id=self._node_id))
+
+    # -- progress --------------------------------------------------------------
+
     def report_global_step(self, step: int, timestamp: float = 0.0,
                            retries: Optional[int] = None,
                            rdzv_round: int = -1) -> None:
@@ -48,6 +177,11 @@ class MasterClient:
     def kv_set(self, key: str, value: bytes) -> None:
         self._client.call("kv", comm.KeyValueRequest(op="set", key=key,
                                                      value=value))
+
+    def kv_add(self, key: str, delta: int) -> int:
+        resp = self._client.call("kv", comm.KeyValueRequest(
+            op="add", key=key, value=str(delta).encode()))
+        return int(resp.value)
 
     def kv_get(self, key: str) -> Optional[bytes]:
         resp = self._client.call("kv", comm.KeyValueRequest(op="get",
@@ -65,16 +199,17 @@ class MasterClient:
         return resp.values
 
     def heartbeat(self, global_step: int = 0, step_timestamp: float = 0.0,
-                  gauges=None) -> comm.HeartbeatResponse:
-        # a short budget: a beat that cannot get through is a signal
+                  gauges=None, rdzv_round: int = -1
+                  ) -> comm.HeartbeatResponse:
         return self._client.call(
             "heartbeat",
             comm.HeartbeatRequest(node_id=self._node_id,
                                   timestamp=time.time(),
                                   global_step=global_step,
                                   step_timestamp=step_timestamp,
+                                  rdzv_round=rdzv_round,
                                   gauges=gauges or {}),
-            retries=2)
+            retries=_HEARTBEAT_RETRIES)
 
     # -- serving -----------------------------------------------------------
 
@@ -96,7 +231,7 @@ class MasterClient:
         """(epoch, the live replicas as ``{node_id, addr, slots}``), with
         a short budget: a router polls this."""
         resp = self._client.call("serve_replicas", comm.BaseRequest(),
-                                 retries=2)
+                                 retries=_HEARTBEAT_RETRIES)
         return resp.epoch, [
             {"node_id": r.node_id, "addr": r.addr, "slots": r.slots}
             for r in resp.replicas
@@ -109,3 +244,8 @@ class MasterClient:
                 cls._instance = cls(env_str(EnvKey.MASTER_ADDR),
                                     env_int(EnvKey.NODE_ID, 0))
             return cls._instance
+
+    @classmethod
+    def reset(cls) -> None:
+        with cls._lock:
+            cls._instance = None

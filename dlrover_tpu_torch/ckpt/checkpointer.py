@@ -8,6 +8,9 @@
         ckpt.save_checkpoint(step, state, StorageType.MEMORY)
         if step % 250 == 0:
             ckpt.save_checkpoint(step, state, StorageType.DISK)
+
+``saving_ranks=[0]`` makes rank 0 the only saver of a replicated state
+(the other ranks skip ``save_checkpoint``).
 """
 
 import time

@@ -2,8 +2,9 @@
 
 The port's counterpart of ``dlrover_tpu/ckpt/engine.py``. It writes the
 reference's frame (``ckpt/shm_handler.py``) under the reference's leaf
-names (``convert.jax_leaf_name``), so the JAX package's agent persists a
-port worker's frames and the two engines restore each other's states.
+names (``convert.jax_leaf_name``), so either package's agent persists a
+port worker's frames (its ``AsyncCheckpointSaver`` takes the save events
+from the IPC queue) and the two engines restore each other's states.
 
 - **Which shards.** Each leaf's local shard is saved only by the rank whose
   mesh coordinate is 0 on every axis that replicates the leaf (the
@@ -219,7 +220,12 @@ def _read_range_into(shard_meta, lo, out) -> None:
 
 
 class CheckpointEngine:
-    """One engine per worker process."""
+    """One engine per worker process.
+
+    ``saving_ranks`` is the saver group, the ranks that call save: every
+    rank (the default; each owns shards) or one rank that owns a
+    replicated state (the reference's single-writer pattern); a step is
+    complete with one frame per saver."""
 
     def __init__(
         self,
@@ -232,6 +238,7 @@ class CheckpointEngine:
         world_size: Optional[int] = None,
         rank: Optional[int] = None,
         local_world_size: Optional[int] = None,
+        saving_ranks: Optional[List[int]] = None,
     ):
         self.ckpt_dir = ckpt_dir
         self.job_name = job_name or env_str(EnvKey.JOB_NAME, "local")
@@ -245,6 +252,12 @@ class CheckpointEngine:
         self.local_world_size = (
             local_world_size if local_world_size is not None
             else env_int(EnvKey.LOCAL_WORLD_SIZE, 1))
+        self.saving_ranks = (sorted(saving_ranks) if saving_ranks is not None
+                             else list(range(self.world_size)))
+        if not (len(self.saving_ranks) == 1
+                or self.saving_ranks == list(range(self.world_size))):
+            raise ValueError(f"saving_ranks {self.saving_ranks}: one rank "
+                             f"or all {self.world_size}")
         self._shm = SharedMemoryHandler(
             shm_name(self.job_name, self.node_rank, self.local_rank))
         socket_path = ipc_socket or env_str(ConfigKey.IPC_SOCKET)
@@ -292,6 +305,9 @@ class CheckpointEngine:
         return int(t.item())
 
     def _all_ranks_ready(self, local_ready: bool) -> bool:
+        """Readiness agreed within the saver group."""
+        if len(self.saving_ranks) == 1:
+            return local_ready
         return bool(self._agree(int(local_ready), dist.ReduceOp.MIN))
 
     # -- save ----------------------------------------------------------------
@@ -388,7 +404,7 @@ class CheckpointEngine:
             owner = all(coords[a] == 0
                         for a in sharding.replica_axes(spec, sizes))
             return owner, leaf.to_local(), list(start)
-        return self.rank == 0, leaf, [0] * leaf.ndim
+        return self.rank == self.saving_ranks[0], leaf, [0] * leaf.ndim
 
     def _plan_state(self, step: int, state):
         """Frame meta and the writer's buffers for every owned shard. CUDA
@@ -432,7 +448,8 @@ class CheckpointEngine:
             "step": step, "ts": time.time(), "job": self.job_name,
             "node_rank": self.node_rank, "local_rank": self.local_rank,
             "rank": self.rank, "world_size": self.world_size,
-            "expected_frames": self.world_size, "leaves": leaves_meta,
+            "expected_frames": len(self.saving_ranks),
+            "leaves": leaves_meta,
         }
         if not device_sources:
             return meta, host_buffers, None
@@ -485,7 +502,7 @@ class CheckpointEngine:
         inline, and rank 0 moves the tracker once every rank has written
         its link. A busy drain is waited out (bounded), not skipped."""
         path = path or self.ckpt_dir
-        alone = self._host_group() is None
+        alone = self._host_group() is None or len(self.saving_ranks) == 1
 
         def _request_persist():
             if self._event_queue is not None:

@@ -21,8 +21,10 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common import msgpack
 from dlrover_tpu_torch.common.constants import (
+    ChaosSite,
     CheckpointConstant,
     ConfigKey,
     env_int,
@@ -85,10 +87,14 @@ class ChainError(Exception):
 
 
 def commit_file(storage: PosixDiskStorage, content, path: str,
-                **_ctx) -> None:
-    """Atomic commit: write a durable temp file, then replace."""
+                **ctx) -> None:
+    """Atomic commit: write a durable temp file, fire the
+    ``storage.commit`` chaos site, then replace."""
     tmp = path + ".tmp"
     storage.write(content, tmp)
+    inj = get_injector()
+    if inj is not None:
+        inj.fire(ChaosSite.STORAGE_COMMIT, path=path, **ctx)
     storage.safe_move(tmp, path)
 
 

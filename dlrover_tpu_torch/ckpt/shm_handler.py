@@ -30,13 +30,16 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common import msgpack
 from dlrover_tpu_torch.common.constants import (
+    ChaosSite,
     ConfigKey,
     EnvKey,
     env_flag,
     env_str,
 )
+from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import (
     create_shared_memory,
     unlink_shared_memory,
@@ -252,6 +255,46 @@ class SharedMemoryHandler:
             del dst
         buf[8:len(header)] = header[8:]
         buf[:8] = header[:8]
+        self._maybe_inject_corruption(meta)
+
+    def _maybe_inject_corruption(self, meta: Dict) -> None:
+        """``shm.write`` injection site: mutate the sealed frame's data as
+        bit rot or a torn copy would; the seal stays valid, only the CRCs
+        can catch it. A torn write zeroes the tail half of the last shard
+        whose tail is not zero already: zeroing a small scalar's high bytes
+        (a step counter ends a sorted state) would change nothing."""
+        inj = get_injector()
+        if inj is None:
+            return
+        act = inj.fire(ChaosSite.SHM_WRITE, step=meta.get("step"))
+        if act is None:
+            return
+        shards = [(leaf.get("path", "?"), shard)
+                  for leaf in meta.get("leaves", [])
+                  for shard in leaf.get("shards", [])
+                  if "abs_offset" in shard and shard.get("nbytes", 0) > 0]
+        if not shards:
+            return
+        buf = self._shm.buf
+        if act["kind"] == "torn":
+            # zero the tail half of a shard: a write that stopped partway
+            # but was sealed as if complete
+            for path, shard in reversed(shards):
+                off, n = shard["abs_offset"], shard["nbytes"]
+                cut = n // 2
+                if np.frombuffer(buf, np.uint8, n - cut, off + cut).any():
+                    break
+            else:
+                return
+            buf[off + cut:off + n] = bytes(n - cut)
+        else:  # bitflip
+            path, shard = shards[0]
+            off, n = shard["abs_offset"], shard["nbytes"]
+            at = off + int(act.get("rnd", 0.0) * max(1, n - 1))
+            buf[at] = buf[at] ^ 0xFF
+        logger.warning("chaos: injected %s into shm frame %s shard %r "
+                       "(step %s)", act["kind"], self._name, path,
+                       meta.get("step"))
 
     # -- read --------------------------------------------------------------
 

@@ -1,8 +1,10 @@
-"""The RPC messages the port's worker, master and serving plane exchange.
+"""The RPC messages the port's agent, worker, master and serving plane
+exchange.
 
-The port's copy of the part of ``dlrover_tpu/common/comm.py`` the worker,
-the serving replica, its router and master, and the bulk-transfer fabric
-use: the same dataclass names and fields, encoded as the reference
+The port's copy of the part of ``dlrover_tpu/common/comm.py`` the agent
+(rendezvous, node status, failures, heartbeats with their action, events),
+the worker (KV, barrier, steps, data shards), the serving replica, its
+router and master, and the bulk-transfer fabric use: the same dataclass names and fields, encoded as the reference
 encodes them — one msgpack map ``{"_t": <type name>, "f": {field:
 value}}`` per message, nested messages recursively, plain values as they
 are — so the JAX package's master, router, replica and fabric read and
@@ -12,7 +14,7 @@ plain dict.
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Type
+from typing import Any, Dict, List, Optional, Type
 
 from dlrover_tpu_torch.common import msgpack
 
@@ -74,6 +76,74 @@ class BaseResponse:
     data: Any = None
 
 
+# -- rendezvous ----------------------------------------------------------------
+
+
+@message
+class NodeMeta:
+    """What an agent reports about its host when joining."""
+
+    node_id: int = -1
+    node_rank: int = -1
+    host: str = ""
+    local_world_size: int = 1
+    num_devices: int = 0
+    free_port: int = 0
+    slice_id: str = ""
+    tpu_worker_id: int = -1
+    # communication rank stamped at the world cut (-1 = unassigned)
+    comm_rank: int = -1
+
+
+@message
+class JoinRendezvousRequest:
+    node_id: int = 0
+    node_rank: int = 0
+    local_world_size: int = 1
+    rdzv_name: str = ""
+    node_unit: int = 1
+    host: str = ""
+    free_port: int = 0
+    slice_id: str = ""
+    tpu_worker_id: int = -1
+
+
+@message
+class JoinRendezvousResponse:
+    round: int = 0
+
+
+@message
+class CommWorldRequest:
+    node_id: int = 0
+    rdzv_name: str = ""
+
+
+@message
+class CommWorldResponse:
+    rdzv_name: str = ""
+    round: int = 0
+    group: int = 0
+    # {node_rank: NodeMeta} of the cut world
+    world: Dict[int, Any] = field(default_factory=dict)
+    # the process-group bootstrap address: rank 0's host and free port
+    coordinator_addr: str = ""
+
+
+@message
+class WaitingNodeNumRequest:
+    node_id: int = 0
+    rdzv_name: str = ""
+
+
+@message
+class WaitingNodeNumResponse:
+    waiting_num: int = 0
+
+
+# -- KV store and barrier ------------------------------------------------------
+
+
 @message
 class KeyValueRequest:
     op: str = "get"  # get | set | add | wait | delete | multi_get | multi_set
@@ -89,6 +159,128 @@ class KeyValueResponse:
     found: bool = False
     value: bytes = b""
     values: List[bytes] = field(default_factory=list)
+
+
+@message
+class BarrierRequest:
+    barrier_name: str = ""
+    node_rank: int = 0
+    world_size: int = 0
+    timeout_s: float = 300.0
+
+
+@message
+class BarrierResponse:
+    passed: bool = False
+
+
+# -- node lifecycle, failures, events ------------------------------------------
+
+
+@message
+class NodeStatusRequest:
+    node_id: int = 0
+    node_type: str = ""
+    status: str = ""
+    exit_reason: str = ""
+    restart_count: int = 0
+
+
+@message
+class NodeFailureReport:
+    node_id: int = 0
+    error_data: str = ""
+    level: str = ""
+    restart_count: int = 0
+
+
+@message
+class EventReport:
+    """Agent or worker → master journal event; the master stamps the
+    arrival time."""
+
+    node_id: int = 0
+    kind: str = ""
+    data: Dict[str, Any] = field(default_factory=dict)
+
+
+@message
+class ResourceStats:
+    node_id: int = 0
+    cpu_percent: float = 0.0
+    mem_used_mb: float = 0.0
+    device_util: Dict[int, float] = field(default_factory=dict)
+    device_mem_mb: Dict[int, float] = field(default_factory=dict)
+    device_mem_total_mb: Dict[int, float] = field(default_factory=dict)
+
+
+@message
+class PreCheckRequest:
+    node_id: int = 0
+
+
+@message
+class PreCheckResponse:
+    status: str = "pass"  # pass | fail | checking
+    reason: str = ""
+
+
+# -- data shards ---------------------------------------------------------------
+
+
+@message
+class DatasetShardParams:
+    batch_size: int = 0
+    num_epochs: int = 1
+    dataset_size: int = 0
+    shuffle: bool = False
+    num_minibatches_per_shard: int = 2
+    dataset_name: str = ""
+    storage_type: str = ""
+    splitter: str = "batch"  # batch | text | streaming
+
+
+@message
+class Shard:
+    name: str = ""
+    start: int = 0
+    end: int = 0
+    record_indices: List[int] = field(default_factory=list)
+
+
+@message
+class TaskRequest:
+    dataset_name: str = ""
+    node_id: int = 0
+
+
+@message
+class TaskMessage:
+    task_id: int = -1
+    task_type: str = ""
+    shard: Optional[Any] = None  # Shard
+    dataset_name: str = ""
+
+
+@message
+class TaskResult:
+    dataset_name: str = ""
+    task_id: int = -1
+    node_id: int = 0
+    success: bool = True
+
+
+@message
+class ShardCheckpointRequest:
+    dataset_name: str = ""
+
+
+@message
+class ShardCheckpointResponse:
+    content: str = ""
+
+
+# -- progress and heartbeats ---------------------------------------------------
 
 
 @message

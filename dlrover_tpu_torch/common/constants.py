@@ -1,10 +1,10 @@
-"""The environment knobs, names and file layout the port reads.
+"""The environment knobs, names, enums and file layout the port reads.
 
 A private copy of the part of ``dlrover_tpu/common/constants.py`` this
 package needs (the port imports nothing of the JAX package). Every value
-is the reference's own, so an agent of the JAX package and a worker of the
-port agree on each environment variable, shared-memory resource and
-checkpoint file name.
+is the reference's own, so the agents, masters and workers of the two
+packages agree on each environment variable, node status, action name,
+shared-memory resource and checkpoint file name.
 """
 
 import os
@@ -37,6 +37,101 @@ def env_flag(name: str, default: bool = False) -> bool:
     if raw is None:
         return default
     return raw.strip().lower() not in ("", "0", "false", "no", "off")
+
+
+class NodeType:
+    MASTER = "master"
+    WORKER = "worker"
+    # a decode-serving replica: it shares the worker's liveness plane, but
+    # its death leaves the routable set instead of re-forming the world
+    SERVE = "serve"
+
+
+class NodeStatus:
+    INITIAL = "initial"
+    PENDING = "pending"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+    DELETED = "deleted"
+    BREAKDOWN = "breakdown"
+
+    @classmethod
+    def terminal(cls, status: str) -> bool:
+        return status in (cls.SUCCEEDED, cls.FAILED, cls.DELETED)
+
+
+class NodeEventType:
+    ADDED = "added"
+    MODIFIED = "modified"
+    DELETED = "deleted"
+
+
+class NodeExitReason:
+    """Why a node terminated."""
+
+    SUCCEEDED = "succeeded"
+    KILLED = "killed"
+    OOM = "oom"
+    FATAL_ERROR = "fatal_error"
+    HARDWARE_ERROR = "hardware_error"
+    PREEMPTED = "preempted"
+    RELAUNCHED = "relaunched"
+    NO_HEARTBEAT = "no_heartbeat"
+    UNKNOWN = "unknown"
+
+
+class JobStage:
+    INIT = "init"
+    RUNNING = "running"
+    SUCCEEDED = "succeeded"
+    FAILED = "failed"
+
+
+class RendezvousName:
+    TRAINING = "training"
+    NODE_CHECK = "node-check"
+
+
+class DiagnosisActionType:
+    NONE = "no_action"
+    # agent level
+    RESTART_WORKER = "restart_worker"
+    RELAUNCH_WORKER = "relaunch_worker"
+    STACK_DUMP = "stack_dump"
+    CHECKPOINT = "checkpoint"
+    # master level
+    MASTER_RELAUNCH_WORKER = "master_relaunch_worker"
+    JOB_ABORT = "job_abort"
+    EVENT = "event"
+
+
+class DiagnosisConstant:
+    MASTER_INSTANCE = -1
+    ANY_INSTANCE = -2
+    ACTION_EXPIRY_S = 60 * 5
+
+
+class TrainingExceptionLevel:
+    RDZV_ERROR = "rdzv_error"
+    PROCESS_ERROR = "process_error"
+    NODE_ERROR = "node_error"
+    WARNING = "warning"
+    INFO = "info"
+
+
+class ChaosSite:
+    """Fault-injection site names (``chaos/injector.py``) of the port's
+    modules; the fabric and serving sites are not ported yet."""
+
+    RPC_SEND = "rpc.send"
+    RPC_RECV = "rpc.recv"
+    SHM_WRITE = "shm.write"
+    KV_WAIT = "kv.wait"
+    RDZV_JOIN = "rdzv.join"
+    STORAGE_PERSIST = "storage.persist"
+    STORAGE_COMMIT = "storage.commit"
+    DATA_DISPATCH = "data.dispatch"
 
 
 class EnvKey:
@@ -98,6 +193,14 @@ class ConfigKey:
     FABRIC_STRIPE_BYTES = "DLROVER_TPU_FABRIC_STRIPE_BYTES"
     FABRIC_CONNS = "DLROVER_TPU_FABRIC_CONNS"
     FABRIC_ADMIT = "DLROVER_TPU_FABRIC_ADMIT"
+    # the address other hosts dial to reach this one (agent rendezvous)
+    HOST_IP = "DLROVER_TPU_HOST_IP"
+    # master-pushed launcher overrides: a JSON object of
+    # ElasticLaunchConfig fields, read by the master's get_run_config
+    RUN_CONFIG = "DLROVER_TPU_RUN_CONFIG"
+    # the fault-injection plane (chaos/injector.py)
+    FAULT_SCHEDULE = "DLROVER_FAULT_SCHEDULE"
+    FAULT_SEED = "DLROVER_FAULT_SEED"
 
 
 class CheckpointConstant:
@@ -109,6 +212,7 @@ class CheckpointConstant:
     MANIFEST_SUFFIX = ".mf"
     DELTA_PREFIX = "delta_"
     FRAME_SUFFIX = ".dlrover"
+    SAVE_TIMEOUT_S = 600
 
 
 class SharedResourceName:

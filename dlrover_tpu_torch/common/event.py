@@ -1,11 +1,13 @@
 """Structured training events: duration spans for goodput accounting.
 
-The port's trim of ``dlrover_tpu/common/event.py`` to what a worker emits:
-:class:`TrainEvent` names and ``get_emitter(target).span(...)``. Records
-are the reference's, one JSON object per line ``{"ts", "target", "name",
-"phase", "event_id", "content"}`` with phase BEGIN, END or INSTANT, so the
-JAX package's offline goodput analysis (``compute_goodput``) reads a port
-worker's event file as it reads its own.
+The port's trim of ``dlrover_tpu/common/event.py`` to what a worker and
+an agent emit (:class:`TrainEvent` and :class:`AgentEvent` names,
+``get_emitter(target).span(...)`` and ``.instant(...)``) and the
+offline goodput analysis over the event files (:func:`compute_goodput`,
+:func:`load_events`). Records are the reference's, one JSON object per
+line ``{"ts", "target", "name", "phase", "event_id", "content"}`` with
+phase BEGIN, END or INSTANT, so either package's analysis reads either
+package's event files.
 """
 
 import itertools
@@ -23,6 +25,14 @@ class EventPhase:
     BEGIN = "BEGIN"
     END = "END"
     INSTANT = "INSTANT"
+
+
+class AgentEvent:
+    RENDEZVOUS = "agent#rendezvous"
+    WORKER_SPAWN = "agent#worker_spawn"
+    WORKER_FAIL = "agent#worker_fail"
+    RESTART = "agent#restart"
+    CKPT_SAVE = "agent#ckpt_save"
 
 
 class TrainEvent:
@@ -91,6 +101,9 @@ class EventEmitter:
             LogExporter()]
         self._ids = itertools.count(1)
 
+    def instant(self, name: str, **content) -> None:
+        self._emit(name, EventPhase.INSTANT, next(self._ids), content)
+
     def span(self, name: str, **content) -> DurationSpan:
         return DurationSpan(self, name, content)
 
@@ -121,3 +134,57 @@ def get_emitter(target: str = "") -> EventEmitter:
                     event_dir, f"events_{target or os.getpid()}.jsonl")))
             _emitters[target] = EventEmitter(target, exporters)
         return _emitters[target]
+
+
+def compute_goodput(records: List[Dict[str, Any]]) -> Dict[str, float]:
+    """Productive-time fraction of an event stream: the union of
+    ``train#training`` spans over the wall clock from the first event to
+    the last. An unterminated span (a crash inside it) counts as
+    unproductive from its BEGIN: the time the fault cost."""
+    intervals = []
+    opens: Dict[Any, float] = {}
+    first_ts = last_ts = None
+    for r in records:
+        ts = r["ts"]
+        first_ts = ts if first_ts is None else min(first_ts, ts)
+        last_ts = ts if last_ts is None else max(last_ts, ts)
+        if r["name"] != TrainEvent.TRAINING:
+            continue
+        if r["phase"] == EventPhase.BEGIN:
+            opens[r["event_id"]] = ts
+        elif r["phase"] == EventPhase.END:
+            begin = opens.pop(r["event_id"], None)
+            if begin is not None:
+                intervals.append((begin, ts))
+    if first_ts is None or last_ts <= first_ts:
+        return {"wall_s": 0.0, "productive_s": 0.0, "goodput": 0.0}
+    intervals.sort()
+    productive = 0.0
+    cur_start = cur_end = None
+    for start, end in intervals:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                productive += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    if cur_end is not None:
+        productive += cur_end - cur_start
+    wall = last_ts - first_ts
+    return {"wall_s": wall, "productive_s": productive,
+            "goodput": productive / wall}
+
+
+def load_events(path: str) -> List[Dict[str, Any]]:
+    """The records of one event file; a torn last line is skipped."""
+    records = []
+    with open(path) as fh:
+        for line in fh:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                records.append(json.loads(line))
+            except json.JSONDecodeError:
+                continue
+    return records

@@ -1,4 +1,4 @@
-"""The master and serving RPC: client and threaded server.
+"""The master, agent and serving RPC: client and threaded server.
 
 The port's copy of the framing of ``dlrover_tpu/common/rpc.py``: a TCP
 stream of 4-byte big-endian lengths and msgpack maps. A request is
@@ -7,8 +7,13 @@ the reply is ``{"ok": bool, "p": <serialized message>, "err": str}``. The
 master drops a retried frame it already ran (same client id and seq) and
 replays its answer, so a retry after a lost connection is exactly-once.
 :class:`RPCServer` routes frames by method name to registered handlers,
-with the same replay cache, so the JAX package's clients (its router, its
-fabric fetcher, its replica's master client) call a port server unchanged.
+with the same replay cache, so the JAX package's clients (its agent, its
+router, its fabric fetcher, its replica's master client) call a port
+server unchanged. A handler that learns who is on the other end stamps it
+into :func:`connection_ctx`; when that connection closes (the peer's
+process died), the server's ``on_disconnect`` hook receives the stamp,
+which is how the master notices a killed agent within the connection-drop
+grace instead of the heartbeat timeout.
 """
 
 import socket
@@ -18,7 +23,9 @@ import time
 import uuid
 from typing import Any, Callable, Dict, Optional
 
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common import comm
+from dlrover_tpu_torch.common.constants import ChaosSite
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import recv_msg, send_msg
 
@@ -33,8 +40,33 @@ _DEDUP_MAX_BYTES = 1024 * 1024
 _DEDUP_ENTRIES = 8192
 
 
+_conn_ctx = threading.local()
+
+
+def connection_ctx() -> Dict[str, Any]:
+    """The current RPC connection's context dict (empty off-connection)."""
+    ctx = getattr(_conn_ctx, "ctx", None)
+    if ctx is None:
+        ctx = {}
+        _conn_ctx.ctx = ctx
+    return ctx
+
+
 class _Handler(socketserver.BaseRequestHandler):
     def handle(self) -> None:
+        try:
+            self._serve()
+        finally:
+            ctx = connection_ctx()
+            hook = self.server.on_disconnect
+            if ctx and hook is not None:
+                try:
+                    hook(dict(ctx))
+                except Exception:  # noqa: BLE001 — keep the server alive
+                    logger.exception("rpc on_disconnect hook failed")
+            _conn_ctx.ctx = None
+
+    def _serve(self) -> None:
         self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         server = self.server
         while True:
@@ -47,13 +79,25 @@ class _Handler(socketserver.BaseRequestHandler):
             if key[0] is not None:
                 with server.dedup_lock:
                     cached = server.dedup.get(key)
-            resp = cached if cached is not None else self._dispatch(frame)
-            if cached is None and key[0] is not None and len(
-                    resp.get("p", b"") or b"") <= _DEDUP_MAX_BYTES:
-                with server.dedup_lock:
-                    server.dedup[key] = resp
-                    while len(server.dedup) > _DEDUP_ENTRIES:
-                        server.dedup.pop(next(iter(server.dedup)))
+            if cached is not None:
+                resp, cached_ctx = cached
+                if cached_ctx:
+                    # a replay is still contact from that peer: rebind its
+                    # identity to this connection and tell the liveness hook
+                    connection_ctx().update(cached_ctx)
+                    if server.on_contact is not None:
+                        try:
+                            server.on_contact(dict(cached_ctx))
+                        except Exception:  # noqa: BLE001
+                            logger.exception("rpc on_contact hook failed")
+            else:
+                resp = self._dispatch(frame)
+                if key[0] is not None and len(
+                        resp.get("p", b"") or b"") <= _DEDUP_MAX_BYTES:
+                    with server.dedup_lock:
+                        server.dedup[key] = (resp, dict(connection_ctx()))
+                        while len(server.dedup) > _DEDUP_ENTRIES:
+                            server.dedup.pop(next(iter(server.dedup)))
             try:
                 send_msg(self.request, resp)
             except (ConnectionError, OSError):
@@ -86,7 +130,20 @@ class RPCServer:
         self._server.registry = {}
         self._server.dedup = {}
         self._server.dedup_lock = threading.Lock()
+        self._server.on_disconnect = None
+        self._server.on_contact = None
         self._thread: Optional[threading.Thread] = None
+
+    def set_on_disconnect(self, hook: Callable[[Dict[str, Any]], None]
+                          ) -> None:
+        """``hook(ctx)`` runs when a connection whose handlers stamped
+        :func:`connection_ctx` closes, for any reason."""
+        self._server.on_disconnect = hook
+
+    def set_on_contact(self, hook: Callable[[Dict[str, Any]], None]) -> None:
+        """``hook(ctx)`` runs when a replayed frame arrives from an
+        identified peer (the handler does not run on a replay)."""
+        self._server.on_contact = hook
 
     @property
     def port(self) -> int:
@@ -156,11 +213,16 @@ class RPCClient:
         frame = {"m": method, "p": comm.serialize(request), "id": seq,
                  "c": self._client_id}
         attempts = max(1, self._retries if retries is None else retries)
+        inj = get_injector()
         for attempt in range(attempts):
             try:
+                if inj is not None:
+                    inj.fire(ChaosSite.RPC_SEND, method=method)
                 conn = self._conn()
                 send_msg(conn, frame)
                 resp = recv_msg(conn)
+                if inj is not None:
+                    inj.fire(ChaosSite.RPC_RECV, method=method)
                 break
             except (ConnectionError, OSError):
                 self._close()
@@ -171,3 +233,9 @@ class RPCClient:
             raise RPCError(f"rpc {method} to {self.addr} failed: "
                            f"{resp.get('err', 'unknown rpc error')}")
         return comm.deserialize(resp.get("p", b""))
+
+
+def find_free_port(host: str = "") -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]

@@ -6,6 +6,9 @@ relies on. Object stores (``gs://``) are not ported."""
 import os
 from typing import List
 
+from dlrover_tpu_torch.chaos import get_injector
+from dlrover_tpu_torch.common.constants import ChaosSite
+
 
 class PosixDiskStorage:
     def write(self, content, path: str) -> None:
@@ -45,12 +48,17 @@ class PosixDiskStorage:
     def write_stripes(self, path: str, total: int, stripes,
                       executor=None) -> None:
         """``stripes``: ``(offset, data, ctx)`` pieces of a ``total``-byte
-        file, written with pwrite (on ``executor`` when given)."""
+        file, written with pwrite (on ``executor`` when given). Fires the
+        ``storage.persist`` chaos site once per stripe."""
+        inj = get_injector()
         fd = os.open(path, os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o644)
         try:
             os.ftruncate(fd, total)
 
-            def _one(offset, data, _ctx):
+            def _one(offset, data, ctx):
+                if inj is not None:
+                    inj.fire(ChaosSite.STORAGE_PERSIST, path=path,
+                             offset=offset, **(ctx or {}))
                 mv = memoryview(data).cast("B")
                 pos = 0
                 while pos < len(mv):

@@ -8,12 +8,14 @@ seed, resume offset and replica count; the trainer moves them to the card.
   partition over data-parallel replicas with a consumed-offset checkpoint,
   so a resumed job (possibly with another replica count) skips the data it
   already saw.
-- :class:`ElasticDataLoader` — batches a map-style dataset; its batch size
-  is re-read from the JSON config file the auto-tuner rewrites, so a
-  running job can change its micro-batch without restarting.
-
-Not ported yet: ``ShardingClient`` / ``IndexShardingClient`` (they pull
-shards from the master over RPC), so the loader takes a sampler only.
+- :class:`ShardingClient` / :class:`IndexShardingClient` — pull record
+  range shards from the master's shard ledger over RPC and report them
+  done; a dead worker's shards are requeued by the master. Completion is
+  reported optimistically (at most once on a worker death).
+- :class:`ElasticDataLoader` — batches a map-style dataset, through a
+  sampler or a sharding client; its batch size is re-read from the JSON
+  config file the auto-tuner rewrites, so a running job can change its
+  micro-batch without restarting.
 """
 
 import json
@@ -22,8 +24,84 @@ from typing import Any, Callable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.constants import ConfigKey
 from dlrover_tpu_torch.common.log import logger
+
+
+class ShardingClient:
+    """Pulls ``(start, end)`` record-range tasks from the master; a shard
+    of ``num_minibatches_per_shard`` batches amortizes the RPC."""
+
+    def __init__(self, master_client, dataset_name: str, batch_size: int,
+                 dataset_size: int, num_epochs: int = 1,
+                 shuffle: bool = False, num_minibatches_per_shard: int = 2,
+                 splitter: str = "batch", storage_type: str = ""):
+        self._client = master_client
+        self.dataset_name = dataset_name
+        self._params = comm.DatasetShardParams(
+            batch_size=batch_size, num_epochs=num_epochs,
+            dataset_size=dataset_size, shuffle=shuffle,
+            num_minibatches_per_shard=num_minibatches_per_shard,
+            dataset_name=dataset_name, storage_type=storage_type,
+            splitter=splitter)
+        self._client.setup_dataset(self._params)  # idempotent
+        self._current: Optional[comm.TaskMessage] = None
+
+    def fetch_task(self) -> Optional[comm.TaskMessage]:
+        """The next shard task, or None when the dataset is exhausted."""
+        task = self._client.get_task(self.dataset_name)
+        if task is None or task.task_id < 0:
+            return None
+        self._current = task
+        return task
+
+    def fetch_shard(self) -> Optional[comm.Shard]:
+        task = self.fetch_task()
+        return None if task is None else task.shard
+
+    def report_task_done(self, success: bool = True) -> None:
+        if self._current is not None:
+            self._client.report_task_result(
+                self.dataset_name, self._current.task_id, success)
+            self._current = None
+
+    def shard_checkpoint(self) -> str:
+        """The dataset's position, to ride in the training checkpoint."""
+        return self._client.get_shard_checkpoint(self.dataset_name)
+
+    def restore_shard_checkpoint(self, content: str) -> None:
+        if content:
+            self._client.restore_shard_checkpoint(content)
+
+
+class IndexShardingClient(ShardingClient):
+    """Streams per-record global indices out of the shard tasks."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._indices: List[int] = []
+
+    def fetch_sample_index(self) -> Optional[int]:
+        while not self._indices:
+            if self._current is not None:
+                self.report_task_done()  # the shard is consumed
+            shard = self.fetch_shard()
+            if shard is None:
+                return None
+            self._indices = (list(shard.record_indices)
+                             if shard.record_indices
+                             else list(range(shard.start, shard.end)))
+        return self._indices.pop(0)
+
+    def fetch_batch_indices(self, batch_size: int) -> Optional[List[int]]:
+        out: List[int] = []
+        for _ in range(batch_size):
+            idx = self.fetch_sample_index()
+            if idx is None:
+                break
+            out.append(idx)
+        return out or None
 
 
 class ElasticDistributedSampler:
@@ -117,12 +195,16 @@ class ElasticDataLoader:
         dataset: Any,
         batch_size: int,
         sampler: Optional[ElasticDistributedSampler] = None,
+        sharding_client: Optional[IndexShardingClient] = None,
         config_file: Optional[str] = None,
         collate_fn: Optional[Callable[[List[Any]], Any]] = None,
     ):
+        if sampler is not None and sharding_client is not None:
+            raise ValueError("pass either a sampler or a sharding client")
         self._dataset = dataset
         self.batch_size = batch_size
         self._sampler = sampler
+        self._sharding = sharding_client
         self._config_file = config_file or os.getenv(
             ConfigKey.PARAL_CONFIG_FILE)
         self._config_mtime = 0.0
@@ -155,6 +237,21 @@ class ElasticDataLoader:
             logger.warning("bad dataloader config file: %r", e)
 
     def __iter__(self):
+        if self._sharding is not None:
+            return self._iter_sharded()
+        return self._iter_sampled()
+
+    def _iter_sharded(self):
+        while True:
+            self._maybe_reload_config()
+            idxs = self._sharding.fetch_batch_indices(self.batch_size)
+            if idxs is None or len(idxs) < self.batch_size:
+                if idxs:
+                    self._sharding.report_task_done()
+                return
+            yield self._collate([self._dataset[i] for i in idxs])
+
+    def _iter_sampled(self):
         it = iter(self._sampler) if self._sampler is not None else iter(
             range(len(self._dataset))
         )

@@ -14,17 +14,26 @@ checkpoint cadence:
   sampler's position rides the checkpoint
 - the training span and per-step publishing to the agent and the master
 
-Run on the CPU under the elastic agent, 2 workers over gloo::
+Run on the CPU under the port's elastic agent (its ``dlrover-run``), 2
+workers over gloo::
 
-    DEVICE=cpu \\
-    DLROVER_TPU_WARM_PREIMPORT=numpy,torch,dlrover_tpu_torch.worker \\
-    python -m dlrover_tpu.agent.run --standalone --nproc-per-node=2 \\
+    DEVICE=cpu CKPT_DIR=/tmp/llama_ckpt \\
+    python -m dlrover_tpu_torch.agent.run --standalone --nproc-per-node=2 \\
         --ckpt-dir /tmp/llama_ckpt examples/llama_elastic_pretrain_torch.py
 
-The leader prints one JSON line per step (``{"step", "loss"}``) and one at
-the end. ``KILL_AT_STEP=N`` makes the first incarnation SIGKILL itself once
-step N's memory frame is sealed (a fault drill: the agent restarts the
-workers, which resume from shared memory). ``train`` is the body, for
+(the JAX package's agent, ``python -m dlrover_tpu.agent.run``, runs it the
+same way). The agent leaves the ``dlrtpu_<job>_*`` segments in
+``/dev/shm``: unlink them after the run. The leader prints one JSON line
+per step (``{"step", "loss"}``) and one at the end; every rank prints
+``{"rank", "forbidden_modules"}``, the JAX modules its process loaded
+(none when it runs under the port's agent).
+
+``KILL_AT_STEP=N`` makes the first incarnation SIGKILL itself once step
+N's memory frame is sealed (a fault drill: the agent restarts the
+workers, which resume from shared memory). ``HANG_AFTER_STEP=N`` with
+``HANG_MARKER=<path>`` makes the incarnation that finds no marker stop
+after step N, outside the training span, and write the marker (a hang
+drill: the master's hang rule has the agent restart the workers). ``train`` is the body, for
 callers with another configuration: the card's attention kernels take bf16
 with head_dim 64 or 128, so this example's f32, head_dim-32 model runs on
 the CPU's plain path.
@@ -34,6 +43,7 @@ import json
 import os
 import signal
 import sys
+import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -81,11 +91,16 @@ def synthetic_dataset(vocab: int, seq_len: int, n: int = 4096):
 
 def train(config, steps: int, global_batch: int, seq_len: int,
           ckpt_dir: str, ctx, ckpt_every: int = CKPT_EVERY,
-          kill_at_step=None, on_step=None) -> dict:
+          kill_at_step=None, on_step=None, on_start=None,
+          micro_batch_per_replica=None) -> dict:
     """Train ``steps`` steps (resuming from any checkpoint in shm or
     ``ckpt_dir``) on ``ctx``'s world. Returns the start step, where the
     restore came from, the per-step losses and grad norms and the
-    checkpointer."""
+    checkpointer. ``on_start(start_step, checkpointer, trainer)`` runs
+    after the restore and ``on_step(step, loss)`` after each step's save;
+    ``micro_batch_per_replica`` fixes the micro batch (default: half the
+    global batch over the replicas), so a smaller world takes more
+    accumulation steps."""
     device = ctx.device
     # mesh from the live world: model axes fixed, fsdp absorbs the rest
     plan = plan_mesh(ctx.world_size, tp=1, sp=1)
@@ -101,7 +116,8 @@ def train(config, steps: int, global_batch: int, seq_len: int,
         loss_fn=lambda p, t: llama.next_token_loss(p, t, config),
         optimizer=adamw(3e-4),
         global_batch_size=global_batch,
-        micro_batch_per_replica=max(1, global_batch // (2 * plan.dp_total)),
+        micro_batch_per_replica=micro_batch_per_replica or max(
+            1, global_batch // (2 * plan.dp_total)),
         device=device,
     )
     trainer.configure_for_world(plan)
@@ -130,6 +146,8 @@ def train(config, steps: int, global_batch: int, seq_len: int,
         "completed": int(state["sampler_completed"]),
     })
     loader = ElasticDataLoader(data, batch_size=per_host, sampler=sampler)
+    if on_start is not None:
+        on_start(start_step, ckpt, trainer)
 
     step = max(start_step, 0)
     losses, norms = {}, {}
@@ -159,6 +177,8 @@ def train(config, steps: int, global_batch: int, seq_len: int,
             if on_step is not None:
                 on_step(step, result.loss)
             if step == kill_at_step and ckpt.engine.wait_drained():
+                print(json.dumps({"killed_at_step": step,
+                                  "ts": time.time()}), flush=True)
                 os.kill(os.getpid(), signal.SIGKILL)
             ctx.publish_step(step)
             if ctx.is_leader:
@@ -179,16 +199,42 @@ def train(config, steps: int, global_batch: int, seq_len: int,
 def main() -> int:
     ctx = worker.init(device=os.getenv("DEVICE", "cuda"))
     kill = int(os.getenv("KILL_AT_STEP", "0")) or None
+    hang = int(os.getenv("HANG_AFTER_STEP", "0")) or None
+    marker = os.getenv("HANG_MARKER", "")
+    wedge = bool(hang and marker and not os.path.exists(marker))
+
+    engine = []
 
     def on_step(step, loss):
         if ctx.is_leader:
             print(json.dumps({"step": step, "loss": float(loss)}),
                   flush=True)
+        if wedge and step + 1 == hang:
+            # the hang drill restores the wedged step's frame: wait out
+            # this drain so that step's save is not skipped as busy
+            engine[0].wait_drained()
 
-    out = train(example_config(SEQ_LEN), TOTAL_STEPS, GLOBAL_BATCH, SEQ_LEN,
-                os.getenv("CKPT_DIR", "/tmp/llama_ckpt"), ctx,
-                kill_at_step=kill if ctx.restart_count == 0 else None,
-                on_step=on_step)
+    out = train(example_config(SEQ_LEN), hang if wedge else TOTAL_STEPS,
+                GLOBAL_BATCH, SEQ_LEN, os.getenv("CKPT_DIR", "/tmp/llama_ckpt"),
+                ctx, kill_at_step=kill if ctx.restart_count == 0 else None,
+                on_step=on_step,
+                on_start=lambda start, ckpt, trainer: engine.append(
+                    ckpt.engine))
+    print(json.dumps({"rank": ctx.rank, "forbidden_modules": sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu"))}),
+        flush=True)
+    if wedge:
+        # the hang drill: stop stepping outside the training span until
+        # the agent's restart kills this worker
+        if ctx.is_leader:
+            with open(marker, "w") as f:
+                f.write(str(time.time()))
+            print(json.dumps({"wedged_after_step": out["final_step"],
+                              "start_step": out["start_step"],
+                              "restored_from": out["restored_from"]}),
+                  flush=True)
+        time.sleep(3600)
     if ctx.is_leader:
         print(json.dumps({"done": out["final_step"],
                           "start_step": out["start_step"],

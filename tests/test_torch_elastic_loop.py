@@ -1,6 +1,7 @@
 """The elastic pretraining loop end to end: the port's twin of
 ``examples/llama_elastic_pretrain.py`` under the JAX package's standalone
-agent, with 2 gloo workers, against the JAX example on the same data.
+agent and under the port's own, with 2 gloo workers, against the JAX
+example on the same data.
 
 The JAX example's initial state (its config, ``PRNGKey(0)`` params, optax
 adamw, the sampler position) is saved by the JAX checkpoint engine as step
@@ -141,3 +142,112 @@ def test_twin_under_the_agent_matches_jax_and_resumes_from_shm(tmp_path):
     assert sorted(losses) == list(range(1, STEPS + 1))
     np.testing.assert_allclose([losses[s] for s in range(1, STEPS + 1)],
                                want, rtol=1e-5)
+
+
+# -- the twin under the port's own agent ---------------------------------------
+
+PORT_AGENT = (
+    "import sys\n"
+    "from dlrover_tpu_torch.agent import run\n"
+    "code = run.main(sys.argv[1:])\n"
+    "bad = sorted(m for m in sys.modules\n"
+    "             if m.split('.')[0] in ('jax', 'jaxlib', 'dlrover_tpu'))\n"
+    "print('AGENT_FORBIDDEN ' + ','.join(bad), flush=True)\n"
+    "sys.exit(code or (3 if bad else 0))\n"
+)
+
+
+@pytest.fixture(scope="module")
+def jax_reference(tmp_path_factory):
+    """The JAX example's losses, and a checkpoint directory holding its
+    step-0 state for each run to copy."""
+    seed_dir = tmp_path_factory.mktemp("seed") / "ckpt"
+    losses = _jax_example(str(seed_dir), f"pseed{os.getpid()}")
+    return losses, str(seed_dir)
+
+
+def _port_agent_run(tmp_path, jax_reference, extra_env, extra_args=()):
+    import shutil
+
+    want, seed_dir = jax_reference
+    job = f"pt{os.getpid()}{len(os.listdir(tmp_path))}"
+    ckpt_dir = str(tmp_path / "ckpt")
+    shutil.copytree(seed_dir, ckpt_dir)
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("DLROVER_TPU_", "DLROVER_FAULT_"))}
+    env.update({
+        "DEVICE": "cpu", "TRAIN_STEPS": str(STEPS),
+        "GLOBAL_BATCH": str(GLOBAL_BATCH), "SEQ_LEN": str(SEQ_LEN),
+        "CKPT_DIR": ckpt_dir, "DLROVER_TPU_LOG_LEVEL": "WARNING",
+        "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO, **extra_env,
+    })
+    proc = subprocess.Popen(
+        [sys.executable, "-c", PORT_AGENT, "--standalone",
+         "--nproc-per-node=2", f"--job_name={job}",
+         f"--ckpt_dir={ckpt_dir}", *extra_args, TWIN],
+        env=env, cwd=str(tmp_path), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=240)
+    finally:
+        if proc.poll() is None:
+            os.killpg(os.getpgid(proc.pid), signal.SIGKILL)
+            proc.communicate()
+        for name in os.listdir("/dev/shm"):
+            if name.startswith(f"dlrtpu_{job}_"):
+                unlink_shared_memory(name)
+    assert proc.returncode == 0, out[-3000:]
+    records = [json.loads(ln) for ln in out.splitlines()
+               if ln.startswith("{")]
+    losses = {r["step"]: r["loss"] for r in records if "loss" in r}
+    # rtol 1e-5: the trainer tests' tolerance for the port against JAX
+    assert sorted(losses) == list(range(1, STEPS + 1)), out[-3000:]
+    np.testing.assert_allclose([losses[s] for s in range(1, STEPS + 1)],
+                               want, rtol=1e-5)
+    # no process of the run loaded JAX or the JAX package
+    assert "AGENT_FORBIDDEN \n" in out + "\n", out[-3000:]
+    modules = [r["forbidden_modules"] for r in records
+               if "forbidden_modules" in r]
+    assert modules and not any(modules), modules
+    return records, out
+
+
+def test_twin_under_the_port_agent_matches_jax_and_resumes_from_shm(
+        tmp_path, jax_reference):
+    """``python -m dlrover_tpu_torch.agent.run --standalone
+    --nproc-per-node=2`` runs the twin on gloo; a SIGKILL after step 7
+    resumes from shm at 7 on the JAX example's losses."""
+    records, out = _port_agent_run(tmp_path, jax_reference,
+                                   {"KILL_AT_STEP": str(KILL_AT)})
+    done = [r for r in records if "done" in r]
+    assert done == [{"done": STEPS, "start_step": KILL_AT,
+                     "restored_from": "shm"}], out[-3000:]
+    assert "worker failure" in out
+
+
+def test_twin_under_the_port_agent_torn_frame_then_hang(tmp_path,
+                                                        jax_reference):
+    """A torn step-7 frame (the injector) and a SIGKILL after it: the
+    agent's saver refuses the frame, the restart restores from storage
+    (step 0, the seed); then the workers wedge after step 9 and the
+    master's hang rule restarts them, from shm at 9. The losses stay the
+    JAX example's."""
+    records, out = _port_agent_run(
+        tmp_path, jax_reference, {
+            "KILL_AT_STEP": str(KILL_AT),
+            "DLROVER_FAULT_SCHEDULE": f"shm.write:torn@step={KILL_AT}",
+            "HANG_AFTER_STEP": "9",
+            "HANG_MARKER": str(tmp_path / "hang.marker"),
+            "DLROVER_TPU_HANG_RESTART_WORKERS": "1",
+            "DLROVER_TPU_HANG_DOWNTIME_S": "8",
+            "DLROVER_TPU_DIAGNOSIS_INTERVAL_S": "0.5",
+            "DLROVER_TPU_HEARTBEAT_INTERVAL_S": "0.5",
+        })
+    wedged = [r for r in records if "wedged_after_step" in r]
+    assert wedged == [{"wedged_after_step": 9, "start_step": 0,
+                       "restored_from": "storage"}], out[-3000:]
+    done = [r for r in records if "done" in r]
+    assert done == [{"done": STEPS, "start_step": 9,
+                     "restored_from": "shm"}], out[-3000:]
+    assert "refusing to persist" in out
+    assert "training hang detected" in out

@@ -1,7 +1,8 @@
 """The port's standing rules.
 
-- ``dlrover_tpu_torch``, ``chip_smoke.py`` and the port's example
-  ``examples/llama_elastic_pretrain_torch.py`` import neither ``jax`` nor
+- ``dlrover_tpu_torch``, ``chip_smoke.py`` and the port's examples
+  ``examples/llama_elastic_pretrain_torch.py`` and
+  ``examples/chaos_goodput_torch.py`` import neither ``jax`` nor
   anything of ``dlrover_tpu`` (checked on the source, and on
   ``sys.modules`` after importing every port module in a fresh
   interpreter), and the port needs neither ``msgpack`` nor ``ml_dtypes``
@@ -36,11 +37,12 @@ def _forbidden(name: str) -> bool:
 
 
 TWIN = REPO / "examples" / "llama_elastic_pretrain_torch.py"
+CHAOS = REPO / "examples" / "chaos_goodput_torch.py"
 
 
 @pytest.mark.parametrize("path",
                          sorted(PKG.rglob("*.py"))
-                         + [REPO / "chip_smoke.py", TWIN],
+                         + [REPO / "chip_smoke.py", TWIN, CHAOS],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_no_jax_and_no_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
