@@ -4,13 +4,15 @@
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --decode   # the decode kernel (K4) alone
     python3 chip_smoke.py --serve    # the serving replica (phase 7) alone
+    python3 chip_smoke.py --serve-elastic  # the elastic serving plane (9)
     python3 chip_smoke.py --elastic  # the agent's fault drill (phase 8)
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and runs
-eight phases, each printing one JSON line (the serving runs one each);
-phase 7 runs after phase 3, on the same weights, phase 8 after phase 6:
+nine phases, each printing one JSON line (the serving runs one each);
+phase 7 runs after phase 3, on the same weights, phase 9 after phase 7
+(its replica stopped and the weights freed), phase 8 after phase 6:
 
 1. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in bf16 at its path's shapes, with the error, the kernel's time, the
@@ -113,12 +115,37 @@ phase 7 runs after phase 3, on the same weights, phase 8 after phase 6:
    speculative decoding (prompt 512, 64 new tokens, k 4) with the target
    as its own draft (acceptance at least 0.9) and with a 2-layer draft of
    another seed, against stock ``decode.generate``.
+9. ``serve_elastic`` — the elastic serving plane
+   (``dlrover_tpu_torch/serving/drill.py``): the port's master with its
+   journal, router, ``JobAutoScaler`` + ``ServingOptimizer`` and
+   ``LocalReplicaManager``, replicas as subprocesses through
+   ``python -m dlrover_tpu_torch.serving.replica --config llama``. (a)
+   ``run_serving_drill``: two ``LlamaConfig()`` replicas at full width and
+   depth (one seed, int8 cache, 8 slots, cache_len 2048, buckets
+   256/512/1024), 48 requests from 8 clients (prompts 64/200/500/1000, 32
+   new tokens), the ``serve.replica`` chaos site deciding a SIGKILL once a
+   third have completed; the replacement is spawned with another seed, so
+   only the survivor's weights give it the survivor's tokens. Held: no request lost or failed, all completed;
+   the kill detected, at least one re-route, the fleet restored by the
+   autoscaler; the journal's ``fault_injected``, ``serve_replica_lost``
+   and one ``serve_scale``; no live replica declared dead; the restored
+   replica warm-started from the survivor with the bytes of its blob, and
+   a probe prompt giving it the survivor's tokens; on every replica, K4
+   launches = 32 × its decode steps (each replica's beat carries both).
+   Prints detect and restore seconds, the warm start's seconds and GB/s,
+   tokens/s, TTFT p50/p99, serving goodput and re-routes. (b)
+   ``run_traffic_drill``: one replica, at most two, under the reference
+   drill's bursty ramp (30 rps over 4 s) with full-width prompts (64-1024
+   tokens, shared-prefix fraction 0.6, 16-32 new). Held: a grow
+   journaled, an SLO burn alert, no request lost, all completed, K4 one
+   launch a layer a step. Prints ``slo_lead_s`` and TTFT p99.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
 ``--decode`` builds K4 alone and runs only its rows, with no result line:
 the quick loop for work on that kernel. ``--serve`` builds the kernels and
-runs phase 7 alone, with no result line. ``--elastic`` runs phase 8
+runs phase 7 alone, with no result line; ``--serve-elastic`` phase 9
+alone. ``--elastic`` runs phase 8
 alone, held against its own unkilled run, with no result line.
 ``--multi N`` runs the twin across N cards of one host (fsdp N, NCCL, each
 rank saving its own shards): its losses and grad norms against one card's
@@ -1327,6 +1354,138 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
             f"{[r['teacher_forced_agreement'] for r in runs.values()]}, "
             f"self-draft acceptance {runs['self_draft']['acceptance_rate']}")
     return {k: traffic_counts[k] + spec_counts[k] for k in traffic_counts}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the elastic serving plane (kill, re-route, restore; burst, grow)
+# ---------------------------------------------------------------------------
+
+def _decode_launches(gauges, n_layers):
+    """Each replica's decode steps and K4 launches from its last beat, and
+    the replicas whose launches are not one a layer a step."""
+    rows, bad = {}, []
+    for nid, g in gauges.items():
+        steps = int(g.get("serve_decode_steps", 0))
+        launches = int(g.get("serve_decode_kernel_launches", 0))
+        rows[nid] = {"steps": steps, "launches": launches}
+        if launches != n_layers * steps:
+            bad.append(nid)
+    return rows, bad
+
+
+def serve_elastic_phase(config, device, config_flag="llama"):
+    """(a) the kill drill: two ``LlamaConfig()`` replicas as subprocesses
+    (same seed, int8 cache, 8 slots, cache_len 2048, buckets
+    256/512/1024), 48 requests from 8 clients (prompts 64/200/500/1000,
+    32 new tokens), the ``serve.replica`` site deciding a SIGKILL once a
+    third have completed, the replacement spawned with another seed; (b) the burst drill: 1 replica, at most 2, under
+    the reference's bursty ramp scaled to full-width prompts. Returns the
+    K4 launches the replicas counted. ``config_flag`` is the replicas'
+    ``--config`` (``tiny`` with a tiny ``config`` rehearses it on the
+    CPU)."""
+    from dlrover_tpu_torch.serving.drill import (
+        GRACE_S,
+        HEARTBEAT_S,
+        LLAMA_DRILL,
+        LLAMA_KILL_TRAFFIC,
+        run_serving_drill,
+        run_traffic_drill,
+    )
+    from dlrover_tpu_torch.serving.traffic import TrafficProfile
+
+    common = dict(LLAMA_DRILL, config=config_flag, device=str(device),
+                  seed=SEED)
+    t0 = time.perf_counter()
+    res = run_serving_drill(replicas=2, **LLAMA_KILL_TRAFFIC, **common)
+    seconds = time.perf_counter() - t0
+    journal = res["journal"]
+    warm = res["warm_start"] or {}
+    probe = res["probe_tokens"]
+    restored, victim = res["restored_node"], res["killed_node"]
+    survivor = next((n for n in probe if n != restored), None)
+    row = dict(
+        phase="serve_elastic_kill", seconds=seconds, requests=res["requests"],
+        completed=res["completed"], lost=res["lost"],
+        failed_responses=res["failed_responses"], rerouted=res["rerouted"],
+        killed_node=victim, restored_node=restored,
+        kill_detected=res["kill_detected"],
+        replicas_restored=res["replicas_restored"],
+        detect_s=res["detect_s"], restore_s=res["restore_s"],
+        restore_timeout_s=LLAMA_KILL_TRAFFIC["restore_timeout_s"],
+        heartbeat_s=HEARTBEAT_S, grace_s=GRACE_S,
+        false_deaths=res["false_deaths"],
+        warm_start_s=warm.get("seconds"), warm_start_bytes=warm.get("bytes"),
+        warm_start_gb_per_s=(warm["bytes"] / warm["seconds"] / 1e9
+                             if warm.get("seconds") else None),
+        blob_bytes=res["blob_bytes"], tokens_per_s=res["tokens_per_s"],
+        traffic_s=res["elapsed_s"], ttft_p50_s=res["ttft_p50_s"],
+        ttft_p99_s=res["ttft_p99_s"],
+        serving_goodput=res["serving_goodput"], journal=journal,
+        probe_agrees=(survivor is not None and probe[survivor] is not None
+                      and probe[survivor] == probe.get(restored)))
+    kill_rows, bad = _decode_launches(res["replica_gauges"],
+                                      config.n_layers)
+    row["replicas"] = kill_rows
+    emit(row)
+    problems = []
+    if bad:
+        problems.append(f"K4 launches not {config.n_layers} a step on "
+                        f"replicas {bad}")
+    if (res["lost"] or res["failed_responses"]
+            or res["completed"] != res["requests"]):
+        problems.append("requests lost, failed or not completed")
+    if not (res["kill_detected"] and res["replicas_restored"]
+            and res["rerouted"] >= 1):
+        problems.append("the kill was not detected, re-routed and restored")
+    if (journal.get("fault_injected", 0) < 1
+            or journal.get("serve_replica_lost", 0) < 1
+            or journal.get("serve_scale", 0) != 1):
+        problems.append(f"journal {journal}")
+    if res["false_deaths"]:
+        problems.append(f"live replicas declared dead: {res['false_deaths']}")
+    if not warm or warm["bytes"] != res["blob_bytes"]:
+        problems.append(f"warm start {warm} against the survivor's blob of "
+                        f"{res['blob_bytes']} bytes")
+    if not row["probe_agrees"]:
+        problems.append(f"probe tokens {probe}")
+    decoded = [n for n, r in kill_rows.items() if r["steps"]]
+    if restored not in decoded or survivor not in decoded:
+        problems.append(f"survivor or restored replica never decoded "
+                        f"{row['replicas']}")
+    if problems:
+        raise AssertionError("serve_elastic (a): " + "; ".join(problems))
+
+    profile = TrafficProfile(
+        rps=30.0, duration_s=4.0, arrival="bursty", burst_factor=4.0,
+        diurnal="ramp", length_mix=((0.7, 64, 512), (0.3, 512, 1024)),
+        shared_prefix_frac=0.6, prefix_len=48, max_new_lo=16, max_new_hi=32,
+        vocab=config.vocab_size, seed=SEED)
+    t0 = time.perf_counter()
+    res = run_traffic_drill(replicas=1, max_replicas=2, profile=profile,
+                            request_timeout_s=600.0, **common)
+    row = dict(phase="serve_elastic_burst", seconds=time.perf_counter() - t0,
+               **{k: res[k] for k in (
+                   "offered", "completed", "failed", "offered_rps",
+                   "ttft_p50_s", "ttft_p99_s", "tokens_per_s", "lost",
+                   "grow_events", "slo_alerts", "first_alert_t",
+                   "first_grow_t", "slo_lead_s", "live_replicas_end",
+                   "journal")})
+    burst_rows, burst_bad = _decode_launches(res["replica_gauges"],
+                                             config.n_layers)
+    row["replicas"] = burst_rows
+    emit(row)
+    if (res["grow_events"] < 1 or res["lost"] or res["slo_alerts"] < 1
+            or res["completed"] != res["offered"] or burst_bad):
+        raise AssertionError(
+            f"serve_elastic (b): {res['grow_events']} grows, {res['lost']} "
+            f"lost, {res['slo_alerts']} SLO alerts, {res['completed']} of "
+            f"{res['offered']} completed, K4 launches not "
+            f"{config.n_layers} a step on replicas {burst_bad}")
+    counts = dict.fromkeys(fa.LAUNCHES, 0)
+    counts["flash_decode_int8"] = sum(
+        r["launches"] for rows in (kill_rows, burst_rows)
+        for r in rows.values())
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2640,6 +2799,12 @@ def main(argv) -> int:
         serve_phase(params, config, device)
         _print_card()
         return 0
+    if argv[1:] == ["--serve-elastic"]:
+        # the elastic serving plane alone: phase 9, no result line
+        _build_report()
+        serve_elastic_phase(config, device)
+        _print_card()
+        return 0
     if argv[1:] == ["--decode"]:
         # K4 alone: its checks and times, no result line
         _build_report(["flash_decode"])
@@ -2678,8 +2843,9 @@ def main(argv) -> int:
         len_range=(100, 1500), new_range=(16, 48), n_teacher=4))
     torch.cuda.empty_cache()
     main_path.append(serve_phase(params, config, device))
-    del params  # the serving weights make room for the training state
+    del params  # the serving weights make room for the replicas and training
     torch.cuda.empty_cache()
+    main_path.append(serve_elastic_phase(config, device))
     counts, trained = train_phase(
         dataclasses.replace(config, n_layers=8), device, global_batch=8,
         micro_batch=4, seq=2048, steps=3, lr=3e-4)

@@ -122,16 +122,31 @@ class TrainingExceptionLevel:
 
 class ChaosSite:
     """Fault-injection site names (``chaos/injector.py``) of the port's
-    modules; the fabric and serving sites are not ported yet."""
+    modules."""
 
     RPC_SEND = "rpc.send"
     RPC_RECV = "rpc.recv"
     SHM_WRITE = "shm.write"
     KV_WAIT = "kv.wait"
     RDZV_JOIN = "rdzv.join"
+    # the state-movement fabric (common/fabric.py)
+    FABRIC_CONNECT = "fabric.connect"
+    FABRIC_STRIPE = "fabric.stripe"
     STORAGE_PERSIST = "storage.persist"
     STORAGE_COMMIT = "storage.commit"
+    # the elastic decode-serving plane (serving/)
+    SERVE_REQUEST = "serve.request"
+    SERVE_REPLICA = "serve.replica"
+    SERVE_PREFIX = "serve.prefix"
     DATA_DISPATCH = "data.dispatch"
+
+
+class MetricLabel:
+    """Label values of the port's metric families."""
+
+    # SLO burn windows (observability/slo.py)
+    WINDOW_FAST = "fast"
+    WINDOW_SLOW = "slow"
 
 
 class EnvKey:
@@ -188,6 +203,21 @@ class ConfigKey:
     SERVE_PREFIX_BYTES = "DLROVER_TPU_SERVE_PREFIX_BYTES"
     SERVE_PREFIX_BLOCK = "DLROVER_TPU_SERVE_PREFIX_BLOCK"
     SERVE_SPEC_K = "DLROVER_TPU_SERVE_SPEC_K"
+    # the serving autoscaler (serving/autoscaler.py): the TTFT p99 SLO (s)
+    # and the router queue depth above which it grows the replica set,
+    # and the grow/shrink cooldowns that bound oscillation
+    SERVE_TTFT_SLO_S = "DLROVER_TPU_SERVE_TTFT_SLO_S"
+    SERVE_QUEUE_HI = "DLROVER_TPU_SERVE_QUEUE_HI"
+    SERVE_GROW_COOLDOWN_S = "DLROVER_TPU_SERVE_GROW_COOLDOWN_S"
+    SERVE_SHRINK_COOLDOWN_S = "DLROVER_TPU_SERVE_SHRINK_COOLDOWN_S"
+    # the serving SLO plane (observability/slo.py): the goodput floor, the
+    # fast/slow burn-rate windows, the burn rate both windows must reach
+    # before an alert is journaled, and the alert's re-fire cooldown
+    SERVE_GOODPUT_SLO = "DLROVER_TPU_SERVE_GOODPUT_SLO"
+    SERVE_SLO_BURN_FAST_S = "DLROVER_TPU_SERVE_SLO_BURN_FAST_S"
+    SERVE_SLO_BURN_SLOW_S = "DLROVER_TPU_SERVE_SLO_BURN_SLOW_S"
+    SERVE_SLO_BURN_RATE = "DLROVER_TPU_SERVE_SLO_BURN_RATE"
+    SERVE_SLO_ALERT_COOLDOWN_S = "DLROVER_TPU_SERVE_SLO_ALERT_COOLDOWN_S"
     # the striped bulk-transfer fabric: stripe size, connections per
     # source, and a source's cap on concurrent stripe fetches
     FABRIC_STRIPE_BYTES = "DLROVER_TPU_FABRIC_STRIPE_BYTES"

@@ -20,7 +20,11 @@ read_fn)`` with ``read_fn(offset, nbytes)`` a ranged read. Method names
 and messages are the reference's, so the JAX package's fetcher pulls from
 a port server and the port's fetcher from a JAX one.
 
-Not ported yet: the chaos sites, tracing and journal events, metrics,
+Chaos sites: ``fabric.connect`` fires before each source's describe (an
+injected fault makes the source unreachable for this session) and
+``fabric.stripe`` before each stripe fetch (an error fails the source;
+``torn``/``bitflip`` corrupt the received stripe, which its CRC must
+catch). Not ported yet: tracing and journal events, metrics,
 topology-ranked sources and per-source key aliases.
 """
 
@@ -31,10 +35,14 @@ import zlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+from dlrover_tpu_torch.chaos import InjectedError, get_injector
 from dlrover_tpu_torch.common import comm
-from dlrover_tpu_torch.common.constants import ConfigKey, env_int
+from dlrover_tpu_torch.common.constants import ChaosSite, ConfigKey, env_int
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.rpc import RPCClient, RPCError, RPCServer
+
+FABRIC_CONNECT_SITE = ChaosSite.FABRIC_CONNECT
+FABRIC_STRIPE_SITE = ChaosSite.FABRIC_STRIPE
 
 DEFAULT_STRIPE_BYTES = 16 * 1024 * 1024
 DEFAULT_CONNS = 4
@@ -257,15 +265,20 @@ class _FetchSession:
                 self._cond.notify_all()
 
     def _fetch_one(self, src: FabricSource, client: RPCClient,
-                   idx: int) -> None:
+                   idx: int, inj) -> None:
         off, n = self.stripes[idx]
+        action = None
         try:
+            if inj is not None:
+                action = inj.fire(FABRIC_STRIPE_SITE, key=self.key,
+                                  addr=src.addr, stripe=idx, offset=off,
+                                  nbytes=n, step=self.step)
             resp = client.call(
                 "fabric_fetch",
                 comm.FabricFetchRequest(key=self.key, step=self.step,
                                         offset=off, nbytes=n),
                 retries=_STRIPE_RETRIES)
-        except _PEER_ERRORS as e:
+        except (InjectedError, *_PEER_ERRORS) as e:
             self._fail_source(src, idx, repr(e))
             return
         if resp.busy:
@@ -276,6 +289,14 @@ class _FetchSession:
                               f"object gone (source at step {resp.step})")
             return
         data = resp.data
+        if action is not None and data:
+            # wire corruption of the received stripe: its CRC must catch it
+            mut = bytearray(data)
+            if action["kind"] == "bitflip":
+                mut[int(action["rnd"] * len(mut)) % len(mut)] ^= 0xFF
+            elif action["kind"] == "torn":
+                mut = mut[:len(mut) // 2]
+            data = bytes(mut)
         if len(data) != n or zlib.crc32(data) != resp.crc:
             # corruption is not transient on a reliable transport: fail
             # the source so the refetch lands elsewhere
@@ -284,22 +305,23 @@ class _FetchSession:
             return
         self._commit(src, idx, data)
 
-    def _worker(self, src: FabricSource, client: RPCClient) -> None:
+    def _worker(self, src: FabricSource, client: RPCClient, inj) -> None:
         while True:
             idx = self._next_stripe(src)
             if idx is None:
                 return
-            self._fetch_one(src, client, idx)
+            self._fetch_one(src, client, idx, inj)
 
     def run(self, clients: Dict[str, RPCClient], conns_per_source: int,
             timeout_s: float) -> Tuple[Optional[str], str]:
         """Drive the transfer: ``(abort reason or None, detail)``, the
         payload in ``self.buf``."""
+        inj = get_injector()
         seats = self.sources * max(1, conns_per_source)
         seats = seats[:max(1, min(len(seats), len(self.stripes)))]
         threads = [
             threading.Thread(target=self._worker,
-                             args=(src, clients[src.addr]),
+                             args=(src, clients[src.addr], inj),
                              name=f"fabric-fetch-{i}", daemon=True)
             for i, src in enumerate(seats)
         ]
@@ -361,16 +383,19 @@ def fetch(sources: Sequence[FabricSource], key: str, *,
                     key=lambda s: s.addr)
     clients: Dict[str, RPCClient] = {}
     candidates = []
+    inj = get_injector()
     for src in ranked:
         # the first describe of a large object computes its content CRC
         # (12 GB for a full-width 7B blob): the session's whole budget
         client = RPCClient(src.addr, timeout_s=max(5.0, timeout_s))
         try:
+            if inj is not None:
+                inj.fire(FABRIC_CONNECT_SITE, addr=src.addr, key=key)
             resp = client.call(
                 "fabric_describe",
                 comm.FabricDescribeRequest(key=key, step=expect_step),
                 retries=1)
-        except _PEER_ERRORS as e:
+        except (InjectedError, *_PEER_ERRORS) as e:
             logger.info("fabric: source %s unreachable (%r)", src.addr, e)
             continue
         if resp.found:

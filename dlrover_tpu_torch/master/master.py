@@ -1,27 +1,35 @@
 """The job master: its planes wired behind one RPC server.
 
 The port's copy of ``JobMaster`` and ``LocalJobMaster`` from
-``dlrover_tpu/master/master.py``, trimmed to wiring the planes this slice
-ported: the job manager (node table, liveness, actions), the training
+``dlrover_tpu/master/master.py``, trimmed to wiring the planes the port
+has: the job manager (node table, liveness, actions), the training
 rendezvous, the KV store and barriers, the perf monitor, the hang rule,
-the shard ledger and the serve registry. Two hooks make faults visible:
+the shard ledger, the serve registry and the event journal
+(``event_journal``, with its goodput gauges on the process registry).
+Two hooks make faults visible:
 
 - a closed heartbeat connection reports the node's loss to the job
   manager, which fails it after the grace;
-- a failed or deleted training node has its shard leases requeued, leaves
-  every rendezvous waiting set, and every other running training node is
-  told to restart its workers (a ``RESTART_WORKER`` action on its next
-  heartbeat), so the survivors re-form the world at once. A failed serving
-  node leaves the routable set instead.
+- a failed or deleted training node is journaled (``fault_detected``),
+  has its shard leases requeued, leaves every rendezvous waiting set, and
+  every other running training node is told to restart its workers (a
+  ``RESTART_WORKER`` action on its next heartbeat), so the survivors
+  re-form the world at once. A failed serving node leaves the routable
+  set instead (``serve_replica_lost``), and the serving autoscaler
+  (``master/auto_scaler.py``, driven by whoever runs the serving plane)
+  restores the count.
 
-``run`` blocks until the job succeeds or fails. Not ported: the brain,
-fan-in, autoscaler, journal, tracing, state snapshots, the HTTP transport
-and the network-check rendezvous.
+An injector configured before the master is made journals every fault it
+fires as ``fault_injected``. ``run`` blocks until the job succeeds or
+fails. Not ported: the brain, fan-in, tracing, the flight recorder,
+state snapshots, the HTTP transport, the network-check rendezvous, and
+starting the training auto-scaler from the master itself.
 """
 
 import time
 from typing import Dict, Optional
 
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.constants import (
     DiagnosisActionType,
     JobStage,
@@ -42,6 +50,11 @@ from dlrover_tpu_torch.master.rdzv_manager import (
 )
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.task_manager import TaskManager
+from dlrover_tpu_torch.observability.journal import (
+    EventJournal,
+    JournalEvent,
+)
+from dlrover_tpu_torch.observability.registry import get_registry
 from dlrover_tpu_torch.serving.registry import ServeReplicaRegistry
 
 
@@ -51,6 +64,12 @@ class JobMaster:
                  max_nodes: Optional[int] = None, node_unit: int = 1,
                  host: str = "0.0.0.0"):
         self.job_name = job_name
+        # one authoritative event sequence, with its phase attribution
+        # exported into the process registry
+        self.event_journal = EventJournal()
+        self.metrics_registry = get_registry()
+        self._gauge_hook = self.event_journal.attach_gauges(
+            self.metrics_registry)
         self.job_manager = JobManager(
             job_name, node_num,
             min_nodes=node_num if min_nodes is None else min_nodes)
@@ -67,13 +86,16 @@ class JobMaster:
             manager.update_rdzv_params(min_n, max_n, node_unit=node_unit)
         self.diagnosis_master = DiagnosisMaster(self.job_manager,
                                                 self.perf_monitor)
-        self.serve_registry = ServeReplicaRegistry()
+        self.serve_registry = ServeReplicaRegistry(
+            event_journal=self.event_journal,
+            registry=self.metrics_registry)
         self.servicer = MasterServicer(
             job_manager=self.job_manager, rdzv_managers=self.rdzv_managers,
             kv_store=self.kv_store, sync_service=self.sync_service,
             task_manager=self.task_manager, perf_monitor=self.perf_monitor,
             diagnosis_master=self.diagnosis_master,
-            serve_registry=self.serve_registry)
+            serve_registry=self.serve_registry,
+            event_journal=self.event_journal)
         self._server = RPCServer(host=host, port=port)
         self._server.register_object(self.servicer)
         self._server.set_on_disconnect(
@@ -83,6 +105,14 @@ class JobMaster:
             lambda ctx: self.job_manager.record_raw_contact(
                 ctx["node_id"]) if "node_id" in ctx else None)
         self.job_manager.add_event_callback(self._on_node_event)
+        # a drill's injected faults land in the journal, so its event
+        # sequence is complete and reproducible from the seed
+        inj = get_injector()
+        if inj is not None:
+            inj.set_reporter(lambda event: self.event_journal.record(
+                JournalEvent.FAULT_INJECTED, source="chaos", **event))
+            logger.info("fault injection active on master: %s",
+                        inj.describe())
 
     def _on_node_event(self, event) -> None:
         node = event.node
@@ -92,10 +122,13 @@ class JobMaster:
         if node.type == NodeType.SERVE:
             # a replica's death is a serving event: it leaves the routable
             # set and must not restart the training world
-            self.serve_registry.deregister(node.id)
-            self.task_manager.recover_tasks(node.id)
+            if self.serve_registry.on_node_lost(node.id):
+                self.task_manager.recover_tasks(node.id)
             return
         self.task_manager.recover_tasks(node.id)
+        self.event_journal.record(
+            JournalEvent.FAULT_DETECTED, node_id=node.id, status=node.status,
+            step=self.perf_monitor.completed_global_step)
         for manager in self.rdzv_managers.values():
             manager.remove_alive_node(node.rank)
         for peer in self.job_manager.list_nodes():
@@ -126,6 +159,7 @@ class JobMaster:
                     self.port)
 
     def stop(self) -> None:
+        self.metrics_registry.remove_collect_hook(self._gauge_hook)
         self.job_manager.stop()
         self.task_manager.stop()
         self.diagnosis_master.stop()

@@ -53,6 +53,17 @@ class PerfMonitor:
             if len(self._records) > self.MAX_RECORDS:
                 self._records.pop(0)
 
+    def running_speed(self, window: int = 8) -> float:
+        """Steps a second over the recent window (the auto-scaler's
+        speed sample)."""
+        with self._lock:
+            if len(self._records) < 2:
+                return 0.0
+            recent = self._records[-window:]
+            dt = recent[-1].timestamp - recent[0].timestamp
+            ds = recent[-1].step - recent[0].step
+            return ds / dt if dt > 0 else 0.0
+
     @property
     def completed_global_step(self) -> int:
         with self._lock:

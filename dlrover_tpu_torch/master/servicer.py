@@ -8,7 +8,8 @@ agents, workers, replicas and routers call, each handler a named
   ``num_nodes_waiting``;
 - KV and barriers: ``kv``, ``barrier``;
 - liveness: ``update_node_status``, ``heartbeat`` (its reply carries the
-  node's next queued diagnosis action), ``report_failure``, ``report_event``,
+  node's next queued diagnosis action), ``report_failure``,
+  ``report_event`` (into the master's journal, arrival-stamped),
   ``report_resource_stats``, ``get_pre_check_result``, ``ping``;
 - progress: ``report_global_step``;
 - data shards: ``setup_dataset``, ``get_task``, ``report_task_result``,
@@ -48,7 +49,8 @@ class MasterServicer:
                  kv_store: Optional[KVStoreService] = None,
                  sync_service: Optional[SyncService] = None,
                  task_manager=None, perf_monitor=None,
-                 diagnosis_master=None, serve_registry=None):
+                 diagnosis_master=None, serve_registry=None,
+                 event_journal=None):
         self._job_manager = job_manager
         self._rdzv_managers = rdzv_managers
         self._kv_store = kv_store or KVStoreService()
@@ -57,6 +59,7 @@ class MasterServicer:
         self._perf_monitor = perf_monitor
         self._diagnosis_master = diagnosis_master
         self.serve_registry = serve_registry
+        self._event_journal = event_journal
         # node_id -> {"t": monotonic time of the last beat, "gauges"}
         self._beats: Dict[int, Dict] = {}
         self._start_time = time.monotonic()
@@ -97,9 +100,16 @@ class MasterServicer:
             waiting_num=manager.num_nodes_waiting())
 
     def rpc_report_event(self, req: comm.EventReport) -> comm.BaseResponse:
-        """Logged: the port's master keeps no journal (not ported)."""
-        logger.debug("event %s from node %s: %s", req.kind, req.node_id,
-                     req.data)
+        """Append an agent's or worker's event to the master's journal;
+        the master stamps the arrival time."""
+        if self._event_journal is not None and req.kind:
+            data = dict(req.data or {})
+            # "source" is the journal's stamp of the reporter: a payload
+            # key of that name must not shadow it
+            if "source" in data:
+                data["payload_source"] = data.pop("source")
+            self._event_journal.record(req.kind,
+                                       source=f"agent_{req.node_id}", **data)
         return comm.BaseResponse()
 
     # -- kv store / barrier --------------------------------------------------
@@ -283,7 +293,7 @@ class MasterServicer:
 
     def rpc_serve_deregister(self, req: comm.ServeDeregisterRequest
                              ) -> comm.BaseResponse:
-        self.serve_registry.deregister(req.node_id)
+        self.serve_registry.deregister(req.node_id, reason=req.reason)
         # a drained replica's exit is a planned leave, not a death
         self._job_manager.update_node_status(
             req.node_id, NodeStatus.DELETED, exit_reason=req.reason)

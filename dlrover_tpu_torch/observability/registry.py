@@ -6,13 +6,15 @@ values computed at scrape time) and histograms, each with labels, and
 :meth:`MetricsRegistry.render` in the Prometheus text format. The serving
 modules register the reference's ``dlrover_serving_*`` families under the
 same names and buckets, so a scrape reads a port replica as it reads a
-JAX one. Not ported: exemplars (they carry trace ids; tracing is not
-ported yet) and collect hooks.
+JAX one. A histogram's :meth:`Histogram.bucket_counts` feeds the SLO
+plane, and collect hooks (the journal's phase gauges) run before each
+render. Not ported: exemplars (they carry trace ids; tracing is not
+ported yet).
 """
 
 import math
 import threading
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from dlrover_tpu_torch.common.log import logger
 
@@ -181,6 +183,20 @@ class Histogram(_Metric):
                     return
             self._counts[-1] += 1
 
+    def bucket_counts(self) -> Dict[float, int]:
+        """Cumulative observations per upper bound; the +Inf bucket keys
+        ``math.inf`` and equals the count. The SLO plane diffs these
+        snapshots over its windows."""
+        with self._lock:
+            counts = list(self._counts)
+        out: Dict[float, int] = {}
+        cum = 0
+        for b, c in zip(self._buckets, counts[:-1]):
+            cum += c
+            out[b] = cum
+        out[math.inf] = cum + counts[-1]
+        return out
+
     def _own_samples(self, labels):
         with self._lock:
             counts, total, s = list(self._counts), self._count, self._sum
@@ -201,6 +217,7 @@ class MetricsRegistry:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._metrics: Dict[str, _Metric] = {}
+        self._hooks: List[Callable[[], None]] = []
 
     def _get_or_create(self, cls, name, help_text, labelnames, **kw):
         with self._lock:
@@ -227,10 +244,27 @@ class MetricsRegistry:
         return self._get_or_create(Histogram, name, help_text, labelnames,
                                    buckets=buckets)
 
+    def add_collect_hook(self, fn: Callable[[], None]) -> None:
+        """``fn()`` runs before every render, to refresh gauges it owns."""
+        with self._lock:
+            self._hooks.append(fn)
+
+    def remove_collect_hook(self, fn: Callable[[], None]) -> None:
+        with self._lock:
+            if fn in self._hooks:
+                self._hooks.remove(fn)
+
     def render(self) -> str:
         """The Prometheus text exposition of every family."""
         with self._lock:
+            hooks = list(self._hooks)
             metrics = sorted(self._metrics.items())
+        for fn in hooks:
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a bad hook must not break
+                logger.warning("metrics collect hook %r failed; rendering "
+                               "without its update", fn, exc_info=True)
         body = "\n".join(m.render() for _, m in metrics)
         return body + "\n" if body else ""
 

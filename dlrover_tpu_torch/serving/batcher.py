@@ -30,7 +30,7 @@ and the race-detector registration.
 
 import threading
 import time
-from typing import List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -72,8 +72,12 @@ def _bind_device(engine) -> None:
 class ContinuousBatcher:
     def __init__(self, engine, buckets: Sequence[int] = (8, 16),
                  max_new_cap: int = 64, prefill_workers: int = 1,
-                 idle_wait_s: float = 0.05, registry=None):
+                 idle_wait_s: float = 0.05, registry=None,
+                 on_step: Optional[Callable[[int], None]] = None):
         self._engine = engine
+        # on_step(steps), under the lock right after each decode step (a
+        # port addition: the replica snapshots its kernel launches there)
+        self._on_step = on_step
         self._buckets = tuple(sorted(buckets))
         if self._buckets and self._buckets[-1] > engine.cache_len:
             raise ValueError(
@@ -270,6 +274,8 @@ class ContinuousBatcher:
             finished: List[ServeRequest] = []
             with self._lock:
                 self._step_index += 1
+                if self._on_step is not None:
+                    self._on_step(self._step_index)
                 for slot, req in list(self._slot_map.items()):
                     tok = nxt[slot]
                     req.tokens.append(tok)

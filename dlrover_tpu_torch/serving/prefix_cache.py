@@ -15,23 +15,29 @@ any donor prompt sharing the first ``m`` tokens holds the same rows there.
   eviction. An entry's payload is never written after it enters the trie
   (the engine copies it on insert and slices it on reuse), so an eviction
   cannot corrupt a reader; the pin is a hit-rate property.
-- **Fallback is always the cold prefill**: a reuse that raises drops the
-  entry and recomputes the whole prompt.
+- **Fallback is always the cold prefill**: the chaos site ``serve.prefix``
+  fires on every reuse; an injected fault (or a real one) drops the
+  entry and recomputes the whole prompt, so the failure mode is lost
+  savings, never wrong tokens.
 
-Not ported yet: the chaos site ``serve.prefix``, the journal events and
-the memory-accountant ledger.
+Not ported yet: the journal events (the replica's journal) and the
+memory-accountant ledger.
 """
 
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.constants import (
+    ChaosSite,
     ConfigKey,
     env_flag,
     env_int,
 )
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.observability.registry import get_registry
+
+SERVE_PREFIX_SITE = ChaosSite.SERVE_PREFIX
 
 _DEFAULT_BYTES = 64 * 1024 * 1024
 _DEFAULT_BLOCK = 16
@@ -229,7 +235,16 @@ class PrefixCachingEngine:
         return self._engine.prefill_rows(prompt, bucket_len)
 
     def _reuse(self, prompt, bucket_len, key, payload, m):
+        inj = get_injector()
         try:
+            if inj is not None:
+                # torn/bitflip return an action (simulated corruption of
+                # the cached rows), error kinds raise: either way the entry
+                # is dropped and the request pays the full prefill
+                action = inj.fire(SERVE_PREFIX_SITE, matched=m,
+                                  prompt_len=len(prompt))
+                if action is not None:
+                    raise RuntimeError(f"injected corruption: {action}")
             result = self._engine.prefill_with_prefix(
                 prompt, bucket_len, payload, m)
         except Exception as e:  # noqa: BLE001 — any reuse failure falls

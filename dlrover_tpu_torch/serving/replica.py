@@ -1,17 +1,35 @@
-"""The SERVE node: a decode replica process.
+"""The SERVE node: a decode replica process, and its local scaler.
 
 The port's copy of ``dlrover_tpu/serving/replica.py``. A replica registers
 with a master (``serve_register``), heartbeats, and serves
 ``serve_generate`` / ``serve_drain`` / ``serve_ping`` on its own RPC
 server, in front of a :class:`ContinuousBatcher` over its engine. Method
 names and messages are the reference's, so the JAX package's master and
-router drive a port replica, and the reverse.
+router drive a port replica, and the reverse. Death needs no
+cooperation: a SIGKILL closes the heartbeat connection, the master's
+grace recheck fails the node, and the serve registry drops it while the
+router re-routes.
 
 Weights ride the fabric (``common/fabric.py``): a replica whose engine
 holds real params mounts a ``weights`` provider on its RPC server, and a
 new replica warm-starts by striping the exported params from every live
 peer at once (:func:`load_weights_from_peers`), in the JAX package's blob
 format, so a port replica warm-starts from a JAX one and the reverse.
+
+Each beat carries the replica's gauges: queue depth, active slots, the
+prefix cache's hits, the warm start's seconds and bytes, and (a port
+addition) ``serve_decode_steps`` with ``serve_decode_kernel_launches``,
+both taken together after each decode step, so a parent sees the decode
+kernel run inside subprocess replicas.
+
+The chaos site ``serve.replica`` fires in the heartbeat loop: an injected
+error crashes the replica with no drain and no deregister.
+
+:class:`LocalReplicaManager` is the local serve scaler: replicas as
+subprocesses of this host (a chaos SIGKILL is a real process death),
+``scale_to`` its verb (grow spawns, shrink drains). It is the
+``serve_scaler`` the ``JobAutoScaler`` tick executes serving plans
+through.
 
 Entry point::
 
@@ -27,25 +45,32 @@ reference's default, takes no device and says it serves no model): with
 ``--seed`` until a peer's arrive).
 
 Not ported yet: the replica's HTTP endpoint (``/metrics``, ``/events``,
-``/debug/bundle``), the journal, the flight recorder, tail attribution,
-tracing spans, the chaos site ``serve.replica`` and the local replica
-manager.
+``/debug/bundle``), its own journal, the flight recorder, tail
+attribution and tracing spans.
 """
 
 import argparse
+import collections
+import os
+import signal
+import subprocess
+import sys
 import threading
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
 from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common import comm, fabric
-from dlrover_tpu_torch.common.constants import ConfigKey, env_flag
+from dlrover_tpu_torch.common.constants import ChaosSite, ConfigKey, env_flag
+from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.common.rpc import RPCServer
+from dlrover_tpu_torch.common.rpc import RPCClient, RPCServer
 from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
 from dlrover_tpu_torch.observability.registry import get_registry
+from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.serving.batcher import BatcherClosed, ContinuousBatcher
 from dlrover_tpu_torch.serving.engine import (
     BatchDecodeEngine,
@@ -55,6 +80,8 @@ from dlrover_tpu_torch.serving.engine import (
     tiny_config,
 )
 from dlrover_tpu_torch.serving.prefix_cache import maybe_wrap_prefix_cache
+
+SERVE_REPLICA_SITE = ChaosSite.SERVE_REPLICA
 
 # fabric key a replica publishes its exported params under
 WEIGHTS_KEY = "weights/current"
@@ -117,11 +144,16 @@ class DecodeReplica:
                  buckets=(8, 16), max_new_cap: int = 64,
                  host: str = "127.0.0.1", port: int = 0,
                  heartbeat_interval_s: Optional[float] = None,
-                 request_timeout_s: float = 60.0):
+                 request_timeout_s: float = 60.0,
+                 on_crash: Optional[Callable[[], None]] = None):
         self.node_id = node_id
         self.engine = engine
+        # (decode steps, decode-kernel launches), taken together after
+        # each step
+        self._decode_counts = (0, 0)
         self._batcher = ContinuousBatcher(
-            engine, buckets=buckets, max_new_cap=max_new_cap)
+            engine, buckets=buckets, max_new_cap=max_new_cap,
+            on_step=self._on_step)
         self._server = RPCServer(host=host, port=port)
         self._server.register_object(self)
         # an engine with real params serves them to warm-starting peers
@@ -138,6 +170,7 @@ class DecodeReplica:
         self._request_timeout_s = request_timeout_s
         self._stop_evt = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
+        self._on_crash = on_crash
         self.crashed = False
         # the stats of this replica's warm start from its peers, if any
         self.warm_start: Optional[Dict] = None
@@ -149,6 +182,11 @@ class DecodeReplica:
     @property
     def batcher(self) -> ContinuousBatcher:
         return self._batcher
+
+    def _on_step(self, steps: int) -> None:
+        launches = sum(n for name, n in fa.LAUNCHES.items()
+                       if name.startswith("flash_decode"))
+        self._decode_counts = (steps, launches)
 
     def _provide_weights(self, rest: str):
         del rest  # one object per replica: weights/current
@@ -187,9 +225,12 @@ class DecodeReplica:
             self.warm_start = load_weights_from_peers(self.engine, peers)
 
     def _gauges(self) -> Dict[str, float]:
+        steps, launches = self._decode_counts
         gauges = {
             "serve_queue_depth": float(self._batcher.queue_depth()),
             "serve_active_slots": float(self._batcher.active()),
+            "serve_decode_steps": float(steps),
+            "serve_decode_kernel_launches": float(launches),
         }
         if hasattr(self.engine, "stats"):  # the prefix-caching wrapper
             st = self.engine.stats()
@@ -213,13 +254,18 @@ class DecodeReplica:
             now = time.monotonic()
             if next_beat <= now:  # overran a whole period: skip, no burst
                 next_beat = now + interval
+            inj = get_injector()
             try:
+                if inj is not None:
+                    inj.fire(SERVE_REPLICA_SITE, node_id=self.node_id)
                 resp = self._client.heartbeat(gauges=self._gauges())
                 if resp.action_type == "job_abort":
                     logger.warning("replica %s told to abort", self.node_id)
                     self._stop_evt.set()
             except (ConnectionError, OSError, RuntimeError):
-                # the master is unreachable past the beat's retry budget
+                # an injected kill (InjectedFault and InjectedError are
+                # subtypes) or the master unreachable past the beat's
+                # retry budget: an undrained, crash-like death either way
                 logger.warning("replica %s heartbeat failed; crashing",
                                self.node_id, exc_info=True)
                 self.crash()
@@ -246,6 +292,8 @@ class DecodeReplica:
         self._stop_evt.set()
         self._server.stop()
         self._batcher.stop()
+        if self._on_crash is not None:
+            self._on_crash()
 
     # -- RPC surface (the router's data plane) -----------------------------
 
@@ -290,6 +338,235 @@ class DecodeReplica:
 
     def rpc_serve_ping(self, req: comm.BaseRequest) -> comm.BaseResponse:
         return comm.BaseResponse()
+
+
+# the directory holding the package: a spawned replica imports it from here
+_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+# stderr lines kept a child, for the error when it dies before registering
+_STDERR_TAIL_LINES = 40
+
+
+def _tee_stderr(pipe, tail: collections.deque) -> None:
+    """Copy a child's stderr to ours, keeping its last lines."""
+    for raw in iter(pipe.readline, b""):
+        line = raw.decode("utf-8", "replace")
+        tail.append(line.rstrip("\n"))
+        sys.stderr.write(line)
+    pipe.close()
+
+
+class LocalReplicaManager:
+    """Subprocess serve scaler for one host: ``scale_to`` is the verb the
+    serving autoscaler executes, ``kill_one`` the chaos hammer.
+
+    Takes the reference's arguments, and for ``backend="torch"`` the
+    engine's: ``config`` (``tiny`` or ``llama``), ``device`` (default
+    ``cuda``, which raises here on a box without CUDA; the toy backend
+    takes none). ``seed`` is the seed of the replicas spawned from then
+    on. A child that exits before it registers makes :meth:`wait_live`
+    raise with its exit code and the tail of its stderr."""
+
+    def __init__(
+        self,
+        master_addr: str,
+        live_fn: Callable[[], List[Dict]],
+        backend: str = "toy",
+        slots: int = 4,
+        buckets=(8, 16),
+        max_new_cap: int = 16,
+        cache_len: int = 48,
+        heartbeat_interval_s: float = 0.2,
+        seed: int = 0,
+        step_delay_s: float = 0.0,
+        quantize: bool = False,
+        prefix_cache: bool = False,
+        config: str = "tiny",
+        device: Optional[str] = None,
+    ):
+        if backend == "toy":
+            if device is not None:
+                raise ValueError("the toy backend serves no model and "
+                                 "takes no device")
+        else:
+            device = str(resolve_device("cuda" if device is None
+                                        else device))
+        self._master_addr = master_addr
+        self._live_fn = live_fn
+        self._backend = backend
+        self._slots = slots
+        self._buckets = tuple(buckets)
+        self._max_new_cap = max_new_cap
+        self._cache_len = cache_len
+        self._hb_interval_s = heartbeat_interval_s
+        self.seed = seed
+        self._next_node_id = 100
+        # toy pacing: drill traffic lasts long enough for a mid-traffic
+        # kill to land mid-traffic
+        self._step_delay_s = step_delay_s
+        self._quantize = quantize
+        self._prefix_cache = prefix_cache
+        self._config = config
+        self._device = device
+        self._lock = threading.Lock()
+        self._procs: Dict[int, subprocess.Popen] = {}
+        self._tails: Dict[int, collections.deque] = {}
+        # node ids ever seen live, killed or drained by this manager, and
+        # children that exited before they registered: (code, tail)
+        self._ever_live: set = set()
+        self._ended: set = set()
+        self._failed_starts: Dict[int, tuple] = {}
+        self._poll_evt = threading.Event()  # pacing only, never set
+        self.target = 0
+
+    def _cmd(self, node_id: int) -> List[str]:
+        cmd = [
+            sys.executable, "-m", "dlrover_tpu_torch.serving.replica",
+            "--master", self._master_addr,
+            "--node-id", str(node_id),
+            "--backend", self._backend,
+            "--slots", str(self._slots),
+            "--buckets", ",".join(str(b) for b in self._buckets),
+            "--max-new-cap", str(self._max_new_cap),
+            "--cache-len", str(self._cache_len),
+            "--hb-interval-s", str(self._hb_interval_s),
+            "--seed", str(self.seed),
+            "--step-delay-s", str(self._step_delay_s),
+        ]
+        if self._backend != "toy":
+            cmd += ["--config", self._config, "--device", self._device]
+        if self._quantize:
+            cmd.append("--quantize")
+        if self._prefix_cache:
+            cmd.append("--prefix-cache")
+        return cmd
+
+    def _spawn_env(self) -> Dict[str, str]:
+        env = dict(os.environ)
+        path = env.get("PYTHONPATH", "")
+        env["PYTHONPATH"] = (_PACKAGE_ROOT + os.pathsep + path if path
+                             else _PACKAGE_ROOT)
+        return env
+
+    def spawn(self) -> int:
+        with self._lock:
+            node_id = self._next_node_id
+            self._next_node_id += 1
+            proc = subprocess.Popen(self._cmd(node_id),
+                                    env=self._spawn_env(),
+                                    stderr=subprocess.PIPE)
+            tail = collections.deque(maxlen=_STDERR_TAIL_LINES)
+            threading.Thread(target=_tee_stderr, args=(proc.stderr, tail),
+                             name=f"replica-{node_id}-stderr",
+                             daemon=True).start()
+            self._procs[node_id] = proc
+            self._tails[node_id] = tail
+        logger.info("spawned replica subprocess node %s", node_id)
+        return node_id
+
+    def _reap(self) -> List[int]:
+        """Drop exited children; one that never registered and that this
+        manager did not end is a failed start. Returns the live ids."""
+        live = {r["node_id"] for r in self._live_fn()}
+        with self._lock:
+            self._ever_live |= live
+            for nid, p in list(self._procs.items()):
+                if p.poll() is None:
+                    continue
+                del self._procs[nid]
+                if nid not in self._ever_live and nid not in self._ended:
+                    self._failed_starts[nid] = (
+                        p.returncode, "\n".join(self._tails.get(nid, ())))
+                    logger.error("replica %s exited with %s before it "
+                                 "registered", nid, p.returncode)
+            return list(self._procs)
+
+    def scale_to(self, n: int, reason: str = "") -> None:
+        self.target = n
+        alive = self._reap()
+        if len(alive) != n:
+            logger.info("serve scale_to %s (%s): %s alive",
+                        n, reason or "plan", len(alive))
+        for _ in range(n - len(alive)):
+            self.spawn()
+        # a shrink is a drain, newest first: it completes all in flight
+        for nid in sorted(alive, reverse=True)[:max(0, len(alive) - n)]:
+            self.drain_one(nid, reason=reason or "scale down")
+
+    def drain_one(self, node_id: int, reason: str = "scale down",
+                  timeout_s: float = 30.0) -> bool:
+        addr = next((r["addr"] for r in self._live_fn()
+                     if r["node_id"] == node_id), None)
+        with self._lock:
+            self._ended.add(node_id)
+        if addr is not None:
+            RPCClient(addr, timeout_s=timeout_s, retries=0).call(
+                "serve_drain", comm.ServeDrainRequest(reason=reason))
+        with self._lock:
+            proc = self._procs.pop(node_id, None)
+        if proc is None:
+            return True
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            logger.warning("drained replica %s did not exit; killing",
+                           node_id)
+            proc.kill()
+            proc.wait(timeout=5.0)
+        return True
+
+    def kill_one(self, node_id: Optional[int] = None) -> Optional[int]:
+        """SIGKILL a replica (the chaos scenario): its victim's node id."""
+        with self._lock:
+            victims = [nid for nid, p in self._procs.items()
+                       if p.poll() is None]
+            if not victims:
+                return None
+            victim = node_id if node_id in victims else victims[0]
+            proc = self._procs[victim]
+            self._ended.add(victim)
+        logger.warning("chaos: SIGKILL replica %s", victim)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=10.0)
+        return victim
+
+    def live_count(self) -> int:
+        return len(self._live_fn())
+
+    def wait_live(self, n: int, timeout_s: float = 60.0) -> bool:
+        """Wait until the master sees n live replicas (registering is the
+        replica's own act: the manager only owns processes). Raises when
+        a child exited before it registered."""
+        deadline = time.monotonic() + timeout_s
+        while True:
+            self._reap()
+            with self._lock:
+                failed = dict(self._failed_starts)
+            if failed:
+                nid, (code, tail) = sorted(failed.items())[0]
+                raise RuntimeError(
+                    f"replica {nid} exited with {code} before it "
+                    f"registered; its stderr ended:\n{tail}")
+            if len(self._live_fn()) >= n:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            self._poll_evt.wait(0.05)
+
+    def stop_all(self, timeout_s: float = 10.0) -> None:
+        with self._lock:
+            procs = list(self._procs.items())
+            self._procs.clear()
+            self._ended.update(nid for nid, _ in procs)
+        for _, p in procs:
+            if p.poll() is None:
+                p.terminate()
+        for _, p in procs:
+            try:
+                p.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=5.0)
 
 
 def _build_engine(args, params=None):

@@ -1,8 +1,9 @@
 """The port's standing rules.
 
 - ``dlrover_tpu_torch``, ``chip_smoke.py`` and the port's examples
-  ``examples/llama_elastic_pretrain_torch.py`` and
-  ``examples/chaos_goodput_torch.py`` import neither ``jax`` nor
+  ``examples/llama_elastic_pretrain_torch.py``,
+  ``examples/chaos_goodput_torch.py`` and
+  ``examples/serve_elastic_torch.py`` import neither ``jax`` nor
   anything of ``dlrover_tpu`` (checked on the source, and on
   ``sys.modules`` after importing every port module in a fresh
   interpreter), and the port needs neither ``msgpack`` nor ``ml_dtypes``
@@ -38,11 +39,12 @@ def _forbidden(name: str) -> bool:
 
 TWIN = REPO / "examples" / "llama_elastic_pretrain_torch.py"
 CHAOS = REPO / "examples" / "chaos_goodput_torch.py"
+SERVE = REPO / "examples" / "serve_elastic_torch.py"
 
 
 @pytest.mark.parametrize("path",
                          sorted(PKG.rglob("*.py"))
-                         + [REPO / "chip_smoke.py", TWIN, CHAOS],
+                         + [REPO / "chip_smoke.py", TWIN, CHAOS, SERVE],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_source_imports_no_jax_and_no_jax_package(path):
     tree = ast.parse(path.read_text(), filename=str(path))
@@ -90,10 +92,14 @@ def test_forbidden_prefix_spares_the_port_itself():
 
 
 def test_importing_every_port_module_leaves_jax_unloaded():
+    """Every port module, and the serving drill's script."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        f"    'serve_elastic', {str(SERVE)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dlrover_tpu'))\n"
         "print(len(sys.modules), bad)\n"
@@ -132,6 +138,11 @@ def test_default_device_raises_without_cuda():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ElasticTrainer(None, None, 8, 4)
+    from dlrover_tpu_torch.serving.replica import LocalReplicaManager
+
+    # the replica manager's torch backend defaults to the card
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LocalReplicaManager("127.0.0.1:1", live_fn=list, backend="torch")
 
 
 def test_build_raises_clearly_without_nvcc(monkeypatch, tmp_path):
