@@ -92,7 +92,12 @@ phase 7 runs after phase 3, on the same weights, phase 9 after phase 7
    acts) and restart (fault → the next incarnation's first step) seconds
    and restore, the rendezvous rounds, each incarnation's start-up
    seconds, and ``wall_s`` and ``goodput_pct`` (``compute_goodput`` over
-   the run's event files).
+   the run's event files). The agent's saver waits 10 ms at every commit
+   (``storage.commit:delay=10ms``, an agent-side fault) and its flight
+   recorder, at cooldown 0, writes a chaos bundle at each; held: those
+   bundles exist and one worker's ``ckpt.persist_request`` trace is the
+   trace of the saver's ``ckpt.persist`` in them (the context rode the
+   SAVE event over the agent's queue).
 7. ``serve`` — the serving replica behind the port's master servicer and
    router: replica A in this process (``DecodeReplica`` around phase 2's
    weights: int8 cache, 8 slots, 4096 cache slots, buckets 512/1024/2048,
@@ -114,7 +119,14 @@ phase 7 runs after phase 3, on the same weights, phase 9 after phase 7
    where the steps' top-2 gap exceeds the largest logit error; and
    speculative decoding (prompt 512, 64 new tokens, k 4) with the target
    as its own draft (acceptance at least 0.9) and with a 2-layer draft of
-   another seed, against stock ``decode.generate``.
+   another seed, against stock ``decode.generate``. The observability
+   spine, after the 32 routed requests: A's ``/metrics`` (its own
+   registry: the TTFT count equals A's completed requests, every exemplar
+   a trace in this process's ring), ``/events`` (its prefix hits) and
+   ``/debug/bundle``, and B's bundle (the reference's eight files each);
+   every request one trace of the six ``serve.*`` spans (B's from its
+   bundle), queue + prefill + first step within 0.25 s of its TTFT; and
+   a span's cost with tracing on and off.
 9. ``serve_elastic`` — the elastic serving plane
    (``dlrover_tpu_torch/serving/drill.py``): the port's master with its
    journal, router, ``JobAutoScaler`` + ``ServingOptimizer`` and
@@ -138,7 +150,14 @@ phase 7 runs after phase 3, on the same weights, phase 9 after phase 7
    drill's bursty ramp (30 rps over 4 s) with full-width prompts (64-1024
    tokens, shared-prefix fraction 0.6, 16-32 new). Held: a grow
    journaled, an SLO burn alert, no request lost, all completed, K4 one
-   launch a layer a step. Prints ``slo_lead_s`` and TTFT p99.
+   launch a layer a step. Prints ``slo_lead_s`` and TTFT p99. In both
+   drills each live replica's ``/metrics`` is scraped over HTTP (a free
+   ``--http-port`` from the manager; a timeout and retries): its decode
+   steps and K4 launches equal its last beat's. (a) also holds the
+   master's ``node_fault`` bundle of the kill (its manifest names the
+   victim, its journal the loss) and prints the replicas' order of
+   registration and the peer each warm-started from, on the journal's
+   clock (ROADMAP C12).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
@@ -165,6 +184,7 @@ TF32 is switched off for matmuls and cuDNN, so f32 reference products on
 the card are full f32.
 """
 
+import atexit
 import dataclasses
 import importlib.util
 import json
@@ -173,6 +193,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -343,7 +364,14 @@ def bound_ms(nbytes, flops):
                                         else "operations")
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's row carries the script's seconds so far
+    (``t_s``), from which the phases' times follow."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -956,6 +984,137 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
 # bucket's rows of all 32 layers, 131 KB a token (67 MB at bucket 512,
 # 268 MB at 2048), and the 64 MiB default would drop every one
 SERVE_PREFIX_BYTES = 2 << 30
+# the six spans of one routed request, router and replica side
+SERVE_WATERFALL = ("serve.route", "serve.generate", "serve.queue_wait",
+                   "serve.prefill_compute", "serve.first_step",
+                   "serve.decode")
+# queue + prefill + first step against the TTFT the batcher reports
+# (the reference's tolerance)
+SEGMENTS_TTFT_ABS_S = 0.25
+# the eight files of a replica's flight-recorder bundle
+BUNDLE_FILES = ["config.json", "incidents.json", "journal.json",
+                "manifest.json", "metrics.prom", "stacks.txt", "traces.json",
+                "worst_requests.json"]
+
+
+def _http_get(addr, path, timeout_s=30.0, attempts=3):
+    """GET ``http://addr/path``'s body, retried: a replica busy in Python
+    copies answers late."""
+    import urllib.request
+
+    for attempt in range(attempts):
+        try:
+            with urllib.request.urlopen(f"http://{addr}{path}",
+                                        timeout=timeout_s) as r:
+                return r.read().decode()
+        except OSError:
+            if attempt + 1 == attempts:
+                raise
+            time.sleep(1.0 + attempt)
+
+
+def _exemplar_ids(text, family):
+    return {ln.split('trace_id="')[1].split('"')[0]
+            for ln in text.splitlines()
+            if ln.startswith(family + "_bucket") and "trace_id" in ln}
+
+
+def _bundle_spans(bundle_path):
+    """(trace_id, name, span_id, parent_id, seconds) of every span in a
+    bundle's chrome trace."""
+    with open(os.path.join(bundle_path, "traces.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["args"]["trace_id"], e["name"], e["args"]["span_id"],
+             e["args"]["parent_id"], e["dur"] / 1e6)
+            for e in events if e.get("ph") == "X" and e.get("cat") == "span"]
+
+
+def span_cost_us(n=20000):
+    """Microseconds a ``with span(...)`` costs on this host, tracing on
+    and off (a private tracer; the process's ring is left alone)."""
+    from dlrover_tpu_torch.observability import tracing
+
+    out = {}
+    for label, on in (("on", True), ("off", False)):
+        tr = tracing.Tracer(enabled=on, ring_size=2048)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with tr.span("serve.decode", source="bench", request_id="r"):
+                pass
+        out[label] = (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def serve_observability(a, b_http_addr, resps):
+    """Phase 7's checks of the observability spine after its 32 routed
+    requests: replica A's /metrics (the TTFT count equals A's completed
+    requests; every exemplar is a trace in this process's ring),
+    /events and /debug/bundle (the reference's eight files); each
+    request one trace of the six serve.* spans (replica B's from its own
+    bundle), queue + prefill + first step within SEGMENTS_TTFT_ABS_S of
+    its TTFT. Returns the row's fields."""
+    from dlrover_tpu_torch.observability import tracing
+
+    tracer = tracing.get_tracer()
+    local = tracer.finished_spans() + tracer.live_spans()
+    ring_ids = {sp.trace_id for sp in local}
+    metrics = _http_get(a.http_addr, "/metrics")
+    count = [ln for ln in metrics.splitlines()
+             if ln.startswith("dlrover_serving_ttft_seconds_count ")]
+    ttft_count = int(float(count[0].split()[1])) if count else -1
+    exemplars = (_exemplar_ids(metrics, "dlrover_serving_ttft_seconds")
+                 | _exemplar_ids(metrics, "dlrover_serving_tpot_seconds"))
+    events = json.loads(_http_get(a.http_addr, "/events"))
+    kinds = sorted({e["kind"] for e in events["events"]})
+    a_bundle = json.loads(_http_get(a.http_addr, "/debug/bundle"))
+    b_bundle = json.loads(_http_get(b_http_addr, "/debug/bundle"))
+    spans = {}
+    for sp in local:
+        spans.setdefault(sp.trace_id, []).append(
+            (sp.name, sp.span_id, sp.parent_id,
+             (sp.end_t or time.monotonic()) - sp.start_t))
+    for tid, name, sid, pid, dur in _bundle_spans(b_bundle["path"]):
+        spans.setdefault(tid, []).append((name, sid, pid, dur))
+    incomplete, worst_gap = [], 0.0
+    for r in resps:
+        got = spans.get(r.trace_id, [])
+        names = sorted(n for n, *_ in got if n.startswith("serve."))
+        if names != sorted(SERVE_WATERFALL):
+            incomplete.append((r.request_id, r.trace_id, names))
+            continue
+        seg = sum(d for n, _, _, d in got if n in SERVE_WATERFALL[2:5])
+        worst_gap = max(worst_gap, abs(seg - r.ttft_s))
+    row = dict(
+        traces=len({r.trace_id for r in resps}), requests=len(resps),
+        traces_incomplete=incomplete,
+        segments_vs_ttft_max_abs_s=worst_gap,
+        a_ttft_count=ttft_count, a_completed=a.batcher.completed,
+        a_exemplars=len(exemplars),
+        a_exemplars_not_in_ring=sorted(exemplars - ring_ids),
+        a_journal_kinds=kinds, a_bundle_files=sorted(a_bundle["files"]),
+        b_bundle_files=sorted(b_bundle["files"]),
+        ring=tracer.counts(), span_cost_us=span_cost_us())
+    problems = []
+    if row["traces"] != len(resps) or incomplete:
+        problems.append(f"{row['traces']} traces for {len(resps)} "
+                        f"requests, incomplete {incomplete[:4]}")
+    if worst_gap > SEGMENTS_TTFT_ABS_S:
+        problems.append(f"segments off TTFT by {worst_gap:.3f} s")
+    if ttft_count != a.batcher.completed or not exemplars:
+        problems.append(f"A's TTFT count {ttft_count}, completed "
+                        f"{a.batcher.completed}, {len(exemplars)} exemplars")
+    if row["a_exemplars_not_in_ring"]:
+        problems.append("exemplars outside the ring "
+                        f"{row['a_exemplars_not_in_ring']}")
+    if a.engine.hits and "serve_prefix_hit" not in kinds:
+        problems.append(f"A's journal lacks its prefix hits: {kinds}")
+    if (row["a_bundle_files"] != BUNDLE_FILES
+            or row["b_bundle_files"] != BUNDLE_FILES):
+        problems.append(f"bundle files {row['a_bundle_files']} "
+                        f"{row['b_bundle_files']}")
+    if problems:
+        raise AssertionError("serve observability: " + "; ".join(problems))
+    return row
 
 
 def _wait_for(cond, timeout_s, what, proc=None):
@@ -996,8 +1155,9 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
     then ``decode_window`` and speculative decoding at full width.
     Returns the launch counts of the traffic and speculative runs."""
     from dlrover_tpu_torch.common import comm
-    from dlrover_tpu_torch.common.rpc import RPCClient
+    from dlrover_tpu_torch.common.rpc import RPCClient, find_free_port
     from dlrover_tpu_torch.master.servicer import start_master
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
     from dlrover_tpu_torch.serving import replica as rep
     from dlrover_tpu_torch.serving.router import RequestRouter
     from dlrover_tpu_torch.serving.speculative import SpeculativeDecoder
@@ -1016,9 +1176,12 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
              "--prefix-cache", "--hb-interval-s", "0.5"]
     args = rep.parse_args(["--master", addr, "--node-id", "1",
                            "--seed", str(SEED), *flags])
+    # A's own registry: its /metrics is A's alone, not the router's too
     a = rep.DecodeReplica(addr, 1, rep._build_engine(args, params),
                           buckets=buckets, max_new_cap=max_new_cap,
-                          heartbeat_interval_s=0.5)
+                          heartbeat_interval_s=0.5,
+                          registry=MetricsRegistry())
+    b_http_addr = f"127.0.0.1:{find_free_port('127.0.0.1')}"
     inner = a.engine._engine
     b = None
     row = dict(phase="serve", slots=slots, cache_len=cache_len, cache="int8",
@@ -1036,7 +1199,8 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
         b = subprocess.Popen(
             [sys.executable, "-m", "dlrover_tpu_torch.serving.replica",
              "--master", addr, "--node-id", "2", "--seed", str(SEED + 1),
-             *flags], cwd=REPO)
+             "--http-port", b_http_addr.rsplit(":", 1)[1], *flags],
+            cwd=REPO)
         live = servicer.serve_registry.live
         _wait_for(lambda: len(live()) == 2, start_timeout_s,
                   "serve: replica B registering", b)
@@ -1079,6 +1243,9 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
         a_profile = device_profile(
             lambda: second.extend(_serve_traffic(router, prompts, clients)),
             1, device, match="flash_decode")
+        # the spine after the 32 routed requests: scrapes, traces, bundles
+        row["observability"] = serve_observability(
+            a, b_http_addr, [r for r, _ in first + second])
         # TTFT on a prefix hit against a miss, one request at a time on A:
         # a new suffix after a resident system prompt, or after a new one
         probe = {"hit": [], "miss": []}
@@ -1373,6 +1540,33 @@ def _decode_launches(gauges, n_layers):
     return rows, bad
 
 
+def _scrape_problems(scrapes, n_layers):
+    """Replicas whose /metrics did not answer, or whose decode steps and
+    K4 launches read there differ from their beat's."""
+    if not scrapes:
+        return ["no replica scraped"]
+    out = []
+    for nid, r in scrapes.items():
+        if (r["error"] is not None or r["steps"] != r["beat_steps"]
+                or r["launches"] != r["beat_launches"]
+                or r["launches"] != n_layers * r["steps"]):
+            out.append(f"replica {nid} scraped {r}")
+    return out
+
+
+def _bundle_digest(bundle):
+    if bundle is None:
+        return None
+    manifest = bundle["manifest"]
+    return dict(path=os.path.basename(bundle["path"]),
+                node_id=manifest.get("node_id"), role=manifest.get("role"),
+                files=sorted(manifest.get("files", [])),
+                spans=manifest.get("spans_finished"),
+                journal_events=manifest.get("journal_events"),
+                victim_lost=bundle["victim_lost"],
+                incidents=bundle["incidents"])
+
+
 def serve_elastic_phase(config, device, config_flag="llama"):
     """(a) the kill drill: two ``LlamaConfig()`` replicas as subprocesses
     (same seed, int8 cache, 8 slots, cache_len 2048, buckets
@@ -1422,7 +1616,12 @@ def serve_elastic_phase(config, device, config_flag="llama"):
         ttft_p99_s=res["ttft_p99_s"],
         serving_goodput=res["serving_goodput"], journal=journal,
         probe_agrees=(survivor is not None and probe[survivor] is not None
-                      and probe[survivor] == probe.get(restored)))
+                      and probe[survivor] == probe.get(restored)),
+        # C12: the replicas' registrations and warm starts on the
+        # journal's clock (the goodput window opens at the first)
+        start_order=res["start_order"],
+        replica_scrapes=res["replica_scrapes"],
+        node_fault_bundle=_bundle_digest(res["node_fault_bundle"]))
     kill_rows, bad = _decode_launches(res["replica_gauges"],
                                       config.n_layers)
     row["replicas"] = kill_rows
@@ -1448,6 +1647,12 @@ def serve_elastic_phase(config, device, config_flag="llama"):
                         f"{res['blob_bytes']} bytes")
     if not row["probe_agrees"]:
         problems.append(f"probe tokens {probe}")
+    problems += _scrape_problems(res["replica_scrapes"], config.n_layers)
+    bundle = res["node_fault_bundle"]
+    if (bundle is None or bundle["manifest"].get("node_id") != victim
+            or not bundle["victim_lost"]):
+        problems.append("the master's node_fault bundle "
+                        f"{row['node_fault_bundle']}")
     decoded = [n for n, r in kill_rows.items() if r["steps"]]
     if restored not in decoded or survivor not in decoded:
         problems.append(f"survivor or restored replica never decoded "
@@ -1473,7 +1678,11 @@ def serve_elastic_phase(config, device, config_flag="llama"):
     burst_rows, burst_bad = _decode_launches(res["replica_gauges"],
                                              config.n_layers)
     row["replicas"] = burst_rows
+    row["replica_scrapes"] = res["replica_scrapes"]
     emit(row)
+    scrape_bad = _scrape_problems(res["replica_scrapes"], config.n_layers)
+    if scrape_bad:
+        raise AssertionError(f"serve_elastic (b): {scrape_bad}")
     if (res["grow_events"] < 1 or res["lost"] or res["slo_alerts"] < 1
             or res["completed"] != res["offered"] or burst_bad):
         raise AssertionError(
@@ -1891,6 +2100,9 @@ def resume_child(args) -> int:
 # the third wedges after step 8, outside the training span
 ELASTIC_PLAN = {0: ("kill", 3), 1: ("kill", 6), 2: ("hang", 8)}
 ELASTIC_TORN_SCHEDULE = "shm.write:torn@step=6"
+# an agent-side fault: every commit of the agent's saver waits 10 ms, and
+# the agent's flight recorder (cooldown 0) captures a chaos bundle at each
+ELASTIC_AGENT_FAULT = "storage.commit:delay=10ms"
 
 
 def elastic_child(args) -> int:
@@ -1926,6 +2138,20 @@ def elastic_child(args) -> int:
                                           **data)), flush=True)
 
     engine = []
+    from dlrover_tpu_torch.observability import tracing
+
+    traced = set()
+
+    def ckpt_traces():
+        """The persist requests this incarnation traced since the last
+        call: [step, trace_id] each."""
+        out = []
+        for sp in tracing.get_tracer().finished_spans():
+            if (sp.name == "ckpt.persist_request"
+                    and sp.span_id not in traced):
+                traced.add(sp.span_id)
+                out.append([sp.attrs.get("step"), sp.trace_id])
+        return out
 
     def on_start(start_step, ckpt, trainer):
         engine.append(ckpt.engine)
@@ -1939,7 +2165,7 @@ def elastic_child(args) -> int:
 
     def on_step(step, loss):
         emit_line("STEP", step=step, loss=float(loss),
-                  launches=_launches())
+                  launches=_launches(), ckpt_traces=ckpt_traces())
         if kind == "hang" and step + 1 == at:
             # the hang restores the wedged step's frame: the drill waits
             # out this drain so that step's save is not skipped as busy
@@ -2039,6 +2265,43 @@ def _lines(text, tag):
     return out
 
 
+def _ckpt_arc(bundle_dir, step_lines):
+    """The agent's chaos bundles (phase 8's ``storage.commit`` delay: the
+    first one's digest and their count) and the checkpoint arcs they share
+    with the workers: the persist requests the workers traced whose
+    trace_id the saver's ``ckpt.persist`` or ``ckpt.commit`` spans in a
+    bundle carry."""
+    out = {"chaos_bundle": None, "shared": []}
+    names = sorted((n for n in (os.listdir(bundle_dir)
+                                if os.path.isdir(bundle_dir) else [])
+                    if n.startswith("bundle_agent_0_chaos_fault_")),
+                   key=lambda n: int(n.split("_")[-2]))
+    if not names:
+        return out
+    with open(os.path.join(bundle_dir, names[0], "manifest.json")) as f:
+        manifest = json.load(f)
+    out["chaos_bundle"] = dict(name=names[0], bundles=len(names),
+                               fault_site=manifest.get("fault_site"),
+                               fault_kind=manifest.get("fault_kind"),
+                               files=sorted(manifest.get("files", [])),
+                               spans=manifest.get("spans_finished", 0)
+                               + manifest.get("spans_live", 0))
+    saver = {}
+    for name in names:
+        for tid, span, _, _, _ in _bundle_spans(
+                os.path.join(bundle_dir, name)):
+            if span in ("ckpt.persist", "ckpt.commit"):
+                saver.setdefault(tid, set()).add(span)
+    for r in step_lines:
+        for step, tid in r.get("ckpt_traces", []):
+            if tid in saver:
+                out["shared"].append(dict(
+                    trace_id=tid, step=step, restart=r["restart"],
+                    worker="ckpt.persist_request",
+                    saver=sorted(saver[tid])))
+    return out
+
+
 def _step_gaps(result):
     """Gaps between consecutive step reports of one run, the first from
     the run's start (model build and restore included)."""
@@ -2067,6 +2330,7 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
     job = f"el{os.getpid()}"
     ckpt_dir = os.path.join(ckpt_root, job)
     event_dir = os.path.join(ckpt_root, f"{job}_events")
+    bundle_dir = os.path.join(ckpt_root, f"{job}_bundles")
     os.makedirs(event_dir)
     args = dict(device=str(device), config=cfg, steps=steps,
                 global_batch=global_batch, seq=seq,
@@ -2080,7 +2344,10 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         "DLROVER_TPU_HANG_RESTART_WORKERS": "1",
         "DLROVER_TPU_HANG_DOWNTIME_S": str(hang_downtime_s),
         "DLROVER_TPU_DIAGNOSIS_INTERVAL_S": "1",
-        "DLROVER_FAULT_SCHEDULE": ELASTIC_TORN_SCHEDULE,
+        "DLROVER_FAULT_SCHEDULE": (ELASTIC_TORN_SCHEDULE + ";"
+                                   + ELASTIC_AGENT_FAULT),
+        "DLROVER_TPU_TRACE_DIR": bundle_dir,
+        "DLROVER_TPU_TRACE_BUNDLE_COOLDOWN_S": "0",
     })
     log_path = os.path.join(ckpt_root, f"{job}.log")
     t0 = time.time()
@@ -2117,6 +2384,8 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
     shutil.rmtree(event_dir, ignore_errors=True)
     starts = {r["restart"]: r for r in _lines(text, "START")}
     step_lines = _lines(text, "STEP")
+    arc = _ckpt_arc(bundle_dir, step_lines)
+    shutil.rmtree(bundle_dir, ignore_errors=True)
     kills = {r["killed_at_step"]: r["ts"] for r in
              (json.loads(ln) for ln in text.splitlines()
               if ln.startswith('{"killed_at_step"'))}
@@ -2192,6 +2461,11 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         if not all(c.get(k) for k in ("flash_fwd", "flash_bwd_dq",
                                       "flash_bwd_dkv")):
             problems.append(f"incarnation {r} launches {c}")
+    if (arc["chaos_bundle"] is None
+            or arc["chaos_bundle"]["fault_site"] != "storage.commit"
+            or not arc["shared"]):
+        problems.append(f"the agent's chaos bundle and checkpoint arc "
+                        f"{arc}")
     emit(dict(
         phase="elastic", config=dict(dim=config.dim,
                                      n_layers=config.n_layers,
@@ -2208,7 +2482,8 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         wall_s=wall_s, goodput_pct=100.0 * goodput["goodput"],
         goodput_wall_s=goodput["wall_s"],
         jax_modules_agent=agent_modules,
-        jax_modules_workers=[m["forbidden"] for m in modules]))
+        jax_modules_workers=[m["forbidden"] for m in modules],
+        agent_chaos_bundle=arc["chaos_bundle"], ckpt_arc=arc["shared"]))
     if problems:
         raise AssertionError("elastic: " + "; ".join(problems)
                              + "\n" + text[-6000:])
@@ -2750,6 +3025,11 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # flight-recorder bundles (this process's and its children's), removed
+    # at exit
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    atexit.register(shutil.rmtree, trace_dir, True)
+    os.environ["DLROVER_TPU_TRACE_DIR"] = trace_dir
     config = llama.LlamaConfig()
     decode_shape = (8, config.n_kv_heads, config.n_heads // config.n_kv_heads,
                     config.head_dim, 4096)

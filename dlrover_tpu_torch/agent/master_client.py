@@ -9,6 +9,10 @@ worker's (steps, KV, barrier, data shards) and a decode replica's
 the reference's, so either package's master serves either package's
 clients. The rendezvous calls retry patiently, a heartbeat gives up fast
 (a beat that cannot get through is a signal), an event is one attempt.
+The transport comes from the address (``make_rpc_client``):
+``http://host:port`` speaks HTTP, a bare ``host:port`` the binary
+framing. ``join_rendezvous`` and ``get_comm_world`` are ``rdzv.join`` and
+``rdzv.world_wait`` spans, whose context the frames carry to the master.
 """
 
 import threading
@@ -16,9 +20,15 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common import comm
-from dlrover_tpu_torch.common.constants import EnvKey, env_int, env_str
+from dlrover_tpu_torch.common.constants import (
+    EnvKey,
+    SpanName,
+    env_int,
+    env_str,
+)
+from dlrover_tpu_torch.common.http_server import make_rpc_client
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.common.rpc import RPCClient
+from dlrover_tpu_torch.observability import tracing
 
 # retry budgets: a rendezvous rides out a slow master, a heartbeat fails
 # fast, telemetry is one attempt
@@ -32,7 +42,7 @@ class MasterClient:
 
     def __init__(self, master_addr: str, node_id: int = 0,
                  node_rank: Optional[int] = None):
-        self._client = RPCClient(master_addr)
+        self._client = make_rpc_client(master_addr)
         self._node_id = node_id
         self._node_rank = node_id if node_rank is None else node_rank
 
@@ -49,21 +59,28 @@ class MasterClient:
     def join_rendezvous(self, rdzv_name: str, node_rank: int,
                         local_world_size: int, host: str = "",
                         free_port: int = 0, node_unit: int = 1) -> int:
-        resp = self._client.call(
-            "join_rendezvous",
-            comm.JoinRendezvousRequest(
-                node_id=self._node_id, node_rank=node_rank,
-                local_world_size=local_world_size, rdzv_name=rdzv_name,
-                node_unit=node_unit, host=host, free_port=free_port),
-            retries=_RDZV_RETRIES)
+        with tracing.span(SpanName.RDZV_JOIN,
+                          source=f"agent_{self._node_id}",
+                          rdzv_name=rdzv_name, node_rank=node_rank):
+            resp = self._client.call(
+                "join_rendezvous",
+                comm.JoinRendezvousRequest(
+                    node_id=self._node_id, node_rank=node_rank,
+                    local_world_size=local_world_size, rdzv_name=rdzv_name,
+                    node_unit=node_unit, host=host, free_port=free_port),
+                retries=_RDZV_RETRIES)
         return resp.round
 
     def get_comm_world(self, rdzv_name: str, node_rank: int
                        ) -> Tuple[int, int, Dict[int, comm.NodeMeta], str]:
-        resp = self._client.call(
-            "get_comm_world",
-            comm.CommWorldRequest(node_id=node_rank, rdzv_name=rdzv_name),
-            retries=_RDZV_RETRIES)
+        with tracing.span(SpanName.RDZV_WORLD_WAIT,
+                          source=f"agent_{self._node_id}",
+                          rdzv_name=rdzv_name, node_rank=node_rank):
+            resp = self._client.call(
+                "get_comm_world",
+                comm.CommWorldRequest(node_id=node_rank,
+                                      rdzv_name=rdzv_name),
+                retries=_RDZV_RETRIES)
         return resp.round, resp.group, resp.world, resp.coordinator_addr
 
     def num_nodes_waiting(self, rdzv_name: str) -> int:

@@ -26,7 +26,17 @@ the save-event queue, progress) and forwards their steps to the master.
 Its rendezvous rounds, spawns, worker failures, restarts and breakpoint
 saves are events of target ``agent_<node_rank>`` (``common/event.py``:
 the log, and JSONL under ``DLROVER_TPU_EVENT_DIR``).
-Not ported: warm spawn, the actor host, the metrics server, the diagnosis
+
+Tracing: a rendezvous round is one ``rdzv.client_round`` trace (the
+client's join and world-wait spans and the master's join and cut spans
+nest under it), and a restart the master ordered runs under
+``agent.restart_workers`` in the trace of the master's
+``fault.relaunch``, whose context the action's data carries. The agent's
+flight recorder captures a bundle on an unhandled exception and on every
+injected fault (its reporter also reports ``fault_injected`` to the
+master), and with ``DLROVER_TPU_AGENT_METRICS_PORT`` set (0: a free port;
+else the port plus the node rank) the agent serves ``GET /metrics`` and
+``/debug/bundle``. Not ported: warm spawn, the actor host, the diagnosis
 agent's stack dump and resource telemetry, fan-in, the partition-degraded
 mode, the replica and reshard services, the network check.
 """
@@ -37,6 +47,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 import uuid
 from dataclasses import dataclass
 from enum import Enum
@@ -46,6 +57,7 @@ from dlrover_tpu_torch.agent.config import ElasticLaunchConfig
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.agent.monitor import TrainingMonitor
 from dlrover_tpu_torch.common.comm import NodeMeta
+from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.config import get_context
 from dlrover_tpu_torch.common.constants import (
     ConfigKey,
@@ -53,16 +65,25 @@ from dlrover_tpu_torch.common.constants import (
     EnvKey,
     NodeStatus,
     RendezvousName,
+    SpanName,
     TrainingExceptionLevel,
     env_str,
 )
 from dlrover_tpu_torch.common.event import AgentEvent, get_emitter
+from dlrover_tpu_torch.common.http_server import HTTPTransportServer
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import (
     LocalIPCServer,
     ipc_socket_path,
 )
 from dlrover_tpu_torch.common.rpc import find_free_port
+from dlrover_tpu_torch.observability import tracing
+from dlrover_tpu_torch.observability.flight_recorder import (
+    REASON_CRASH,
+    FlightRecorder,
+)
+from dlrover_tpu_torch.observability.journal import JournalEvent
+from dlrover_tpu_torch.observability.registry import get_registry
 
 # exit codes of a node-level fault, not retried in place: SIGABRT (libtpu's
 # CHECK failures, an uncaught c10::Error) and SIGSEGV, in both encodings
@@ -175,13 +196,45 @@ class ElasticTrainingAgent:
         self._last_global_step = 0
         self._last_step_ts = 0.0
         self._events = get_emitter(f"agent_{config.node_rank}")
+        self._flight_recorder = FlightRecorder(
+            source=f"agent_{config.node_rank}", registry=get_registry())
+        self._metrics_server = self._maybe_start_metrics_server()
+
+    def _maybe_start_metrics_server(self) -> Optional[HTTPTransportServer]:
+        """``GET /metrics`` and ``/debug/bundle``, when
+        ``DLROVER_TPU_AGENT_METRICS_PORT`` is set (0: a free port; a
+        base port is offset by the node rank)."""
+        port_env = env_str(ConfigKey.AGENT_METRICS_PORT)
+        if not port_env:
+            return None
+        try:
+            base = int(port_env)
+            server = HTTPTransportServer(
+                port=base + self._config.node_rank if base else 0)
+        except (ValueError, OSError) as e:
+            logger.warning("agent metrics server disabled: %r", e)
+            return None
+        server.add_get_route("/metrics", lambda: (
+            "text/plain; version=0.0.4; charset=utf-8",
+            get_registry().render()))
+        server.add_get_route("/debug/bundle",
+                             self._flight_recorder.http_handler())
+        server.start()
+        logger.info("agent metrics on :%s/metrics", server.port)
+        return server
 
     # -- rendezvous + spawn --------------------------------------------------
 
     def _rendezvous(self) -> Tuple[str, int, int]:
         span = self._events.span(AgentEvent.RENDEZVOUS,
                                  restart_count=self._restart_count).begin()
-        rdzv_round, world, coordinator = self._rdzv_handler.next_rendezvous()
+        # the causal root of this node's round
+        with tracing.span(SpanName.RDZV_CLIENT_ROUND,
+                          source=f"agent_{self._config.node_rank}",
+                          node_rank=self._config.node_rank,
+                          restart_count=self._restart_count):
+            rdzv_round, world, coordinator = (
+                self._rdzv_handler.next_rendezvous())
         self._current_round = rdzv_round
         self._world = world
         base_rank, world_size = assign_worker_ranks(world,
@@ -382,6 +435,13 @@ class ElasticTrainingAgent:
     # -- main loop -----------------------------------------------------------
 
     def run(self) -> int:
+        inj = get_injector()
+        if inj is not None:
+            # an injected fault reaches the master's journal by the
+            # best-effort event path, and leaves a local bundle
+            inj.set_reporter(self._flight_recorder.wrap_fault_reporter(
+                lambda event: self._client.report_event(
+                    JournalEvent.FAULT_INJECTED, event)))
         self._ipc_server.start()
         if self._ckpt_saver is not None:
             self._ckpt_saver.start(self._ipc_server)
@@ -401,6 +461,11 @@ class ElasticTrainingAgent:
         try:
             self._initialize_workers()
             return self._monitor_loop()
+        except Exception:
+            # the post-mortem bundle, before the exception unwinds
+            self._flight_recorder.capture(REASON_CRASH, extra={
+                "error": traceback.format_exc(limit=20)})
+            raise
         finally:
             self._stop_flag.set()
             self._training_monitor.stop()
@@ -408,6 +473,9 @@ class ElasticTrainingAgent:
             if self._ckpt_saver is not None:
                 self._ckpt_saver.stop()
             self._ipc_server.stop()
+            if self._metrics_server is not None:
+                self._metrics_server.stop()
+            self._flight_recorder.close()
 
     def _monitor_loop(self) -> int:
         interval = self._config.monitor_interval_s
@@ -430,9 +498,17 @@ class ElasticTrainingAgent:
                 # kill them fast; a healthy group keeps the grace
                 grace = (get_context().wedged_kill_grace_s
                          if action_data.get("wedged") else None)
-                self._restart_workers(
-                    f"diagnosis action {action} "
-                    f"({action_data.get('reason', '')})", grace_s=grace)
+                # a master-made action carries the trace context of the
+                # arc that caused it (fault.relaunch): join its trace
+                carried = tracing.extract_wire(
+                    action_data.get(tracing.WIRE_KEY))
+                with tracing.activate(carried), tracing.span(
+                        SpanName.AGENT_RESTART_WORKERS,
+                        source=f"agent_{self._config.node_rank}",
+                        reason=action_data.get("reason", "")):
+                    self._restart_workers(
+                        f"diagnosis action {action} "
+                        f"({action_data.get('reason', '')})", grace_s=grace)
                 continue
             if action == DiagnosisActionType.JOB_ABORT:
                 logger.error("job abort action received")

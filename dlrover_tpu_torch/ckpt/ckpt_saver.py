@@ -9,7 +9,10 @@ workers die it makes the breakpoint save: every frame newer than what
 storage holds. It never persists a frame that fails its CRCs: a torn
 frame on disk would outlive every good copy. The free functions are the
 worker's side (find, read and write persisted steps without an agent).
-Either package's saver persists either package's frames. Disk layout per
+Either package's saver persists either package's frames. A save event
+that carries a worker's trace context (``tc``) runs under it, so the
+saver's ``ckpt.persist`` and ``ckpt.commit`` spans join the worker's
+``ckpt.persist_request`` trace across the queue. Disk layout per
 step::
 
     <ckpt_dir>/latest_step.txt                        # tracker
@@ -35,9 +38,11 @@ from dlrover_tpu_torch.common.config import get_context
 from dlrover_tpu_torch.common.constants import (
     CheckpointConstant,
     SharedResourceName,
+    SpanName,
 )
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import SharedLock
+from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.common.storage import (
     PosixDiskStorage,
     get_checkpoint_storage,
@@ -229,7 +234,10 @@ class AsyncCheckpointSaver:
         if not path:
             logger.warning("save event without a checkpoint dir — dropped")
             return
-        self.save_step_checkpoint(event["step"], path)
+        # the worker's trace context, stamped on the event by its engine
+        with tracing.activate(
+                tracing.extract_wire(event.get(tracing.WIRE_KEY))):
+            self.save_step_checkpoint(event["step"], path)
 
     def save_step_checkpoint(self, step: int, path: str) -> None:
         """Persist every local frame of ``step``, then commit. The saver
@@ -243,19 +251,27 @@ class AsyncCheckpointSaver:
                         if self._persisted_steps.get(shm.name) != step]
         if not handlers:
             return
-        persisted = self._persist_frames(handlers, path, step,
-                                         CheckpointConstant.SAVE_TIMEOUT_S)
-        if not persisted:
-            logger.warning("no shm frame matched step %s — nothing "
-                           "persisted", step)
-            return
-        # done markers only for frames that landed: a skipped frame holds
-        # the quorum open
-        self._write_done_files(path, step, persisted)
-        if self._is_commit_leader:
-            meta = persisted[0].read_meta() or {}
-            self.commit_checkpoint(
-                path, step, expected_frames=meta.get("expected_frames"))
+        with tracing.span(SpanName.CKPT_PERSIST,
+                          source=f"saver_{self._node_rank}", step=step) as sp:
+            persisted = self._persist_frames(
+                handlers, path, step, CheckpointConstant.SAVE_TIMEOUT_S)
+            sp.add_event("persisted", frames=len(persisted),
+                         handlers=len(handlers))
+            if not persisted:
+                logger.warning("no shm frame matched step %s — nothing "
+                               "persisted", step)
+                return
+            # done markers only for frames that landed: a skipped frame
+            # holds the quorum open
+            self._write_done_files(path, step, persisted)
+            if self._is_commit_leader:
+                meta = persisted[0].read_meta() or {}
+                with tracing.span(SpanName.CKPT_COMMIT,
+                                  source=f"saver_{self._node_rank}",
+                                  step=step):
+                    self.commit_checkpoint(
+                        path, step,
+                        expected_frames=meta.get("expected_frames"))
 
     def forget_persisted(self) -> None:
         """A new incarnation starts a new lineage: it may restore an older

@@ -31,8 +31,13 @@ from the IPC queue) and the two engines restore each other's states.
   target's dtype (optax starts its moments in the param dtype, the port in
   f32: the cast is exact).
 
-Not ported (ROADMAP): the replica manager, peer frames and the live
-reshard rung; the data-state sidecar; tracing spans and the journal.
+Tracing: a save is a ``ckpt.save_to_memory`` span whose context the
+drain thread carries into ``ckpt.drain``; ``save_to_storage`` is a
+``ckpt.persist_request`` span, and the SAVE event it puts on the agent's
+queue carries that context under ``tc``, so the saver's ``ckpt.persist``
+and ``ckpt.commit`` join the worker's trace; a restore is a
+``ckpt.restore`` span. Not ported (ROADMAP): the replica manager, peer
+frames and the live reshard rung; the data-state sidecar; the journal.
 """
 
 import os
@@ -64,6 +69,7 @@ from dlrover_tpu_torch.common.constants import (
     ConfigKey,
     EnvKey,
     SharedResourceName,
+    SpanName,
     env_float,
     env_int,
     env_str,
@@ -75,6 +81,7 @@ from dlrover_tpu_torch.common.multi_process import (
     SharedQueue,
 )
 from dlrover_tpu_torch.convert import map_named, named_leaves
+from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.parallel import sharding
 
 # frame dtype name → (numpy storage dtype, torch dtype); bf16 travels as its
@@ -319,6 +326,16 @@ class CheckpointEngine:
         previous snapshot still draining, the agent persisting, or any peer
         rank in either state): saves skip rather than block. The training
         pause is the planning pass; ``blocking=True`` drains inline."""
+        with tracing.span(SpanName.CKPT_SAVE_MEMORY,
+                          source=f"worker_{self.rank}", step=step,
+                          blocking=blocking) as sp:
+            ok = self._save_to_memory(step, state, blocking, _on_drained,
+                                      _wait_busy_s)
+            sp.add_event("result", saved=ok)
+            return ok
+
+    def _save_to_memory(self, step, state, blocking, _on_drained,
+                        _wait_busy_s) -> bool:
         local_ready, acquired, why = True, False, ""
         if self._drain_thread is not None and self._drain_thread.is_alive():
             if _wait_busy_s > 0:
@@ -359,9 +376,15 @@ class CheckpointEngine:
         self.last_save = {"step": step, "pause_s": time.perf_counter() - t0,
                           "bytes": nbytes}
 
+        # the drain thread continues the save's arc
+        drain_parent = tracing.current_context()
+
         def _drain():
             try:
-                self._drain_frame(step, meta, buffers, _on_drained)
+                with tracing.activate(drain_parent), tracing.span(
+                        SpanName.CKPT_DRAIN, source=f"worker_{self.rank}",
+                        step=step):
+                    self._drain_frame(step, meta, buffers, _on_drained)
             except Exception:  # noqa: BLE001 — a lost snapshot must be LOUD
                 self._drain_ok = False
                 logger.error("checkpoint drain for step %s failed — "
@@ -503,18 +526,26 @@ class CheckpointEngine:
         its link. A busy drain is waited out (bounded), not skipped."""
         path = path or self.ckpt_dir
         alone = self._host_group() is None or len(self.saving_ranks) == 1
+        with tracing.span(SpanName.CKPT_PERSIST_REQUEST,
+                          source=f"worker_{self.rank}", step=step):
+            # the request crosses the agent's SharedQueue: the context
+            # rides the event, so the saver's spans join this trace
+            carry = tracing.inject_wire()
 
-        def _request_persist():
-            if self._event_queue is not None:
-                self._event_queue.put(CheckpointEvent.save(step, path))
-            else:
-                persist_shm_frame(self._shm, path, step, commit=alone)
+            def _request_persist():
+                if self._event_queue is not None:
+                    event = CheckpointEvent.save(step, path)
+                    if carry is not None:
+                        event[tracing.WIRE_KEY] = carry
+                    self._event_queue.put(event)
+                else:
+                    persist_shm_frame(self._shm, path, step, commit=alone)
 
-        t0 = time.perf_counter()
-        ok = self.save_to_memory(
-            step, state, blocking=not self._has_agent,
-            _on_drained=_request_persist,
-            _wait_busy_s=env_float(ConfigKey.CKPT_STORAGE_WAIT, 60.0))
+            t0 = time.perf_counter()
+            ok = self.save_to_memory(
+                step, state, blocking=not self._has_agent,
+                _on_drained=_request_persist,
+                _wait_busy_s=env_float(ConfigKey.CKPT_STORAGE_WAIT, 60.0))
         if ok and not self._has_agent and not alone:
             dist.barrier(group=self._host_group())
             if self.rank == 0:
@@ -553,6 +584,14 @@ class CheckpointEngine:
         DTensors, tensors and plain values), in place: from shm when every
         rank can, else from storage. Returns ``(state, step)``; step is -1
         when nothing was restored. Every rank must call it."""
+        with tracing.span(SpanName.CKPT_RESTORE,
+                          source=f"worker_{self.rank}") as sp:
+            state, step = self._load(target, path)
+            sp.attrs.update(step=step,
+                            medium=self.last_restore.get("medium"))
+            return state, step
+
+    def _load(self, target, path: str) -> Tuple[Any, int]:
         self.wait_drained()
         t0 = time.perf_counter()
         got = self._load_from_shm(target)

@@ -141,12 +141,85 @@ class ChaosSite:
     DATA_DISPATCH = "data.dispatch"
 
 
+class SpanName:
+    """Span and span-event names of ``observability/tracing.py``: the
+    reference's, so a JAX peer's spans and a port peer's join one arc."""
+
+    # the rendezvous arc (agent/master_client.py and agent/training.py on
+    # the client, master/rdzv_manager.py on the master)
+    RDZV_CLIENT_ROUND = "rdzv.client_round"
+    RDZV_JOIN = "rdzv.join"
+    RDZV_WORLD_WAIT = "rdzv.world_wait"
+    RDZV_WORLD_CUT = "rdzv.world_cut"
+    # the Flash Checkpoint arc (ckpt/engine.py in the worker,
+    # ckpt/ckpt_saver.py in the agent)
+    CKPT_SAVE_MEMORY = "ckpt.save_to_memory"
+    CKPT_DRAIN = "ckpt.drain"
+    CKPT_PERSIST_REQUEST = "ckpt.persist_request"
+    CKPT_PERSIST = "ckpt.persist"
+    CKPT_COMMIT = "ckpt.commit"
+    CKPT_RESTORE = "ckpt.restore"
+    # one striped multi-source transfer session, client side
+    FABRIC_FETCH = "fabric.fetch"
+    # an applied training scale plan (master/auto_scaler.py)
+    SCALE_APPLY = "scale.apply"
+    SCALE_RDZV_PARAMS = "scale.update_rdzv_params"
+    # the serving plane: routing one request, the replica's handling of
+    # it, a planned drain and an applied serve plan
+    SERVE_ROUTE = "serve.route"
+    SERVE_GENERATE = "serve.generate"
+    SERVE_DRAIN = "serve.drain"
+    SERVE_SCALE = "serve.scale"
+    # a request's waterfall (serving/batcher.py): queue-wait →
+    # prefill-compute → first-step, then one decode segment; spec_verify
+    # brackets one speculative verify (serving/speculative.py)
+    SERVE_QUEUE_WAIT = "serve.queue_wait"
+    SERVE_PREFILL_COMPUTE = "serve.prefill_compute"
+    SERVE_FIRST_STEP = "serve.first_step"
+    SERVE_DECODE = "serve.decode"
+    SERVE_SPEC_VERIFY = "serve.spec_verify"
+    # the detect → relaunch arc (master/master.py → agent/training.py)
+    FAULT_RELAUNCH = "fault.relaunch"
+    AGENT_RESTART_WORKERS = "agent.restart_workers"
+    # span events: the retry plane, the chaos plane, serving re-routes
+    EVT_RPC_RETRY = "rpc.retry"
+    EVT_BREAKER_OPEN = "rpc.breaker_open"
+    EVT_FAULT_INJECTED = "chaos.fault_injected"
+    EVT_SERVE_REROUTED = "serve.rerouted"
+
+
 class MetricLabel:
     """Label values of the port's metric families."""
 
+    # the dominant causes serving/tail.py gives a slow request
+    TAIL_QUEUE = "queue"
+    TAIL_PREFILL = "prefill"
+    TAIL_BATCH_INTERFERENCE = "batch_interference"
+    TAIL_SPECULATIVE_MISS = "speculative_miss"
+    TAIL_PREFIX_MISS = "prefix_miss"
+    TAIL_REROUTE = "reroute"
+    TAIL_CAUSES = (
+        TAIL_QUEUE, TAIL_PREFILL, TAIL_BATCH_INTERFERENCE,
+        TAIL_SPECULATIVE_MISS, TAIL_PREFIX_MISS, TAIL_REROUTE,
+    )
     # SLO burn windows (observability/slo.py)
     WINDOW_FAST = "fast"
     WINDOW_SLOW = "slow"
+    # the restore rung that won an incident (observability/incidents.py),
+    # as the restore's journaled medium, or unknown
+    RUNG_RESHARD = "reshard"
+    RUNG_SHM = "shm"
+    RUNG_CHAIN = "chain"
+    RUNG_REPLICA = "replica"
+    RUNG_STORAGE = "storage"
+    RUNG_UNKNOWN = "unknown"
+    RESTORE_RUNGS = (
+        RUNG_RESHARD, RUNG_SHM, RUNG_CHAIN, RUNG_REPLICA, RUNG_STORAGE,
+        RUNG_UNKNOWN,
+    )
+    # the checkpoint-commit trigger the incident stitcher's counterfactual
+    # scores (a brain's pre-emptive save)
+    CKPT_TRIGGER_PREEMPTIVE = "preemptive"
 
 
 class EnvKey:
@@ -231,6 +304,22 @@ class ConfigKey:
     # the fault-injection plane (chaos/injector.py)
     FAULT_SCHEDULE = "DLROVER_FAULT_SCHEDULE"
     FAULT_SEED = "DLROVER_FAULT_SEED"
+    # the master's HTTP transport and scrape routes (unset: off; 0: a free
+    # port), and the agent's /metrics + /debug/bundle server
+    HTTP_PORT = "DLROVER_TPU_HTTP_PORT"
+    AGENT_METRICS_PORT = "DLROVER_TPU_AGENT_METRICS_PORT"
+    # tracing and the flight recorder (observability/tracing.py,
+    # observability/flight_recorder.py)
+    TRACE = "DLROVER_TPU_TRACE"
+    TRACE_RING = "DLROVER_TPU_TRACE_RING"
+    TRACE_DIR = "DLROVER_TPU_TRACE_DIR"
+    TRACE_BUNDLE_COOLDOWN_S = "DLROVER_TPU_TRACE_BUNDLE_COOLDOWN_S"
+    # tail attribution (serving/tail.py): the slow percentile, the
+    # completions before attribution starts, and the worst requests a
+    # replica's bundle carries
+    SERVE_TAIL_PCTL = "DLROVER_TPU_SERVE_TAIL_PCTL"
+    SERVE_TAIL_MIN_WINDOW = "DLROVER_TPU_SERVE_TAIL_MIN_WINDOW"
+    SERVE_TRACE_WORST = "DLROVER_TPU_SERVE_TRACE_WORST"
 
 
 class CheckpointConstant:

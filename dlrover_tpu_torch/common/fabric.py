@@ -24,8 +24,17 @@ Chaos sites: ``fabric.connect`` fires before each source's describe (an
 injected fault makes the source unreachable for this session) and
 ``fabric.stripe`` before each stripe fetch (an error fails the source;
 ``torn``/``bitflip`` corrupt the received stripe, which its CRC must
-catch). Not ported yet: tracing and journal events, metrics,
-topology-ranked sources and per-source key aliases.
+catch).
+
+A session is one ``fabric.fetch`` span (with ``described`` and
+``complete`` events); ``fetch``'s ``reporter(kind, data)`` takes its
+journal events (``fabric_source_failed``, ``fabric_stripe_retried``,
+``fabric_session_complete`` / ``_aborted``), and the process registry
+counts ``dlrover_fabric_bytes_total{source}``,
+``dlrover_fabric_stripe_retries_total``,
+``dlrover_fabric_sessions_total{outcome}`` and
+``dlrover_fabric_session_seconds``, the reference's families. Not ported
+yet: topology-ranked sources and per-source key aliases.
 """
 
 import random
@@ -37,9 +46,17 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from dlrover_tpu_torch.chaos import InjectedError, get_injector
 from dlrover_tpu_torch.common import comm
-from dlrover_tpu_torch.common.constants import ChaosSite, ConfigKey, env_int
+from dlrover_tpu_torch.common.constants import (
+    ChaosSite,
+    ConfigKey,
+    SpanName,
+    env_int,
+)
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.rpc import RPCClient, RPCError, RPCServer
+from dlrover_tpu_torch.observability import tracing
+from dlrover_tpu_torch.observability.journal import JournalEvent
+from dlrover_tpu_torch.observability.registry import get_registry
 
 FABRIC_CONNECT_SITE = ChaosSite.FABRIC_CONNECT
 FABRIC_STRIPE_SITE = ChaosSite.FABRIC_STRIPE
@@ -194,8 +211,9 @@ class _FetchSession:
 
     def __init__(self, key: str, step: int, total: int, crc: int,
                  sources: List[FabricSource],
-                 stripes: List[Tuple[int, int]]):
+                 stripes: List[Tuple[int, int]], reporter=None):
         self.key = key
+        self.reporter = reporter
         self.step = step
         self.total = total
         self.crc = crc
@@ -247,9 +265,18 @@ class _FetchSession:
             self._cond.notify_all()
             left = len(self._missing)
         if newly_failed:
+            _report(self.reporter, JournalEvent.FABRIC_SOURCE_FAILED, {
+                "key": self.key, "addr": src.addr, "detail": detail,
+                "survivors": survivors,
+                "stripes_missing": left,
+            })
             logger.warning(
                 "fabric: source %s failed (%s); %d stripe(s) re-queued "
                 "onto %d survivor(s)", src.addr, detail, left, survivors)
+        _report(self.reporter, JournalEvent.FABRIC_STRIPE_RETRIED, {
+            "key": self.key, "stripe": idx, "addr": src.addr,
+            "detail": detail,
+        })
 
     def _commit(self, src: FabricSource, idx: int, data) -> None:
         off, n = self.stripes[idx]
@@ -363,15 +390,72 @@ class _FetchSession:
             }
 
 
+def _report(reporter, kind: str, data: Dict[str, Any]) -> None:
+    if reporter is None:
+        return
+    try:
+        reporter(kind, data)
+    except Exception:  # noqa: BLE001 — telemetry must not fail a transfer
+        logger.debug("fabric journal %r failed", kind, exc_info=True)
+
+
+def _count_session(outcome: str) -> None:
+    get_registry().counter(
+        "dlrover_fabric_sessions_total",
+        "Fabric transfer sessions by outcome",
+        labelnames=("outcome",)).labels(outcome=outcome).inc()
+
+
+def _record_metrics(stats: Dict[str, Any], outcome: str) -> None:
+    reg = get_registry()
+    by_source = reg.counter(
+        "dlrover_fabric_bytes_total",
+        "Bytes transferred through the fabric, by source address",
+        labelnames=("source",))
+    for addr, n in stats.get("bytes_by_source", {}).items():
+        by_source.labels(source=addr).inc(n)
+    reg.counter(
+        "dlrover_fabric_stripe_retries_total",
+        "Stripes re-queued after a source failure or CRC reject",
+    ).inc(stats.get("stripe_retries", 0))
+    _count_session(outcome)
+    reg.histogram(
+        "dlrover_fabric_session_seconds",
+        "Wall-clock duration of fabric transfer sessions",
+    ).observe(stats.get("duration_s", 0.0))
+
+
 def fetch(sources: Sequence[FabricSource], key: str, *,
           expect_step: int = -1, stripe_bytes: Optional[int] = None,
-          conns_per_source: Optional[int] = None,
-          timeout_s: float = 60.0) -> Tuple[int, bytearray, Dict[str, Any]]:
+          conns_per_source: Optional[int] = None, timeout_s: float = 60.0,
+          reporter: Optional[Callable[[str, Dict[str, Any]], None]] = None
+          ) -> Tuple[int, bytearray, Dict[str, Any]]:
     """Describe, stripe, fan out, fail over: ``(step, payload, stats)``.
     The payload is the session's own assembly buffer (a ``bytearray``; a
     multi-gigabyte object is not copied again). ``expect_step`` pins the
-    step (-1: the newest the sources agree on). Raises
-    :class:`FabricAbort` when the session cannot complete."""
+    step (-1: the newest the sources agree on); ``reporter(kind, data)``
+    takes the session's journal events. Raises :class:`FabricAbort` when
+    the session cannot complete."""
+    ranked = sorted({s.addr: s for s in sources}.values(),
+                    key=lambda s: s.addr)
+    with tracing.span(SpanName.FABRIC_FETCH, key=key, step=expect_step,
+                      candidates=len(ranked)) as sp:
+        return _fetch(ranked, key, expect_step, stripe_bytes,
+                      conns_per_source, timeout_s, reporter, sp)
+
+
+def _abort_session(reporter, key: str, reason: str, detail: str,
+                   t0: float) -> None:
+    _count_session(reason)
+    _report(reporter, JournalEvent.FABRIC_SESSION_ABORTED, {
+        "key": key, "reason": reason, "detail": detail,
+        "duration_s": time.monotonic() - t0,
+    })
+    raise FabricAbort(reason, detail)
+
+
+def _fetch(ranked, key, expect_step, stripe_bytes, conns_per_source,
+           timeout_s, reporter, sp):
     stripe_bytes = (
         stripe_bytes if stripe_bytes and stripe_bytes > 0
         else env_int(ConfigKey.FABRIC_STRIPE_BYTES, DEFAULT_STRIPE_BYTES))
@@ -379,8 +463,6 @@ def fetch(sources: Sequence[FabricSource], key: str, *,
         conns_per_source if conns_per_source and conns_per_source > 0
         else env_int(ConfigKey.FABRIC_CONNS, DEFAULT_CONNS))
     t0 = time.monotonic()
-    ranked = sorted({s.addr: s for s in sources}.values(),
-                    key=lambda s: s.addr)
     clients: Dict[str, RPCClient] = {}
     candidates = []
     inj = get_injector()
@@ -402,8 +484,8 @@ def fetch(sources: Sequence[FabricSource], key: str, *,
             clients[src.addr] = client
             candidates.append((src, resp))
     if not candidates:
-        raise FabricAbort("no_sources",
-                          f"0 of {len(ranked)} sources serve {key!r}")
+        _abort_session(reporter, key, "no_sources",
+                       f"0 of {len(ranked)} sources serve {key!r}", t0)
     # the largest (step, total, crc) group at the newest step
     groups: Dict[Tuple[int, int, int], List[FabricSource]] = {}
     for src, resp in candidates:
@@ -412,8 +494,11 @@ def fetch(sources: Sequence[FabricSource], key: str, *,
     best_step = max(step for step, _, _ in groups)
     step, total, crc = max((g for g in groups if g[0] == best_step),
                            key=lambda g: len(groups[g]))
-    session = _FetchSession(key, step, total, crc, groups[(step, total, crc)],
-                            plan_stripes(total, stripe_bytes))
+    chosen = groups[(step, total, crc)]
+    sp.add_event("described", step=step, bytes=total, sources=len(chosen))
+    session = _FetchSession(key, step, total, crc, chosen,
+                            plan_stripes(total, stripe_bytes),
+                            reporter=reporter)
     abort, detail = (session.run(clients, conns, timeout_s)
                      if session.stripes else (None, ""))
     stats = session.stats()
@@ -421,5 +506,18 @@ def fetch(sources: Sequence[FabricSource], key: str, *,
     stats["duration_s"] = duration
     stats["rate_mbps"] = total / (1024 * 1024) / duration if duration else 0.0
     if abort is not None:
+        stats["reason"] = abort
+        _record_metrics(stats, outcome=abort)
+        _report(reporter, JournalEvent.FABRIC_SESSION_ABORTED, {
+            "key": key, "reason": abort, "detail": detail,
+            **{k: stats[k] for k in
+               ("stripes", "stripe_retries", "sources_failed")}})
         raise FabricAbort(abort, detail)
+    _record_metrics(stats, outcome="complete")
+    _report(reporter, JournalEvent.FABRIC_SESSION_COMPLETE, {
+        "key": key, **{k: stats[k] for k in
+                       ("step", "bytes", "stripes", "stripe_fetches",
+                        "stripe_retries", "sources", "duration_s")}})
+    sp.add_event("complete", **{k: stats[k] for k in
+                                ("bytes", "stripes", "stripe_retries")})
     return step, session.buf, stats

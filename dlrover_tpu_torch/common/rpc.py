@@ -14,6 +14,12 @@ into :func:`connection_ctx`; when that connection closes (the peer's
 process died), the server's ``on_disconnect`` hook receives the stamp,
 which is how the master notices a killed agent within the connection-drop
 grace instead of the heartbeat timeout.
+
+When a trace context is active (``observability/tracing.py``) a request
+frame also carries ``{"tc": {"t": trace_id, "s": span_id}}``, and the
+server activates it around the handler, so the handler's spans join the
+caller's trace; a JAX peer sends and reads the same key. An RPC error
+names the method and the caller's ``trace_id``.
 """
 
 import socket
@@ -28,6 +34,7 @@ from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.constants import ChaosSite
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.multi_process import recv_msg, send_msg
+from dlrover_tpu_torch.observability import tracing
 
 
 class RPCError(RuntimeError):
@@ -109,7 +116,11 @@ class _Handler(socketserver.BaseRequestHandler):
         if handler is None:
             return {"ok": False, "err": f"unknown rpc method {method!r}"}
         try:
-            result = handler(comm.deserialize(frame.get("p", b"")))
+            request = comm.deserialize(frame.get("p", b""))
+            # the caller's trace context, if it sent one, for the handler
+            with tracing.activate(
+                    tracing.extract_wire(frame.get(tracing.WIRE_KEY))):
+                result = handler(request)
             return {"ok": True, "p": comm.serialize(result)}
         except Exception as e:  # noqa: BLE001 — reported to the caller
             logger.exception("rpc handler %s failed", method)
@@ -212,6 +223,9 @@ class RPCClient:
             seq = self._seq
         frame = {"m": method, "p": comm.serialize(request), "id": seq,
                  "c": self._client_id}
+        trace_ctx = tracing.inject_wire()
+        if trace_ctx is not None:
+            frame[tracing.WIRE_KEY] = trace_ctx
         attempts = max(1, self._retries if retries is None else retries)
         inj = get_injector()
         for attempt in range(attempts):
@@ -230,9 +244,15 @@ class RPCClient:
                     raise
                 time.sleep(min(0.1 * 1.6 ** attempt, 5.0))
         if not resp.get("ok"):
-            raise RPCError(f"rpc {method} to {self.addr} failed: "
+            raise RPCError(f"rpc {method} to {self.addr} failed "
+                           f"(trace_id={_trace_id()}): "
                            f"{resp.get('err', 'unknown rpc error')}")
         return comm.deserialize(resp.get("p", b""))
+
+
+def _trace_id() -> str:
+    ctx = tracing.current_context()
+    return ctx.trace_id if ctx is not None else "-"
 
 
 def find_free_port(host: str = "") -> int:

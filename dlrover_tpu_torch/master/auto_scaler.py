@@ -16,16 +16,19 @@ the training world):
   and refreshes every rendezvous manager's min/max so the next
   re-rendezvous cuts a world of the new size.
 
-Decisions are the reference's for the same inputs. Not ported: the brain
-advisor, the strategy generator (the parallel-config path), the k8s
-scaler call and tracing spans; their arguments raise if given.
+Decisions are the reference's for the same inputs. A new serving plan is
+a ``serve.scale`` span and an applied training plan a ``scale.apply``
+span, with one ``scale.update_rdzv_params`` child per rendezvous
+manager. Not ported: the brain advisor, the strategy generator (the
+parallel-config path) and the k8s scaler call; their arguments raise if
+given.
 """
 
 import threading
 import time
 from typing import Dict, Optional
 
-from dlrover_tpu_torch.common.constants import NodeStatus
+from dlrover_tpu_torch.common.constants import NodeStatus, SpanName
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.master.resource import (
     LocalOptimizer,
@@ -33,6 +36,7 @@ from dlrover_tpu_torch.master.resource import (
     ResourcePlan,
     ScalingStats,
 )
+from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.observability.journal import JournalEvent
 
 
@@ -147,15 +151,22 @@ class JobAutoScaler:
             return
         repeat = (plan.replica_num, plan.reason) == self._last_serve_plan
         self._last_serve_plan = (plan.replica_num, plan.reason)
-        if not repeat:
-            logger.info("serve auto-scale → %s replicas (%s)",
-                        plan.replica_num, plan.reason)
+        if repeat:
+            if self._serve_scaler is not None:
+                self._serve_scaler.scale_to(plan.replica_num,
+                                            reason=plan.reason)
+            return
+        logger.info("serve auto-scale → %s replicas (%s)",
+                    plan.replica_num, plan.reason)
+        with tracing.span(SpanName.SERVE_SCALE, source="master",
+                          target=plan.replica_num, reason=plan.reason):
             if self._event_journal is not None:
                 self._event_journal.record(
                     JournalEvent.SERVE_SCALE, target=plan.replica_num,
                     reason=plan.reason)
-        if self._serve_scaler is not None:
-            self._serve_scaler.scale_to(plan.replica_num, reason=plan.reason)
+            if self._serve_scaler is not None:
+                self._serve_scaler.scale_to(plan.replica_num,
+                                            reason=plan.reason)
 
     def tick(self) -> Optional[ResourcePlan]:
         self.serve_tick()
@@ -175,8 +186,13 @@ class JobAutoScaler:
             return
         logger.info("auto-scale %s → %s nodes (%s)", self.target_nodes,
                     target, plan.reason)
-        self.target_nodes = target
-        for manager in self._rdzv_managers.values():
-            manager.update_rdzv_params(min_nodes=min(self.min_nodes, target),
-                                       max_nodes=target,
-                                       node_unit=self.node_unit)
+        with tracing.span(SpanName.SCALE_APPLY, source="master",
+                          target=target, prev=self.target_nodes,
+                          reason=str(plan.reason)):
+            self.target_nodes = target
+            for manager in self._rdzv_managers.values():
+                with tracing.span(SpanName.SCALE_RDZV_PARAMS,
+                                  source="master", target=target):
+                    manager.update_rdzv_params(
+                        min_nodes=min(self.min_nodes, target),
+                        max_nodes=target, node_unit=self.node_unit)

@@ -14,9 +14,11 @@ The port's copy of ``RendezvousManager`` and
 - the cut world carries the process-group bootstrap address: comm rank
   0's host and the free port it reported.
 
-A join fires the ``rdzv.join`` chaos site. Not ported: the network-check
-rendezvous, the straggler-history cut, the reshard announcement, the
-journal and the metrics.
+A join fires the ``rdzv.join`` chaos site and is an ``rdzv.join`` span,
+and a cut an ``rdzv.world_cut`` span; the servicer activated the caller's
+trace context, so both land inside the agent's rendezvous round. Not
+ported: the network-check rendezvous, the straggler-history cut, the
+reshard announcement, the journal and the metrics.
 """
 
 import time
@@ -26,8 +28,13 @@ from typing import Dict, List, Tuple
 from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.comm import NodeMeta
 from dlrover_tpu_torch.common.config import get_context
-from dlrover_tpu_torch.common.constants import ChaosSite, RendezvousName
+from dlrover_tpu_torch.common.constants import (
+    ChaosSite,
+    RendezvousName,
+    SpanName,
+)
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability import tracing
 
 
 class RendezvousParameters:
@@ -106,7 +113,9 @@ class RendezvousManager:
         if inj is not None:
             inj.fire(ChaosSite.RDZV_JOIN, rdzv=self._name,
                      node_rank=meta.node_rank)
-        with self._lock:
+        with tracing.span(SpanName.RDZV_JOIN, source="master",
+                          rdzv_name=self._name,
+                          node_rank=meta.node_rank), self._lock:
             if not self._waiting_nodes:
                 self._start_rdzv_ts = time.monotonic()
             # a dead node re-joining is alive again
@@ -146,12 +155,17 @@ class RendezvousManager:
         world_size = (min(waiting, params.max_nodes) // unit) * unit
         if world_size < max(params.min_nodes, unit):
             return False
-        ranks = sorted(self._waiting_nodes)[:world_size]
-        self._rdzv_nodes = {r: self._waiting_nodes[r] for r in ranks}
-        stamp_comm_ranks(self._rdzv_nodes)
-        self._latest_rdzv_nodes = ranks
-        for r in ranks:
-            del self._waiting_nodes[r]
+        # the cut runs on whichever poll tipped the round: its trace
+        # context ties the world commit to that agent's arc
+        with tracing.span(SpanName.RDZV_WORLD_CUT, source="master",
+                          rdzv_name=self._name,
+                          round=self._rdzv_round + 1):
+            ranks = sorted(self._waiting_nodes)[:world_size]
+            self._rdzv_nodes = {r: self._waiting_nodes[r] for r in ranks}
+            stamp_comm_ranks(self._rdzv_nodes)
+            self._latest_rdzv_nodes = ranks
+            for r in ranks:
+                del self._waiting_nodes[r]
         self._rdzv_round += 1
         self._lastcall_time = 0.0
         self._start_rdzv_ts = 0.0

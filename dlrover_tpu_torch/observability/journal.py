@@ -18,9 +18,13 @@ What the journal cannot see: the time between a fault and its detection
 is attributed to the phase the job was in when the fault hit, because no
 event exists until the detection.
 
-Trimmed to the event kinds the port records or that move the state
-machine. Not ported: the HTTP ``/events`` endpoint and the flight
-recorder (with the rest of observability).
+The journal is served as JSON by ``GET /events`` on the master's and a
+replica's HTTP server (``common/http_server.py``), and rides every
+flight-recorder bundle (``journal.json``), whose ``incidents.json`` and
+chrome-trace tracks (``observability/incidents.py``,
+``observability/timeline.py``) are built from it. Trimmed to the kinds
+the port records or reads: every kind outside ``_TRANSITIONS`` is
+informational and moves no phase.
 """
 
 import json
@@ -65,6 +69,39 @@ class JournalEvent:
     # the serving SLO plane: a multi-window burn-rate breach, data
     # {slo, tier, window, rate, slow_rate}; informational
     SLO_BURN_ALERT = "slo_burn_alert"
+    # informational, recorded by the port: a flight-recorder bundle was
+    # written; a reused prefix and a reuse dropped to the cold prefill
+    # (serving/prefix_cache.py); a slow request's attributed cause
+    # (serving/tail.py); a fabric source failed, a stripe re-queued, and
+    # a transfer session's outcome (common/fabric.py)
+    TRACE_BUNDLE_CAPTURED = "trace_bundle_captured"
+    SERVE_PREFIX_HIT = "serve_prefix_hit"
+    SERVE_PREFIX_DROPPED = "serve_prefix_dropped"
+    REQUEST_TAIL_ATTRIBUTED = "request_tail_attributed"
+    FABRIC_SOURCE_FAILED = "fabric_source_failed"
+    FABRIC_STRIPE_RETRIED = "fabric_stripe_retried"
+    FABRIC_SESSION_COMPLETE = "fabric_session_complete"
+    FABRIC_SESSION_ABORTED = "fabric_session_aborted"
+    # informational kinds of the reference's planes the port has not
+    # ported, read by the incident stitcher and the timeline's tracks
+    # when a JAX peer's journal carries them
+    CKPT_COMMITTED = "ckpt_committed"
+    CKPT_CHAIN_TRUNCATED = "ckpt_chain_truncated"
+    RESHARD_PLANNED = "reshard_planned"
+    RESHARD_REPLAN_DEGRADED = "reshard_replan_degraded"
+    STRAGGLER_DETECTED = "straggler_detected"
+    HANG_ATTRIBUTED = "hang_attributed"
+    BRAIN_PREDICTED_FAILURE = "brain_predicted_failure"
+    BRAIN_PREDICTED_RAMP = "brain_predicted_ramp"
+    BRAIN_PREDICTED_STRAGGLER = "brain_predicted_straggler"
+    BRAIN_PREDICTION_SCORED = "brain_prediction_scored"
+    BRAIN_ACTION = "brain_action"
+    BRAIN_DEGRADED = "brain_degraded"
+    BRAIN_RECOVERED = "brain_recovered"
+    BRAIN_PRESCALE_REFUSED = "brain_prescale_refused"
+    MEMORY_PRESSURE = "memory_pressure"
+    MEMORY_DEGRADED = "memory_degraded"
+    RECOMPILE_STORM = "recompile_storm"
 
     ALL = (
         FAULT_DETECTED, RDZV_START, RDZV_COMPLETE, RESTORE_START,
@@ -73,6 +110,15 @@ class JournalEvent:
         RESHARD_COMPLETE, RESHARD_ABORTED,
         SERVE_REPLICA_UP, SERVE_REPLICA_LOST, SERVE_REPLICA_DRAINED,
         SERVE_REQUEST_FAILED, SERVE_REROUTED, SERVE_SCALE, SLO_BURN_ALERT,
+        TRACE_BUNDLE_CAPTURED, SERVE_PREFIX_HIT, SERVE_PREFIX_DROPPED,
+        REQUEST_TAIL_ATTRIBUTED, FABRIC_SOURCE_FAILED, FABRIC_STRIPE_RETRIED,
+        FABRIC_SESSION_COMPLETE, FABRIC_SESSION_ABORTED, CKPT_COMMITTED,
+        CKPT_CHAIN_TRUNCATED, RESHARD_PLANNED, RESHARD_REPLAN_DEGRADED,
+        STRAGGLER_DETECTED, HANG_ATTRIBUTED, BRAIN_PREDICTED_FAILURE,
+        BRAIN_PREDICTED_RAMP, BRAIN_PREDICTED_STRAGGLER,
+        BRAIN_PREDICTION_SCORED, BRAIN_ACTION, BRAIN_DEGRADED,
+        BRAIN_RECOVERED, BRAIN_PRESCALE_REFUSED, MEMORY_PRESSURE,
+        MEMORY_DEGRADED, RECOMPILE_STORM,
     )
 
 
@@ -128,6 +174,10 @@ class EventJournal:
         # get one overflow note, so an overflow cannot flood the ring
         self._overflow_note_gap_s = overflow_note_gap_s
         self._last_drop_t: Optional[float] = None
+
+    @property
+    def start_wall_ts(self) -> float:
+        return self._wall0
 
     def now(self) -> float:
         """Job-relative monotonic seconds (since the journal was made)."""

@@ -8,8 +8,11 @@ modules register the reference's ``dlrover_serving_*`` families under the
 same names and buckets, so a scrape reads a port replica as it reads a
 JAX one. A histogram's :meth:`Histogram.bucket_counts` feeds the SLO
 plane, and collect hooks (the journal's phase gauges) run before each
-render. Not ported: exemplars (they carry trace ids; tracing is not
-ported yet).
+render. A histogram keeps, per bucket, the exemplar of the last
+observation that carried one (``observe(value, exemplar=trace_id)``),
+rendered in the OpenMetrics form the reference renders
+(``... # {trace_id="..."} value``), so a slow bucket links to a request's
+trace.
 """
 
 import math
@@ -96,9 +99,14 @@ class _Metric:
         for values, child in children:
             samples += child._own_samples(tuple(zip(self.labelnames,
                                                     values)))
-        lines += [f"{self.name}{suffix}{_render_labels(labels)} "
-                  f"{_format_value(value)}"
-                  for suffix, labels, value in samples]
+        for suffix, labels, value, *exemplar in samples:
+            line = (f"{self.name}{suffix}{_render_labels(labels)} "
+                    f"{_format_value(value)}")
+            if exemplar and exemplar[0] is not None:
+                ex_id, ex_val = exemplar[0]
+                line += (f' # {{trace_id="{_escape_label(ex_id)}"}} '
+                         f"{_format_value(ex_val)}")
+            lines.append(line)
         return "\n".join(lines)
 
 
@@ -169,19 +177,38 @@ class Histogram(_Metric):
         self._counts = [0] * (len(self._buckets) + 1)  # + the +Inf bucket
         self._sum = 0.0
         self._count = 0
+        # bucket index → (trace_id, value) of its last exemplar
+        self._exemplars: Dict[int, Tuple[str, float]] = {}
 
     def _child(self) -> "Histogram":
         return Histogram(self.name, self.help, buckets=self._buckets)
 
-    def observe(self, value: float) -> None:
+    def observe(self, value: float, exemplar: Optional[str] = None) -> None:
         with self._lock:
             self._sum += value
             self._count += 1
             for i, b in enumerate(self._buckets):
                 if value <= b:
                     self._counts[i] += 1
+                    if exemplar:
+                        self._exemplars[i] = (str(exemplar), value)
                     return
             self._counts[-1] += 1
+            if exemplar:
+                self._exemplars[len(self._buckets)] = (str(exemplar), value)
+
+    def exemplars(self) -> Dict[float, Tuple[str, float]]:
+        """{bucket upper bound → (trace_id, observed value)} of the
+        buckets holding one; the +Inf bucket keys ``math.inf``."""
+        with self._lock:
+            snap = dict(self._exemplars)
+        bounds = list(self._buckets) + [math.inf]
+        return {bounds[i]: ex for i, ex in snap.items()}
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
 
     def bucket_counts(self) -> Dict[float, int]:
         """Cumulative observations per upper bound; the +Inf bucket keys
@@ -200,12 +227,14 @@ class Histogram(_Metric):
     def _own_samples(self, labels):
         with self._lock:
             counts, total, s = list(self._counts), self._count, self._sum
+            exemplars = dict(self._exemplars)
         out, cum = [], 0
-        for b, c in zip(self._buckets, counts):
+        for i, (b, c) in enumerate(zip(self._buckets, counts)):
             cum += c
             out.append(("_bucket", labels + (("le", _format_value(b)),),
-                        float(cum)))
-        out.append(("_bucket", labels + (("le", "+Inf"),), float(total)))
+                        float(cum), exemplars.get(i)))
+        out.append(("_bucket", labels + (("le", "+Inf"),), float(total),
+                    exemplars.get(len(self._buckets))))
         out.append(("_sum", labels, s))
         out.append(("_count", labels, float(total)))
         return out

@@ -23,9 +23,18 @@ On the card, every thread binds the engine's device and runs on the
 legacy default stream, so a prefill and a decode step of two threads run
 one after the other on the device, never at once.
 
-Not ported yet: tracing spans, the journal, the tail-attribution hook
-(with the per-request segments and reroute and prefix-hit marks it reads)
-and the race-detector registration.
+Each request is one trace: ``serve.queue_wait`` opens at ``submit`` under
+the caller's context (the replica's ``serve.generate``, itself under the
+router's ``serve.route``), then ``serve.prefill_compute``,
+``serve.first_step`` and ``serve.decode``; the segments of
+:meth:`ServeRequest.segments` are stamped at the same boundaries, and
+queue + prefill + first step is the TTFT. The engine reads the first
+token back to the host inside its prefill (and every step's tokens
+inside its step), so on the card the prefill segment closes after the
+device work it timed, not after its launch. Spans are per request, never
+per step. A completion goes to ``on_complete`` (the replica's tail
+attributor) and the TTFT and TPOT observations carry the trace id as
+their exemplar. Not ported: the race-detector registration.
 """
 
 import threading
@@ -34,7 +43,9 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from dlrover_tpu_torch.common.constants import SpanName
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.observability.registry import get_registry
 
 
@@ -47,11 +58,13 @@ class ServeRequest:
     ``done``, then read ``tokens`` / ``error``."""
 
     def __init__(self, request_id: str, prompt: Sequence[int],
-                 max_new_tokens: int, bucket_len: int):
+                 max_new_tokens: int, bucket_len: int,
+                 rerouted: bool = False):
         self.request_id = request_id
         self.prompt = list(prompt)
         self.max_new_tokens = max_new_tokens
         self.bucket_len = bucket_len
+        self.rerouted = rerouted
         self.enqueue_t = time.monotonic()
         self.prefill = None
         self.slot = -1
@@ -60,6 +73,43 @@ class ServeRequest:
         self.t_done = 0.0
         self.error = ""
         self.done = threading.Event()
+        # the waterfall: segment stamps, and the segment spans, made
+        # un-entered (they end on other threads) and ended at each edge
+        self.trace_ctx = None
+        self.t_dequeue = 0.0
+        self.t_prefill_done = 0.0
+        self.prefix_enabled = False
+        self.prefix_hit = False
+        self.peer_rounds = 0
+        self.peer_sum = 0
+        self.span_queue = None
+        self.span_prefill = None
+        self.span_first = None
+        self.span_decode = None
+
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self.trace_ctx.trace_id if self.trace_ctx else None
+
+    def segments(self) -> dict:
+        """The TTFT/TPOT decomposition the tail attributor classifies,
+        with the interference, re-route and prefix context."""
+        rounds = max(0, len(self.tokens) - 1)
+        return {
+            "request_id": self.request_id,
+            "trace_id": self.trace_id,
+            "latency_s": max(0.0, self.t_done - self.enqueue_t),
+            "queue_s": max(0.0, self.t_dequeue - self.enqueue_t),
+            "prefill_s": max(0.0, self.t_prefill_done - self.t_dequeue),
+            "first_step_s": max(0.0, self.t_first - self.t_prefill_done),
+            "decode_s": max(0.0, self.t_done - self.t_first),
+            "rounds": rounds,
+            "mean_peers": (self.peer_sum / self.peer_rounds
+                           if self.peer_rounds else 1.0),
+            "prefix_enabled": self.prefix_enabled,
+            "prefix_hit": self.prefix_hit,
+            "rerouted": self.rerouted,
+        }
 
 
 def _bind_device(engine) -> None:
@@ -71,10 +121,19 @@ def _bind_device(engine) -> None:
 
 class ContinuousBatcher:
     def __init__(self, engine, buckets: Sequence[int] = (8, 16),
-                 max_new_cap: int = 64, prefill_workers: int = 1,
-                 idle_wait_s: float = 0.05, registry=None,
+                 max_new_cap: int = 64,
+                 journal_fn: Optional[Callable] = None,
+                 prefill_workers: int = 1, idle_wait_s: float = 0.05,
+                 registry=None, on_complete: Optional[Callable] = None,
+                 source: str = "batcher",
                  on_step: Optional[Callable[[int], None]] = None):
         self._engine = engine
+        if journal_fn is not None and hasattr(engine, "attach_journal"):
+            # the prefix cache journals into the request events' stream
+            engine.attach_journal(journal_fn)
+        # on_complete(req.segments()) after every successful completion
+        self._on_complete = on_complete
+        self._source = source
         # on_step(steps), under the lock right after each decode step (a
         # port addition: the replica snapshots its kernel launches there)
         self._on_step = on_step
@@ -152,14 +211,23 @@ class ContinuousBatcher:
             f"{self._buckets[-1]}")
 
     def submit(self, request_id: str, prompt: Sequence[int],
-               max_new_tokens: int) -> ServeRequest:
+               max_new_tokens: int, rerouted: bool = False) -> ServeRequest:
         bucket = self.bucket_for(len(prompt))
         # the cache holds the bucket and the continuation
         max_new = min(max_new_tokens, self._max_new_cap,
                       self._engine.cache_len - bucket)
-        req = ServeRequest(request_id, prompt, max(1, max_new), bucket)
+        req = ServeRequest(request_id, prompt, max(1, max_new), bucket,
+                           rerouted=rerouted)
+        # queue-wait opens now, under the submitter's context
+        req.span_queue = tracing.span(
+            SpanName.SERVE_QUEUE_WAIT, source=self._source,
+            request_id=request_id)
+        # the waterfall's root: the caller's span, else the queue span
+        req.trace_ctx = (tracing.current_context()
+                         or getattr(req.span_queue, "context", None))
         with self._lock:
             if self._draining or self._stopped.is_set():
+                req.span_queue.end(status="refused")
                 raise BatcherClosed("replica is draining")
             self._queue.append(req)
             self._cond.notify_all()
@@ -202,6 +270,10 @@ class ContinuousBatcher:
             self._slot_map.clear()
         for req in leftovers:
             req.error = req.error or "replica stopped"
+            for sp in (req.span_queue, req.span_prefill, req.span_first,
+                       req.span_decode):
+                if sp is not None:
+                    sp.end(status="aborted")
             req.done.set()
 
     # -- prefill workers ---------------------------------------------------
@@ -215,17 +287,36 @@ class ContinuousBatcher:
                 if self._stopped.is_set():
                     return
                 req = self._queue.pop(0)
+            req.t_dequeue = time.monotonic()
+            req.span_queue.end()
+            req.span_prefill = tracing.span(
+                SpanName.SERVE_PREFILL_COMPUTE, source=self._source,
+                parent=req.trace_ctx, request_id=req.request_id)
+            # the prefix cache's hit counter moving across this call means
+            # this prompt reused a prefix (exact with one prefill worker)
+            hits0 = getattr(self._engine, "hits", None)
+            req.prefix_enabled = hits0 is not None
             try:
                 prefill = self._engine.prefill_rows(req.prompt,
                                                     req.bucket_len)
             except Exception:  # noqa: BLE001 — fail this request, not the
                 # worker that serves every later one
                 logger.exception("prefill failed for %s", req.request_id)
+                req.span_prefill.end(status="error")
                 req.error = "prefill failed"
                 self.failed += 1
                 self._m_requests.labels(status="error").inc()
                 req.done.set()
                 continue
+            if hits0 is not None:
+                req.prefix_hit = self._engine.hits > hits0
+                req.span_prefill.attrs["prefix_hit"] = req.prefix_hit
+            req.t_prefill_done = time.monotonic()
+            req.span_prefill.end()
+            # first-step: the wait for a slot, the insert, the first token
+            req.span_first = tracing.span(
+                SpanName.SERVE_FIRST_STEP, source=self._source,
+                parent=req.trace_ctx, request_id=req.request_id)
             with self._lock:
                 req.prefill = prefill
                 self._ready.append(req)
@@ -258,7 +349,13 @@ class ContinuousBatcher:
                     req.t_first = time.monotonic()
                     req.tokens.append(first)
                     self._last_token[req.slot] = first
-                self._m_ttft.observe(req.t_first - req.enqueue_t)
+                if req.span_first is not None:
+                    req.span_first.end()
+                req.span_decode = tracing.span(
+                    SpanName.SERVE_DECODE, source=self._source,
+                    parent=req.trace_ctx, request_id=req.request_id)
+                self._m_ttft.observe(req.t_first - req.enqueue_t,
+                                     exemplar=req.trace_id)
                 self._m_tokens.inc()
             with self._lock:
                 active = [s in self._slot_map
@@ -276,10 +373,14 @@ class ContinuousBatcher:
                 self._step_index += 1
                 if self._on_step is not None:
                     self._on_step(self._step_index)
+                co_active = len(self._slot_map)
                 for slot, req in list(self._slot_map.items()):
                     tok = nxt[slot]
                     req.tokens.append(tok)
                     self._last_token[slot] = tok
+                    # how crowded this request's decode rounds were
+                    req.peer_rounds += 1
+                    req.peer_sum += co_active
                     if len(req.tokens) >= req.max_new_tokens:
                         del self._slot_map[slot]
                         self._free.append(slot)
@@ -296,5 +397,19 @@ class ContinuousBatcher:
                 self._m_requests.labels(status="ok").inc()
                 if len(req.tokens) > 1:
                     self._m_tpot.observe(
-                        (req.t_done - req.t_first) / (len(req.tokens) - 1))
+                        (req.t_done - req.t_first) / (len(req.tokens) - 1),
+                        exemplar=req.trace_id)
+                if req.span_decode is not None:
+                    req.span_decode.attrs.update(
+                        rounds=len(req.tokens) - 1,
+                        mean_peers=round(req.peer_sum
+                                         / max(1, req.peer_rounds), 2))
+                    req.span_decode.end()
+                if self._on_complete is not None:
+                    try:
+                        self._on_complete(req.segments())
+                    except Exception:  # noqa: BLE001 — attribution is
+                        # telemetry: it must never wedge the decode loop
+                        logger.warning("on_complete hook failed for %s",
+                                       req.request_id, exc_info=True)
                 req.done.set()

@@ -29,12 +29,25 @@ its beats) beside the survivor's ``blob_bytes``; ``probe_tokens``, one
 fixed prompt's greedy tokens on every live replica after the restore;
 ``replica_gauges``, every replica's last beat (the victim's included);
 and ``false_deaths``, replicas other than the victim the master
-declared lost. ``run_traffic_drill``'s result adds ``replica_gauges``.
+declared lost; ``start_order``, each replica's registration and the peer
+its warm start took the most bytes from, with both times on the
+journal's clock (the goodput window opens at the first registration, so
+the order moves serving goodput: ROADMAP C12); and
+``node_fault_bundle``, the master's flight-recorder bundle of the kill
+(its manifest, whether its journal holds the victim's loss, and its
+incidents, which the reference's stitcher opens only for training
+faults). Both drills' results add ``replica_gauges``, ``replica_scrapes``
+(each live replica's decode steps and kernel launches read over HTTP
+from its ``/metrics``, beside its last beat's) and ``journal_dump`` (the
+master's journal as ``EventJournal.to_json()`` gives it).
 """
 
 import contextlib
+import json
+import os
 import threading
 import time
+import urllib.request
 from typing import Dict, List, Optional, Sequence
 
 from dlrover_tpu_torch.chaos import configure, get_injector, reset_injector
@@ -255,6 +268,8 @@ def run_traffic_drill(
                            if alert_ts and grow_ts else None),
             "journal": kinds,
             "replica_gauges": _replica_gauges(master),
+            "replica_scrapes": _scrape_replicas(master, manager),
+            "journal_dump": json.loads(journal.to_json()),
         })
         return stats
 
@@ -458,6 +473,10 @@ def run_serving_drill(
                 ) if ttfts else 0.0,
                 "serving_goodput": round(phases[Phase.SERVING] / window, 4),
                 "journal": kinds,
+                "start_order": _start_order(master),
+                "node_fault_bundle": _node_fault_bundle(master, victim),
+                "replica_scrapes": _scrape_replicas(master, manager),
+                "journal_dump": json.loads(journal.to_json()),
             })
             return result
         finally:
@@ -526,3 +545,104 @@ def _replica_gauges(master) -> Dict[int, Dict]:
     return {nid: dict((master.servicer.last_beat(nid) or {})
                       .get("gauges", {}))
             for nid in sorted(seen)}
+
+
+# a scrape waits this long for a replica's answer, and tries this often:
+# a replica exporting its weights holds the GIL in long copies
+SCRAPE_TIMEOUT_S = 10.0
+SCRAPE_ATTEMPTS = 3
+
+
+def _scrape_gauge(text: str, name: str) -> Optional[float]:
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    return None
+
+
+def _scrape_replicas(master, manager) -> Dict[int, Dict]:
+    """Each live replica's decode steps and kernel launches, read from its
+    ``/metrics`` over HTTP (the port its beat names, else the one the
+    manager picked), with the same two numbers from its last beat."""
+    out: Dict[int, Dict] = {}
+    ports = getattr(manager, "http_ports", {})
+    for r in master.serve_registry.live():
+        nid = r["node_id"]
+        beat = (master.servicer.last_beat(nid) or {}).get("gauges", {})
+        port = int(beat.get("serve_http_port", 0)) or ports.get(nid)
+        row: Dict = {"port": port or None, "error": None,
+                     "beat_steps": beat.get("serve_decode_steps"),
+                     "beat_launches": beat.get("serve_decode_kernel_launches")}
+        if not port:
+            row["error"] = "no http port"
+            out[nid] = row
+            continue
+        host = r["addr"].rsplit(":", 1)[0]
+        for attempt in range(SCRAPE_ATTEMPTS):
+            try:
+                with urllib.request.urlopen(
+                        f"http://{host}:{port}/metrics",
+                        timeout=SCRAPE_TIMEOUT_S) as resp:
+                    text = resp.read().decode()
+                row["steps"] = _scrape_gauge(
+                    text, "dlrover_serving_decode_steps")
+                row["launches"] = _scrape_gauge(
+                    text, "dlrover_serving_decode_kernel_launches")
+                row["error"] = None
+                break
+            except OSError as e:
+                row["error"] = repr(e)
+                time.sleep(0.5 * (attempt + 1))
+        out[nid] = row
+    return out
+
+
+def _start_order(master) -> List[Dict]:
+    """Replicas in their order of registration: each one's registration
+    and warm-start end (the master's clock), the warm start's seconds
+    and the node it took the most bytes from."""
+    events = master.event_journal.events()
+    ups = [e for e in events if e["kind"] == JournalEvent.SERVE_REPLICA_UP]
+    fetched = {e["source"]: e for e in events
+               if e["kind"] == JournalEvent.FABRIC_SESSION_COMPLETE}
+    order = []
+    for e in ups:
+        nid = e["data"]["node_id"]
+        beat = (master.servicer.last_beat(nid) or {}).get("gauges", {})
+        warm = fetched.get(f"agent_{nid}")
+        src = beat.get("serve_weight_load_from")
+        order.append({
+            "node_id": nid, "registered_t": e["t"],
+            "warm_start_from": int(src) if src is not None else None,
+            "warm_start_end_t": warm["t"] if warm else None,
+            "warm_start_s": (warm["data"].get("duration_s")
+                             if warm else None)})
+    return order
+
+
+def _node_fault_bundle(master, victim) -> Optional[Dict]:
+    """The master's node_fault bundle of the victim: its manifest, whether
+    its journal holds the victim's loss, and its incidents."""
+    for path in master.flight_recorder.bundles:
+        if "node_fault" not in os.path.basename(path):
+            continue
+        try:
+            with open(os.path.join(path, "manifest.json")) as f:
+                manifest = json.load(f)
+            if manifest.get("node_id") != victim:
+                continue
+            with open(os.path.join(path, "journal.json")) as f:
+                journal = json.load(f)
+            with open(os.path.join(path, "incidents.json")) as f:
+                incidents = json.load(f)
+        except (OSError, ValueError):
+            continue
+        return {
+            "path": path, "manifest": manifest,
+            "victim_lost": any(
+                e["kind"] == JournalEvent.SERVE_REPLICA_LOST
+                and e["data"].get("node_id") == victim
+                for e in journal.get("events", [])),
+            "incidents": incidents["incidents"],
+        }
+    return None

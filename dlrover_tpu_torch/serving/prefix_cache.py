@@ -20,12 +20,14 @@ any donor prompt sharing the first ``m`` tokens holds the same rows there.
   entry and recomputes the whole prompt, so the failure mode is lost
   savings, never wrong tokens.
 
-Not ported yet: the journal events (the replica's journal) and the
+A reuse is journaled as ``serve_prefix_hit`` (with the tokens it saved)
+and a dropped one as ``serve_prefix_dropped``, into the journal the
+batcher attaches (the replica's own). Not ported yet: the
 memory-accountant ledger.
 """
 
 import threading
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.constants import (
@@ -35,6 +37,7 @@ from dlrover_tpu_torch.common.constants import (
     env_int,
 )
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability.journal import JournalEvent
 from dlrover_tpu_torch.observability.registry import get_registry
 
 SERVE_PREFIX_SITE = ChaosSite.SERVE_PREFIX
@@ -179,10 +182,11 @@ class PrefixCachingEngine:
     the radix cache; the batcher, router and replica take it unchanged."""
 
     def __init__(self, engine, cache: Optional[RadixPrefixCache] = None,
-                 registry=None):
+                 journal_fn: Optional[Callable] = None, registry=None):
         self._engine = engine
         # an empty cache is falsy (it has __len__): test against None
         self.cache = cache if cache is not None else RadixPrefixCache()
+        self._journal_fn = journal_fn
         self.hits = 0
         self.misses = 0
         self.dropped = 0
@@ -210,6 +214,14 @@ class PrefixCachingEngine:
     def __getattr__(self, name):
         # slots / cache_len / insert / step / set_params / params / device
         return getattr(self._engine, name)
+
+    def attach_journal(self, journal_fn: Callable) -> None:
+        """Journal hits and drops through ``journal_fn(kind, **data)``."""
+        self._journal_fn = journal_fn
+
+    def _record(self, kind: str, **data) -> None:
+        if self._journal_fn is not None:
+            self._journal_fn(kind, **data)
 
     def prefill_rows(self, prompt: Sequence[int], bucket_len: int):
         m, key, payload = self.cache.lookup(prompt)
@@ -252,12 +264,16 @@ class PrefixCachingEngine:
             self.cache.invalidate(key)
             self.dropped += 1
             self._m_dropped.inc()
+            self._record(JournalEvent.SERVE_PREFIX_DROPPED,
+                         matched=m, prompt_len=len(prompt), error=repr(e))
             logger.warning("prefix reuse dropped (m=%s): %r", m, e)
             return None
         self.hits += 1
         self.tokens_saved += m
         self._m_hits.inc()
         self._m_saved.inc(m)
+        self._record(JournalEvent.SERVE_PREFIX_HIT, matched=m,
+                     prompt_len=len(prompt), saved_tokens=m)
         return result
 
     def stats(self) -> Dict[str, float]:

@@ -17,10 +17,27 @@ peer at once (:func:`load_weights_from_peers`), in the JAX package's blob
 format, so a port replica warm-starts from a JAX one and the reverse.
 
 Each beat carries the replica's gauges: queue depth, active slots, the
-prefix cache's hits, the warm start's seconds and bytes, and (a port
-addition) ``serve_decode_steps`` with ``serve_decode_kernel_launches``,
+prefix cache's hits, the warm start's seconds and bytes, and (port
+additions) ``serve_decode_steps`` with ``serve_decode_kernel_launches``,
 both taken together after each decode step, so a parent sees the decode
-kernel run inside subprocess replicas.
+kernel run inside subprocess replicas, the node the warm start took the
+most bytes from (``serve_weight_load_from``) and the replica's HTTP port
+(``serve_http_port``).
+
+Each replica has its own observability plane, as the reference's does:
+an :class:`EventJournal` (request, prefix-cache and fabric events), a
+:class:`TailAttributor` fed by every completion, a
+:class:`FlightRecorder` whose bundles carry the worst requests'
+waterfalls, and an :class:`HTTPTransportServer` (``--http-port``, 0: a
+free port) serving ``GET /metrics``, ``/events`` and ``/debug/bundle``.
+``/metrics`` also reads the decode steps and kernel launches of the beat
+(``dlrover_serving_decode_steps``, ``dlrover_serving_decode_kernel_launches``;
+port additions). ``serve_generate`` runs under a ``serve.generate`` span
+(joining the router's ``serve.route`` through the frame's ``tc``) and
+answers with the request's ``trace_id``; a drain is a ``serve.drain``
+span. The warm start's fabric session journals into the replica's
+journal and is reported to the master's (``fabric_session_complete`` on
+the master's clock).
 
 The chaos site ``serve.replica`` fires in the heartbeat loop: an injected
 error crashes the replica with no drain and no deregister.
@@ -43,10 +60,6 @@ reference's default, takes no device and says it serves no model): with
 ``--config tiny`` the small f32 model of ``build_tiny_engine``, with
 ``--config llama`` ``LlamaConfig()`` in bf16 (random weights from
 ``--seed`` until a peer's arrive).
-
-Not ported yet: the replica's HTTP endpoint (``/metrics``, ``/events``,
-``/debug/bundle``), its own journal, the flight recorder, tail
-attribution and tracing spans.
 """
 
 import argparse
@@ -64,11 +77,20 @@ import torch
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common import comm, fabric
-from dlrover_tpu_torch.common.constants import ChaosSite, ConfigKey, env_flag
+from dlrover_tpu_torch.common.constants import (
+    ChaosSite,
+    ConfigKey,
+    SpanName,
+    env_flag,
+)
 from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.http_server import HTTPTransportServer
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.common.rpc import RPCClient, RPCServer
+from dlrover_tpu_torch.common.rpc import RPCClient, RPCServer, find_free_port
 from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
+from dlrover_tpu_torch.observability import tracing
+from dlrover_tpu_torch.observability.flight_recorder import FlightRecorder
+from dlrover_tpu_torch.observability.journal import EventJournal
 from dlrover_tpu_torch.observability.registry import get_registry
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.serving.batcher import BatcherClosed, ContinuousBatcher
@@ -80,6 +102,7 @@ from dlrover_tpu_torch.serving.engine import (
     tiny_config,
 )
 from dlrover_tpu_torch.serving.prefix_cache import maybe_wrap_prefix_cache
+from dlrover_tpu_torch.serving.tail import TailAttributor
 
 SERVE_REPLICA_SITE = ChaosSite.SERVE_REPLICA
 
@@ -100,21 +123,23 @@ def _same_shapes(a, b) -> bool:
     return tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype
 
 
-def load_weights_from_peers(engine, peer_addrs,
+def load_weights_from_peers(engine, peer_addrs, reporter=None,
                             timeout_s: float = WARM_START_TIMEOUT_S
                             ) -> Optional[Dict]:
     """Warm-start ``engine`` from live peers: one striped fabric session
-    over every peer serving :data:`WEIGHTS_KEY`. Returns the session's
-    stats (``bytes``, ``seconds``, ``sources``), or None with the engine
-    untouched when no peer serves weights, the session aborts or the
-    peer's params do not fit the engine: growth never fails on this."""
+    over every peer serving :data:`WEIGHTS_KEY` (``reporter(kind, data)``
+    takes its journal events). Returns the session's stats (``bytes``,
+    ``seconds``, ``sources``, and ``by_source``: the bytes each peer
+    address served), or None with the engine untouched when no peer
+    serves weights, the session aborts or the peer's params do not fit
+    the engine: growth never fails on this."""
     if not hasattr(engine, "set_params") or not peer_addrs:
         return None
     t0 = time.monotonic()
     try:
         _step, blob, stats = fabric.fetch(
             [fabric.FabricSource(addr=a) for a in peer_addrs], WEIGHTS_KEY,
-            timeout_s=timeout_s)
+            timeout_s=timeout_s, reporter=reporter)
     except fabric.FabricAbort as e:
         logger.info("peer weight load aborted (%s); keeping seed weights",
                     e.reason)
@@ -136,7 +161,8 @@ def load_weights_from_peers(engine, peer_addrs,
     logger.info("warm-started weights from %s peer(s): %s bytes in %.3fs",
                 stats["sources"], stats["bytes"], duration)
     return {"bytes": stats["bytes"], "seconds": duration,
-            "sources": stats["sources"]}
+            "sources": stats["sources"],
+            "by_source": dict(stats["bytes_by_source"])}
 
 
 class DecodeReplica:
@@ -145,15 +171,57 @@ class DecodeReplica:
                  host: str = "127.0.0.1", port: int = 0,
                  heartbeat_interval_s: Optional[float] = None,
                  request_timeout_s: float = 60.0,
-                 on_crash: Optional[Callable[[], None]] = None):
+                 on_crash: Optional[Callable[[], None]] = None,
+                 http_port: int = 0, registry=None):
         self.node_id = node_id
         self.engine = engine
+        source = f"replica_{node_id}"
         # (decode steps, decode-kernel launches), taken together after
         # each step
         self._decode_counts = (0, 0)
+        # the replica's own observability plane; ``registry`` (default:
+        # the process's) is what /metrics renders
+        self.registry = registry if registry is not None else get_registry()
+        self.journal = EventJournal()
+
+        def journal_fn(kind, **data):
+            self.journal.record(kind, source=source, **data)
+
+        self.tail = TailAttributor(journal_fn=journal_fn,
+                                   registry=self.registry)
         self._batcher = ContinuousBatcher(
             engine, buckets=buckets, max_new_cap=max_new_cap,
+            journal_fn=journal_fn, registry=self.registry,
+            on_complete=self.tail.observe, source=source,
             on_step=self._on_step)
+        self.registry.gauge(
+            "dlrover_serving_decode_steps",
+            "decode steps this replica ran (its beat's serve_decode_steps)",
+        ).set_function(lambda: self._decode_counts[0])
+        self.registry.gauge(
+            "dlrover_serving_decode_kernel_launches",
+            "decode-kernel launches of those steps (its beat's "
+            "serve_decode_kernel_launches)",
+        ).set_function(lambda: self._decode_counts[1])
+        self.recorder = FlightRecorder(
+            source=source, journal=self.journal, registry=self.registry,
+            worst_traces_fn=self.tail.worst_requests)
+        try:
+            self._http_server = HTTPTransportServer(host=host,
+                                                    port=http_port)
+        except OSError as e:
+            # the port a parent picked was taken meanwhile: any free one
+            # (the beat's serve_http_port says which)
+            logger.warning("replica %s: http port %s unavailable (%r); "
+                           "binding a free one", node_id, http_port, e)
+            self._http_server = HTTPTransportServer(host=host, port=0)
+        self._http_server.add_get_route(
+            "/metrics",
+            lambda: ("text/plain; version=0.0.4", self.registry.render()))
+        self._http_server.add_get_route(
+            "/events", lambda: ("application/json", self.journal.to_json()))
+        self._http_server.add_get_route("/debug/bundle",
+                                        self.recorder.http_handler())
         self._server = RPCServer(host=host, port=port)
         self._server.register_object(self)
         # an engine with real params serves them to warm-starting peers
@@ -180,6 +248,11 @@ class DecodeReplica:
         return f"{self._host}:{self._server.port}"
 
     @property
+    def http_addr(self) -> str:
+        """``GET /metrics``, ``/events``, ``/debug/bundle``, ``/healthz``."""
+        return f"{self._host}:{self._http_server.port}"
+
+    @property
     def batcher(self) -> ContinuousBatcher:
         return self._batcher
 
@@ -201,6 +274,9 @@ class DecodeReplica:
 
     def start(self) -> None:
         self._server.start()
+        self._http_server.start()
+        logger.info("replica %s observability http on %s", self.node_id,
+                    self.http_addr)
         # warm-start before registering: the fetch can only land on peers
         self._maybe_warm_start()
         self._batcher.start()
@@ -220,9 +296,24 @@ class DecodeReplica:
         except (ConnectionError, OSError, RuntimeError) as e:
             logger.info("peer listing for warm start failed: %r", e)
             return
-        peers = [r["addr"] for r in replicas if r["node_id"] != self.node_id]
-        if peers:
-            self.warm_start = load_weights_from_peers(self.engine, peers)
+        peers = {r["addr"]: r["node_id"] for r in replicas
+                 if r["node_id"] != self.node_id}
+        if not peers:
+            return
+
+        def reporter(kind, data):
+            # the replica's journal, and the master's (on its clock)
+            self.journal.record(kind, source=f"replica_{self.node_id}",
+                                **data)
+            self._client.report_event(kind, data)
+
+        stats = load_weights_from_peers(self.engine, list(peers),
+                                        reporter=reporter)
+        if stats is not None:
+            by_source = stats["by_source"]
+            stats["from_node"] = peers[max(by_source,
+                                           key=by_source.get)]
+        self.warm_start = stats
 
     def _gauges(self) -> Dict[str, float]:
         steps, launches = self._decode_counts
@@ -231,6 +322,7 @@ class DecodeReplica:
             "serve_active_slots": float(self._batcher.active()),
             "serve_decode_steps": float(steps),
             "serve_decode_kernel_launches": float(launches),
+            "serve_http_port": float(self._http_server.port),
         }
         if hasattr(self.engine, "stats"):  # the prefix-caching wrapper
             st = self.engine.stats()
@@ -242,6 +334,8 @@ class DecodeReplica:
             gauges["serve_weight_load_s"] = float(self.warm_start["seconds"])
             gauges["serve_weight_load_bytes"] = float(
                 self.warm_start["bytes"])
+            gauges["serve_weight_load_from"] = float(
+                self.warm_start["from_node"])
         return gauges
 
     def _hb_loop(self) -> None:
@@ -280,6 +374,8 @@ class DecodeReplica:
         self._stop_evt.set()
         self._batcher.stop()
         self._server.stop()
+        self._http_server.stop()
+        self.recorder.close()
         with self._weights_lock:
             self._weights_blob = None  # a stopped replica serves no weights
         if self._hb_thread is not None:
@@ -291,6 +387,8 @@ class DecodeReplica:
         self.crashed = True
         self._stop_evt.set()
         self._server.stop()
+        self._http_server.stop()
+        self.recorder.close()
         self._batcher.stop()
         if self._on_crash is not None:
             self._on_crash()
@@ -299,42 +397,54 @@ class DecodeReplica:
 
     def rpc_serve_generate(self, req: comm.ServeGenerateRequest
                            ) -> comm.ServeGenerateResponse:
-        try:
-            pending = self._batcher.submit(req.request_id, req.prompt,
-                                           req.max_new_tokens)
-        except BatcherClosed:
+        with tracing.span(SpanName.SERVE_GENERATE,
+                          source=f"replica_{self.node_id}",
+                          request_id=req.request_id) as gspan:
+            trace_id = getattr(gspan, "trace_id", None) or ""
+            try:
+                pending = self._batcher.submit(
+                    req.request_id, req.prompt, req.max_new_tokens,
+                    rerouted=req.rerouted)
+            except BatcherClosed:
+                return comm.ServeGenerateResponse(
+                    request_id=req.request_id, success=False,
+                    message="draining", replica_id=self.node_id)
+            except ValueError as e:
+                return comm.ServeGenerateResponse(
+                    request_id=req.request_id, success=False,
+                    message=str(e), replica_id=self.node_id)
+            if not pending.done.wait(self._request_timeout_s):
+                return comm.ServeGenerateResponse(
+                    request_id=req.request_id, success=False,
+                    message="timeout", replica_id=self.node_id)
+            if pending.error:
+                return comm.ServeGenerateResponse(
+                    request_id=req.request_id, success=False,
+                    message=pending.error, replica_id=self.node_id)
+            n_out = max(1, len(pending.tokens) - 1)
             return comm.ServeGenerateResponse(
-                request_id=req.request_id, success=False,
-                message="draining", replica_id=self.node_id)
-        except ValueError as e:
-            return comm.ServeGenerateResponse(
-                request_id=req.request_id, success=False, message=str(e),
-                replica_id=self.node_id)
-        if not pending.done.wait(self._request_timeout_s):
-            return comm.ServeGenerateResponse(
-                request_id=req.request_id, success=False,
-                message="timeout", replica_id=self.node_id)
-        if pending.error:
-            return comm.ServeGenerateResponse(
-                request_id=req.request_id, success=False,
-                message=pending.error, replica_id=self.node_id)
-        n_out = max(1, len(pending.tokens) - 1)
-        return comm.ServeGenerateResponse(
-            request_id=req.request_id, success=True, tokens=pending.tokens,
-            ttft_s=pending.t_first - pending.enqueue_t,
-            tpot_s=(pending.t_done - pending.t_first) / n_out,
-            queue_depth=self._batcher.queue_depth(),
-            replica_id=self.node_id)
+                request_id=req.request_id, success=True,
+                tokens=pending.tokens,
+                ttft_s=pending.t_first - pending.enqueue_t,
+                tpot_s=(pending.t_done - pending.t_first) / n_out,
+                queue_depth=self._batcher.queue_depth(),
+                replica_id=self.node_id,
+                trace_id=pending.trace_id or trace_id)
 
     def rpc_serve_drain(self, req: comm.ServeDrainRequest
                         ) -> comm.BaseResponse:
-        drained = self._batcher.drain(timeout_s=self._request_timeout_s)
-        try:
-            self._client.serve_deregister(reason=req.reason or "drain")
-        except (ConnectionError, OSError, RuntimeError):
-            logger.warning("deregister after drain failed", exc_info=True)
-        self._stop_evt.set()
-        return comm.BaseResponse(success=drained)
+        with tracing.span(SpanName.SERVE_DRAIN,
+                          source=f"replica_{self.node_id}",
+                          reason=req.reason):
+            drained = self._batcher.drain(
+                timeout_s=self._request_timeout_s)
+            try:
+                self._client.serve_deregister(reason=req.reason or "drain")
+            except (ConnectionError, OSError, RuntimeError):
+                logger.warning("deregister after drain failed",
+                               exc_info=True)
+            self._stop_evt.set()
+            return comm.BaseResponse(success=drained)
 
     def rpc_serve_ping(self, req: comm.BaseRequest) -> comm.BaseResponse:
         return comm.BaseResponse()
@@ -365,7 +475,10 @@ class LocalReplicaManager:
     ``cuda``, which raises here on a box without CUDA; the toy backend
     takes none). ``seed`` is the seed of the replicas spawned from then
     on. A child that exits before it registers makes :meth:`wait_live`
-    raise with its exit code and the tail of its stderr."""
+    raise with its exit code and the tail of its stderr. Each child gets
+    a free ``--http-port`` picked here (:attr:`http_ports`, by node id);
+    its beat's ``serve_http_port`` is the port it bound (another, when
+    the picked one was taken before the child bound it)."""
 
     def __init__(
         self,
@@ -418,6 +531,8 @@ class LocalReplicaManager:
         self._failed_starts: Dict[int, tuple] = {}
         self._poll_evt = threading.Event()  # pacing only, never set
         self.target = 0
+        # node id → the HTTP port its child serves /metrics etc. on
+        self.http_ports: Dict[int, int] = {}
 
     def _cmd(self, node_id: int) -> List[str]:
         cmd = [
@@ -432,6 +547,7 @@ class LocalReplicaManager:
             "--hb-interval-s", str(self._hb_interval_s),
             "--seed", str(self.seed),
             "--step-delay-s", str(self._step_delay_s),
+            "--http-port", str(self.http_ports.get(node_id, 0)),
         ]
         if self._backend != "toy":
             cmd += ["--config", self._config, "--device", self._device]
@@ -452,6 +568,7 @@ class LocalReplicaManager:
         with self._lock:
             node_id = self._next_node_id
             self._next_node_id += 1
+            self.http_ports[node_id] = find_free_port("127.0.0.1")
             proc = subprocess.Popen(self._cmd(node_id),
                                     env=self._spawn_env(),
                                     stderr=subprocess.PIPE)
@@ -606,6 +723,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="the torch backend's device (cuda, cuda:N or "
                              "cpu; default cuda)")
     parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--http-port", type=int, default=0,
+                        help="the /metrics, /events and /debug/bundle "
+                             "server's port (0: a free one)")
     parser.add_argument("--slots", type=int, default=4)
     parser.add_argument("--buckets", default="8,16")
     parser.add_argument("--max-new-cap", type=int, default=16)
@@ -645,7 +765,7 @@ def main(argv=None) -> int:
         engine=_build_engine(args),
         buckets=tuple(int(b) for b in args.buckets.split(",")),
         max_new_cap=args.max_new_cap, port=args.port,
-        heartbeat_interval_s=args.hb_interval_s)
+        heartbeat_interval_s=args.hb_interval_s, http_port=args.http_port)
     replica.start()
     code = replica.run()
     replica.stop()

@@ -21,9 +21,12 @@ Per attempt:
 
 The autoscaler reads its signals here (``inflight``, ``ttft_p99``,
 ``tokens_per_s``), and the SLO plane reads the router's TTFT histogram
-(the reference's name and buckets). Not ported yet: tracing spans and
-exemplars, the router's own RPC surface (``rpc_serve_submit``) and its
-``drain``.
+(the reference's name and buckets), each observation carrying the
+replica's ``trace_id`` as its exemplar. Each request is one
+``serve.route`` span, the root of its trace: its context rides the
+``serve_generate`` frame, an injected fault and each re-route are span
+events on it. Not ported yet: the router's own RPC surface
+(``rpc_serve_submit``) and its ``drain``.
 """
 
 import threading
@@ -33,9 +36,10 @@ from typing import Callable, Dict, List, Optional
 
 from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common import comm
-from dlrover_tpu_torch.common.constants import ChaosSite
+from dlrover_tpu_torch.common.constants import ChaosSite, SpanName
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.rpc import RPCClient
+from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.observability.journal import JournalEvent
 from dlrover_tpu_torch.observability.registry import get_registry
 
@@ -124,6 +128,9 @@ class RequestRouter:
         self.rerouted += 1
         self._m_rerouted.inc()
         req.rerouted = True
+        tracing.add_span_event(SpanName.EVT_SERVE_REROUTED,
+                               from_node=node_id,
+                               reason=reason or "transport")
         extra = {} if reason is None else {"reason": reason}
         self._record(JournalEvent.SERVE_REROUTED, request_id=request_id,
                      from_node=node_id, **extra)
@@ -140,51 +147,56 @@ class RequestRouter:
         tried: set = set()
         attempts = 0
         last_err = "no live replica"
-        while attempts < self._max_attempts:
-            if time.monotonic() >= deadline:
-                last_err = f"deadline exceeded ({last_err})"
-                break
-            inj = get_injector()
-            if inj is not None:
-                try:
-                    inj.fire(SERVE_REQUEST_SITE, request_id=request_id,
-                             attempt=attempts)
-                except (ConnectionError, RuntimeError) as e:
-                    attempts += 1
-                    last_err = f"injected: {e!r}"
-                    self._record(JournalEvent.SERVE_REQUEST_FAILED,
-                                 request_id=request_id, node_id=-1,
-                                 attempt=attempts, error=repr(e))
+        with tracing.span(SpanName.SERVE_ROUTE, source="router",
+                          request_id=request_id):
+            while attempts < self._max_attempts:
+                if time.monotonic() >= deadline:
+                    last_err = f"deadline exceeded ({last_err})"
+                    break
+                inj = get_injector()
+                if inj is not None:
+                    try:
+                        inj.fire(SERVE_REQUEST_SITE, request_id=request_id,
+                                 attempt=attempts)
+                    except (ConnectionError, RuntimeError) as e:
+                        attempts += 1
+                        last_err = f"injected: {e!r}"
+                        tracing.add_span_event(
+                            SpanName.EVT_FAULT_INJECTED,
+                            site=SERVE_REQUEST_SITE, attempt=attempts)
+                        self._record(JournalEvent.SERVE_REQUEST_FAILED,
+                                     request_id=request_id, node_id=-1,
+                                     attempt=attempts, error=repr(e))
+                        continue
+                target = self._pick(tried)
+                if target is None:
+                    # a membership gap: wait, consuming no attempt
+                    self._pacer.wait(self._no_replica_wait_s)
                     continue
-            target = self._pick(tried)
-            if target is None:
-                # a membership gap: wait, consuming no attempt
-                self._pacer.wait(self._no_replica_wait_s)
-                continue
-            node_id = target["node_id"]
-            attempts += 1
-            self._mark(node_id, +1)
-            try:
-                resp = self._client_for(target["addr"]).call(
-                    "serve_generate", req)
-            except (ConnectionError, OSError, RuntimeError) as e:
-                last_err = repr(e)
+                node_id = target["node_id"]
+                attempts += 1
+                self._mark(node_id, +1)
+                try:
+                    resp = self._client_for(target["addr"]).call(
+                        "serve_generate", req)
+                except (ConnectionError, OSError, RuntimeError) as e:
+                    last_err = repr(e)
+                    tried.add(node_id)
+                    self._record(JournalEvent.SERVE_REQUEST_FAILED,
+                                 request_id=request_id, node_id=node_id,
+                                 attempt=attempts, error=last_err)
+                    self._reroute(req, request_id, node_id)
+                    continue
+                finally:
+                    self._mark(node_id, -1)
+                if resp.success:
+                    self._done_ok(resp)
+                    return resp
+                last_err = resp.message
                 tried.add(node_id)
-                self._record(JournalEvent.SERVE_REQUEST_FAILED,
-                             request_id=request_id, node_id=node_id,
-                             attempt=attempts, error=last_err)
-                self._reroute(req, request_id, node_id)
-                continue
-            finally:
-                self._mark(node_id, -1)
-            if resp.success:
-                self._done_ok(resp)
-                return resp
-            last_err = resp.message
-            tried.add(node_id)
-            if any(m in resp.message for m in _PERMANENT):
-                break
-            self._reroute(req, request_id, node_id, resp.message)
+                if any(m in resp.message for m in _PERMANENT):
+                    break
+                self._reroute(req, request_id, node_id, resp.message)
         with self._lock:
             self.lost += 1
         self._m_requests.labels(status="lost").inc()
@@ -206,7 +218,7 @@ class RequestRouter:
             while self._token_marks and self._token_marks[0][0] < cutoff:
                 self._token_marks.pop(0)
         self._m_requests.labels(status="ok").inc()
-        self._m_ttft.observe(resp.ttft_s)
+        self._m_ttft.observe(resp.ttft_s, exemplar=resp.trace_id or None)
 
     # -- the autoscaler's signals ------------------------------------------
 

@@ -15,7 +15,9 @@ to the last accepted position by setting ``pos`` back: the rows past it,
 written by rejected drafts, are hidden by the ``pos`` mask until the next
 window overwrites them.
 
-Not ported yet: the verify span of the tracing plane.
+Each verify is a ``serve.spec_verify`` span carrying ``k`` and the
+drafts it accepted; it closes after the target's tokens are read back,
+so on the card it times the window's device work.
 """
 
 import threading
@@ -23,10 +25,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from dlrover_tpu_torch.common.constants import ConfigKey, env_int
+from dlrover_tpu_torch.common.constants import ConfigKey, SpanName, env_int
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import decode
 from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
+from dlrover_tpu_torch.observability import tracing
 
 _DEFAULT_K = 4
 
@@ -88,12 +91,16 @@ class SpeculativeDecoder:
                     drafts.append(cur)
             t_pos = int(t_cache["pos"])
             window = torch.tensor([[last] + drafts], device=dev)
-            wl, t_cache = decode.decode_window(self._tp, window, t_cache,
-                                               self._tc)
-            greedy = torch.argmax(wl[0], dim=-1).tolist()
-            a = 0
-            while a < k and drafts[a] == greedy[a]:
-                a += 1
+            with tracing.span(SpanName.SERVE_SPEC_VERIFY,
+                              source="speculative",
+                              request_id=request_id) as vspan:
+                wl, t_cache = decode.decode_window(self._tp, window,
+                                                   t_cache, self._tc)
+                greedy = torch.argmax(wl[0], dim=-1).tolist()
+                a = 0
+                while a < k and drafts[a] == greedy[a]:
+                    a += 1
+                vspan.attrs.update(k=k, accepted=a)
             tokens.extend(drafts[:a] + [greedy[a]])
             rounds += 1
             drafted += k

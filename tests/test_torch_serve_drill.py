@@ -16,6 +16,11 @@
 These are the assertions of the reference's
 ``tests/test_serving_plane.py::test_serving_e2e_replica_kill_loses_zero_requests``
 and ``tests/test_serving_observability.py::test_burst_drill_burn_alert_leads_reactive_grow``.
+In both wire directions the drill process's traces (span names per
+trace and their parent links) and its journal kinds equal between the
+two packages' drills, and every TTFT exemplar the router recorded (the
+trace id a replica answered with) is a ``serve.route`` trace of the
+router's process: the context crossed the wire both ways.
 """
 
 import pytest
@@ -25,7 +30,12 @@ pytest.importorskip("torch")
 from dlrover_tpu.serving import drill as jdrill  # noqa: E402
 from dlrover_tpu.serving import replica as jreplica  # noqa: E402
 
+from dlrover_tpu.observability import registry as jregistry  # noqa: E402
+from dlrover_tpu.observability import tracing as jtracing  # noqa: E402
+
 from dlrover_tpu_torch import chaos as tchaos  # noqa: E402
+from dlrover_tpu_torch.observability import registry as tregistry  # noqa: E402,E501
+from dlrover_tpu_torch.observability import tracing as ttracing  # noqa: E402
 from dlrover_tpu_torch.serving import drill as tdrill  # noqa: E402
 from dlrover_tpu_torch.serving import replica as treplica  # noqa: E402
 
@@ -164,3 +174,62 @@ def test_manager_spawns_the_ports_flags():
     with pytest.raises(ValueError, match="takes no device"):
         treplica.LocalReplicaManager("h:1", live_fn=lambda: [],
                                      device="cpu")
+
+
+def _trace_shapes(tracer):
+    """Each trace of the ring as its sorted (span, parent span) names."""
+    by_trace = {}
+    for sp in tracer.finished_spans():
+        by_trace.setdefault(sp.trace_id, []).append(sp)
+    shapes = set()
+    for spans in by_trace.values():
+        names = {sp.span_id: sp.name for sp in spans}
+        shapes.add(tuple(sorted((sp.name, names.get(sp.parent_id))
+                                for sp in spans)))
+    return shapes
+
+
+def _ttft_exemplars(registry):
+    return dict(registry.histogram(
+        "dlrover_serving_ttft_seconds", "request enqueue → first token",
+        buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5, 10, 30),
+    ).exemplars())
+
+
+def _drill_observed(run, tracing_mod, registry_mod):
+    tracing_mod.reset_tracer()
+    before = _ttft_exemplars(registry_mod.get_registry())
+    result = run()
+    _assert_kill_drill(result, 24)
+    after = _ttft_exemplars(registry_mod.get_registry())
+    tracer = tracing_mod.get_tracer()
+    routes = {sp.trace_id for sp in tracer.finished_spans()
+              if sp.name == "serve.route"}
+    fresh = {ex[0] for b, ex in after.items() if before.get(b) != ex}
+    # the replicas answered with the router's trace ids
+    assert fresh and fresh <= routes
+    return _trace_shapes(tracer), set(result["journal"])
+
+
+def test_trace_arcs_and_journal_kinds_match_in_both_wire_directions(
+        monkeypatch, tmp_path):
+    monkeypatch.setenv("DLROVER_TPU_TRACE_DIR", str(tmp_path))
+    # the JAX drill (its router, master and autoscaler) over port replicas
+    monkeypatch.setattr(jdrill, "LocalReplicaManager",
+                        treplica.LocalReplicaManager)
+    jax_side = _drill_observed(
+        lambda: jdrill.run_serving_drill(replicas=2, backend="toy",
+                                         num_requests=24),
+        jtracing, jregistry)
+    # the port's drill over JAX replicas
+    monkeypatch.setattr(tdrill, "LocalReplicaManager",
+                        jreplica.LocalReplicaManager)
+    port_side = _drill_observed(
+        lambda: tdrill.run_serving_drill(replicas=2, backend="toy",
+                                         num_requests=24),
+        ttracing, tregistry)
+    assert port_side[0] == jax_side[0]
+    assert (("serve.route", None),) in port_side[0]
+    assert (("serve.scale", None),) in port_side[0]
+    assert port_side[1] == jax_side[1]
+    assert "trace_bundle_captured" in port_side[1]

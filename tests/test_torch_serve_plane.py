@@ -712,7 +712,9 @@ def test_master_journals_a_training_node_failure():
     master.job_manager.update_node_status(0, "running")
     master.job_manager.update_node_status(0, "failed")
     kinds = [e["kind"] for e in master.event_journal.events()]
-    assert kinds == ["fault_detected"]
+    # the fault, then the node_fault bundle the flight recorder wrote
+    # after it (the reference master's sequence)
+    assert kinds == ["fault_detected", "trace_bundle_captured"]
 
 
 def test_a_stopped_master_leaves_no_collect_hook():
