@@ -7,15 +7,17 @@
     python3 chip_smoke.py --serve-elastic  # the elastic serving plane (9)
     python3 chip_smoke.py --elastic  # the agent's fault drill (phase 8)
     python3 chip_smoke.py --timer    # the device timer's checks alone
+    python3 chip_smoke.py --straggler  # the straggler leg alone
     python3 chip_smoke.py --timer-ab # phase 6's step without and with it
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and the
-device timer from ``dlrover_tpu_torch/tpu_timer`` and runs ten phases, each
-printing one JSON line (the serving runs one each); ``timer`` runs after
-phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
-(its replica stopped and the weights freed), phase 8 after phase 6:
+device timer from ``dlrover_tpu_torch/tpu_timer`` and runs eleven phases,
+each printing one JSON line (the serving runs one each); ``timer`` runs
+after phase 1, phase 7 after phase 3, on the same weights, phase 9 after
+phase 7 (its replica stopped and the weights freed), phase 8 after phase
+6, ``straggler`` last:
 
 1. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in bf16 at its path's shapes, with the error, the kernel's time, the
@@ -64,10 +66,19 @@ phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
    preallocated 4096 slots; (b) int8 cache, prompt 2048, 32 new tokens,
    tight cache. Both prefill through the flash-forward kernel and decode
    through the decode kernel; the launch counts must show it. Prefill and
-   first-step logits are compared with the dense path;
+   first-step logits are compared with the dense path. A fresh memory
+   accountant sweeps the card after it (``observability/memory.py``:
+   against the allocator's allocated bytes, reserved beside them):
+   ``decode.generate`` owns no claim, so its weights and cache are the
+   unattributed bytes; prints them, the headroom and the peak;
 3. ``engine`` — ``BatchDecodeEngine`` with an int8 cache, 8 slots, 4096
    cache slots, serving 16 requests of ragged lengths with slot reuse;
-   every step must go through the decode kernel, ragged or not;
+   every step must go through the decode kernel, ragged or not. Held: the
+   engine's ``kv_cache`` claim equals its cache tensors' bytes exactly;
+   ``dlrover_compile_total{fn}`` equals the engine's distinct shape keys
+   of each kind (``engine.prefill``, ``engine.insert``, ``engine.step``)
+   and the steady traffic journals no recompile storm. Prints each miss's
+   seconds (a shape key's first call) and the ledger's sweep;
 4. ``train`` — ``ElasticTrainer.train_step`` with ``adamw(3e-4)`` on
    ``LlamaConfig()`` at full width and 8 layers (bf16 params, f32 grad
    accumulators and moments), remat "dots", global batch 8 as 2 micro
@@ -75,7 +86,12 @@ phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
    counted steps whose launches must be K1 = 2·L·accum (forward and remat
    recompute) and K2 = K3 = L·accum a step; one micro step on the kernel
    path against the dense path; a fixed batch whose loss must fall over 3
-   steps; a profile of one step, tokens/s and MFU.
+   steps; a profile of one step, tokens/s and MFU. Held: the trainer's
+   ``params`` and ``opt_state`` claims equal its state's bytes exactly
+   (with the step counter, the bytes phase 5 saves) and its
+   ``activations`` claim the f32 accumulators; one step signature. Prints
+   the sweep (unattributed bytes, headroom, reserved) and the ledger's
+   peak beside ``torch.cuda.max_memory_allocated``.
 
 5. ``ckpt`` — Flash Checkpoint on the train phase's state (bf16 params,
    f32 moments: 16.8 GB at 8 layers), after ``worker.init`` (NCCL, one
@@ -87,7 +103,9 @@ phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
    before the step. Then a ``save_to_storage``, a ``load`` from shm and
    one from storage, each bitwise equal to the saved state, leaf by leaf,
    on the card. Prints the save's training pause, the drain, storage and
-   restore rates, and the step time with and without a save in flight;
+   restore rates, and the step time with and without a save in flight.
+   Held (``ckpt_ledger``): the shm segment's ``staging`` claim equals its
+   size while mapped and is 0 once it is released;
 6. ``resume`` — a kill drill across processes with
    ``examples/llama_elastic_pretrain_torch.py``'s ``train`` in child
    processes: ``LlamaConfig()`` widths, 2 layers, global batch 8,
@@ -123,7 +141,19 @@ phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
    ``XPU_TIMER_MM_KERNEL_*`` families, the master's verdict was
    ``training_hang`` on node 0's vote, the daemon's stack dump holds the
    wedged worker's Python stack, a profile was requested, and the
-   SIGKILLed spinning worker's card trained the next incarnation. Prints
+   SIGKILLed spinning worker's card trained the next incarnation; and the
+   attribution plane, read from the standalone master's ``/heartbeats``,
+   ``/memory`` and ``/events`` while the run lasts: every beat that
+   reported a step carried op telemetry and a memory ledger; the last
+   beat of each faulted incarnation carried the compute count its worker
+   read, at its last publish, both from its op telemetry and from the mm
+   family of its device-timer ``/metrics`` (one native engine);
+   ``/memory`` names rank 0 on node 0; no straggler or hang verdict at
+   world 1; a ``mem.pressure`` fault in the first incarnation's worker
+   is journaled as ``memory_pressure`` and its bundle holds
+   ``memory.json``, which ``python -m
+   dlrover_tpu_torch.observability.report`` renders, and the report of
+   the run's journal counts one incident a fault (three). Prints
    each fault's detect (fault → the agent acts) and restart (fault → the
    next incarnation's first step) seconds and restore, the gauge's rise
    after the wedge, the median step time under the timer against phase
@@ -163,7 +193,15 @@ phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
    ``/debug/bundle``, and B's bundle (the reference's eight files each);
    every request one trace of the six ``serve.*`` spans (B's from its
    bundle), queue + prefill + first step within 0.25 s of its TTFT; and
-   a span's cost with tracing on and off.
+   a span's cost with tracing on and off. Held too: A's
+   ``dlrover_compile_total{fn}`` equals its engine's distinct shape keys
+   of each kind (each miss's seconds printed); no storm is journaled but
+   on ``engine.prefill_sfx``, whose key holds a prefix hit's matched
+   length (the second pass's replayed prompts spread it), and there
+   attributed to ``seq_len``;
+   and B's ``staging`` claim (its warm start's fabric session) reads 0 on
+   its ``/metrics`` after the warm start with a watermark of exactly the
+   blob's bytes.
 9. ``serve_elastic`` — the elastic serving plane
    (``dlrover_tpu_torch/serving/drill.py``): the port's master with its
    journal, router, ``JobAutoScaler`` + ``ServingOptimizer`` and
@@ -196,9 +234,27 @@ phase 1, phase 7 after phase 3, on the same weights, phase 9 after phase 7
    registration and the peer each warm-started from, on the journal's
    clock (ROADMAP C12).
 
+``straggler`` (after phase 8) — ``examples/chaos_goodput_torch.py
+   --device cuda --straggler-only --tpu-timer``: a port master and two
+   port agents of one worker each on this card (their world over gloo:
+   NCCL refuses two ranks on one device), every step an all-reduce on the
+   host group inside a collective span and four hooked bf16
+   ``torch.matmul``s at the train step's MLP shape inside the compute
+   span; agent 1's worker sleeps 0.25 s a step inside its own compute span
+   (``step.compute:delay=0.25@times=30``). Held: the master's skew monitor
+   journals ``straggler_detected(rank=1, cause=compute)`` with a ratio
+   above 2 while rank 1 is alive and none before the delay; the straggler
+   rule's ``STACK_DUMP`` reached agent 1, whose evidence file holds the
+   worker's Python stack; ``dlrover_skew_ratio`` is above 0 on a
+   mid-drill ``/metrics``; each rank's hook timed exactly 4 GEMMs a step
+   and its compute class holds them; both agents exit 0 (the dump does
+   not take a worker down). Prints the detect seconds (the delay's start
+   → the verdict) and the ratio.
+
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
 ``--timer`` runs the ``timer`` phase alone, with no result line;
+``--straggler`` the straggler leg alone;
 ``--timer-ab`` runs phase 6's unkilled child four times, without and with
 the device timer in turns, and prints each run's median step.
 ``--decode`` builds K4 alone and runs only its rows, with no result line:
@@ -215,8 +271,11 @@ agent 1's process group SIGKILLed once storage holds step 5, the
 survivor at N/2 ranks
 with twice the accumulation steps restored from storage, agent 1 back
 and the world at N again, the losses against the unkilled run at the
-later-step limits; no result line. ``--node-drill N`` runs the node
-drill alone, held against its own unkilled run across N cards. Any
+later-step limits, its agents with ``--tpu-timer`` so the beats carry the
+hooked NCCL all-reduces' entry markers: before the kill the skew monitor
+shows every rank at one collective count and no hang; no result line.
+``--node-drill N`` runs the node drill alone, held against its own
+unkilled run across N cards. Any
 mismatch, refused launch or fault exits non-zero. Without CUDA the script
 exits non-zero and prints no result.
 
@@ -819,9 +878,12 @@ TIMER_GEMM = (16384, 4096, 11008)
 TIMER_GEMMS = 20
 # the hang watchdog's timeout in the timer child; its wedge spins twice it
 TIMER_HANG_TIMEOUT_S = 3.0
-# the hook's GEMM latency and FLOPS against CUDA events taken by torch
-# around the same loop: the hook's pairs bracket each GEMM alone, torch's
-# the loop with its launch gaps (microseconds against ~2 ms GEMMs)
+# the hook's GEMM latency and FLOPS against CUDA events taken by torch:
+# its mean against torch's pair around the loop (which holds the launch
+# gaps, microseconds against ~2 ms GEMMs), the FLOPS gauge (the rate of
+# the kernel's last record) against torch's pair around the last GEMM. A
+# GEMM's time varies by up to 7% within the loop on the card, so the
+# gauge is not held against the loop's mean
 TIMER_MATCH_REL = 0.05
 # one watchdog tick (200 ms), a poll of the hook (5 ms) and this child's
 # polling of the gauge (10 ms), with room
@@ -884,15 +946,21 @@ def timer_child(args) -> int:
     before = len(_shape_events(timer, TIMER_GEMM))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(TIMER_GEMMS)]
     start.record()
-    for _ in range(TIMER_GEMMS):
+    for first, last in pairs:
+        first.record()
         torch.matmul(a, b)
+        last.record()
     end.record()
     end.synchronize()
     timer.wait_drained()
     evs = _shape_events(timer, TIMER_GEMM)
     new = evs[before:]
     torch_ms = start.elapsed_time(end) / TIMER_GEMMS
+    torch_each_ms = [first.elapsed_time(last) for first, last in pairs]
     flops = 2.0 * M * N * K
     text = timer.prometheus_text()
     name = new[-1]["name"] if new else None
@@ -903,8 +971,12 @@ def timer_child(args) -> int:
         hook_mean_ms=(sum(e["dur"] for e in new) / len(new) / 1e3
                       if new else None),
         torch_ms=torch_ms,
+        hook_each_ms=[e["dur"] / 1e3 for e in new],
+        torch_each_ms=torch_each_ms,
+        # the gauge is the rate of the kernel's last record, so it is held
+        # against torch's events around that same GEMM
         hook_flops=_gauge(text, "XPU_TIMER_MM_KERNEL_FLOPS", name),
-        torch_flops=flops / (torch_ms / 1e3))
+        torch_flops=flops / (torch_each_ms[-1] / 1e3))
 
     # 2. a 1 GiB pinned D2H and H2D copy
     host = torch.empty(TIMER_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
@@ -1195,6 +1267,89 @@ def timer_phase(device):
 
 
 # ---------------------------------------------------------------------------
+# the memory ledger and the compile watch (phases 2-5, 7)
+# ---------------------------------------------------------------------------
+
+
+def fresh_ledger():
+    """A fresh process memory accountant and compile watch on their own
+    registry and journal, so a phase reads its own claims, signatures and
+    storms: ``(accountant, watcher, journal, registry)``."""
+    from dlrover_tpu_torch.observability import compile_watch, memory
+    from dlrover_tpu_torch.observability.journal import EventJournal
+    from dlrover_tpu_torch.observability.registry import MetricsRegistry
+
+    registry = MetricsRegistry()
+    journal = EventJournal()
+    acct = memory.set_accountant(memory.MemoryAccountant(
+        journal=journal, registry=registry, source="chip_smoke"))
+    watcher = compile_watch.set_watcher(compile_watch.CompileWatcher(
+        journal=journal, registry=registry, source="chip_smoke"))
+    return acct, watcher, journal, registry
+
+
+def ledger_claims(acct, category):
+    """``{buffer name: bytes}`` the accountant holds under ``category``."""
+    with acct._lock:
+        return dict(acct._ledger[category])
+
+
+def ledger_row(acct, device):
+    """One sweep of the accountant against the card: the ledger, the
+    allocator's allocated bytes it reconciles against (and the reserved
+    bytes beside them), the unattributed bytes and the headroom, and the
+    ledger's peak watermark beside ``torch.cuda.max_memory_allocated``."""
+    rec = acct.reconcile()
+    snap = acct.snapshot()
+    row = dict(categories={c: b for c, b in snap["categories"].items() if b},
+               ledger_bytes=rec["ledger_bytes"],
+               device_allocated_bytes=rec["device_used"],
+               limit_bytes=rec["limit_bytes"],
+               unattributed_bytes=rec["unattributed_bytes"],
+               headroom_bytes=rec["headroom_bytes"],
+               headroom_frac=rec["headroom_frac"],
+               peak_watermark_bytes=snap["peak_total_bytes"])
+    if device.type == "cuda":
+        stats = torch.cuda.memory_stats(device)
+        row.update(device_reserved_bytes=stats["reserved_bytes.all.current"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(
+                       device))
+        if rec["degraded"] or rec["limit_bytes"] <= 0:
+            raise AssertionError(f"ledger: the sweep did not read the card: "
+                                 f"{rec}")
+    return row
+
+
+def compile_row(watcher, journal, registry, shapes, what,
+                churning=()):
+    """The compile watch against an engine's distinct shape keys: per
+    function, ``dlrover_compile_total{fn}`` equals the keys of its kind;
+    the seconds of each miss; no storm journaled, except on a function of
+    ``churning`` (its signature varies by design), where a storm must be
+    attributed to ``seq_len``."""
+    kinds = sorted({k[0] for k in shapes})
+    counts = {}
+    text = registry.render()
+    for kind in kinds:
+        fn = f"engine.{kind}"
+        want = sum(1 for k in shapes if k[0] == kind)
+        line = f'dlrover_compile_total{{fn="{fn}"}} {want}'
+        counts[fn] = watcher.compile_count(fn)
+        if counts[fn] != want or line not in text.splitlines():
+            raise AssertionError(f"{what}: compile watch counts {counts} vs "
+                                 f"the engine's keys {sorted(shapes)}")
+    storms = [e["data"] for e in journal.events()
+              if e["kind"] == "recompile_storm"]
+    if any(st["fn"] not in churning or st["dim"] != "seq_len"
+           for st in storms):
+        raise AssertionError(f"{what}: steady traffic journaled a storm: "
+                             f"{storms}")
+    return dict(compile_total=counts, storms=storms, misses=[
+        dict(fn=m["fn"], dims=m["dims"], seconds=m["seconds"])
+        for m in watcher.misses()])
+
+
+# ---------------------------------------------------------------------------
 # phase 2: generate at full width
 # ---------------------------------------------------------------------------
 
@@ -1216,6 +1371,7 @@ def generate_phase(params, config, device, tag, batch, prompt_len, new,
     T, flash = decode.planned_cache_len(total, quantize, max_len,
                                         device=device)
     L = config.n_layers
+    acct = fresh_ledger()[0]
 
     # the main path: one generate call, counted
     fa.reset_launch_counts()
@@ -1292,6 +1448,9 @@ def generate_phase(params, config, device, tag, batch, prompt_len, new,
         decode_step_ms=decode_s * 1e3 / timed_steps, launches=counts,
         logits_rel_err_prefill=prefill_err, logits_rel_err_step=step_err,
         decode_step_profile=profile, prefill_profile=prefill_profile,
+        # decode.generate owns no ledger claim: its weights and cache are
+        # the unattributed bytes
+        memory=ledger_row(acct, device),
     )
     emit(row)
     return counts
@@ -1334,9 +1493,18 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
         n = int(rng.integers(len_range[0], len_range[1] + 1))
         reqs.append((rng.integers(1, config.vocab_size, n).tolist(),
                      int(rng.integers(new_range[0], new_range[1] + 1))))
+    acct, watcher, journal, registry = fresh_ledger()
     engine = BatchDecodeEngine(params, config, slots=slots,
                                cache_len=cache_len, quantize=True,
                                device=device)
+    # the engine's claim: exactly its cache tensors' bytes
+    exact = sum(t.numel() * t.element_size()
+                for bufs in (engine._k, engine._v, engine._ks, engine._vs)
+                for t in bufs)
+    claims = ledger_claims(acct, "kv_cache")
+    if claims != {f"engine/{id(engine):x}/kv": exact}:
+        raise AssertionError(f"engine: kv_cache claims {claims}, its "
+                             f"cache holds {exact} bytes")
     flash = decode.flash_decode_wanted(cache_len, True, device=device)
     L = config.n_layers
 
@@ -1382,6 +1550,9 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
             for r in done):
         raise AssertionError("engine: a request was not served in full")
 
+    compile_watch = compile_row(watcher, journal, registry, engine._shapes,
+                                "engine")
+    memory = ledger_row(acct, device)
     agreement = _teacher_agreement(
         params, config, device, [(reqs[r][0], done[r])
                                  for r in range(n_teacher)])
@@ -1391,7 +1562,8 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
         requests_served=len(done), new_tokens=new_tokens, steps=steps,
         ragged_steps=ragged_steps, serve_s=serve_s,
         tok_per_s=new_tokens / serve_s, launches=counts,
-        kv_cache_bytes=engine.kv_cache_bytes(),
+        kv_cache_bytes=engine.kv_cache_bytes(), kv_cache_claim=exact,
+        memory=memory, compile_watch=compile_watch,
         teacher_forced_agreement=agreement, teacher_requests=n_teacher,
     ))
     if agreement < TEACHER_AGREE_MIN:
@@ -1590,6 +1762,8 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
     L, V = config.n_layers, config.vocab_size
     saved_env = os.environ.get("DLROVER_TPU_SERVE_PREFIX_BYTES")
     os.environ["DLROVER_TPU_SERVE_PREFIX_BYTES"] = str(SERVE_PREFIX_BYTES)
+    # replica A's shape keys land in this phase's own compile watch
+    _, watcher, watch_journal, watch_registry = fresh_ledger()
     server, servicer = start_master()
     addr = f"127.0.0.1:{server.port}"
     flags = ["--backend", "torch", "--config", config_flag,
@@ -1642,6 +1816,22 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
             raise AssertionError("serve: replica B loaded "
                                  f"{gauges['serve_weight_load_bytes']} "
                                  f"bytes of A's {blob_bytes}")
+        # B's fabric session claimed the blob's bytes as staging and
+        # released them when the warm start ended
+        b_mem = {ln.split("{", 1)[0] + ln[ln.index("{"):ln.index("}") + 1]:
+                 float(ln.rsplit(" ", 1)[1])
+                 for ln in _http_get(b_http_addr, "/metrics").splitlines()
+                 if ln.startswith(("dlrover_memory_bytes{",
+                                   "dlrover_memory_watermark_bytes{"))}
+        row["b_staging"] = dict(
+            claim_after=b_mem.get('dlrover_memory_bytes{category="staging"}'),
+            watermark=b_mem.get(
+                'dlrover_memory_watermark_bytes{category="staging"}'))
+        if (row["b_staging"]["claim_after"] != 0
+                or row["b_staging"]["watermark"] != blob_bytes):
+            raise AssertionError(f"serve: B's staging claims "
+                                 f"{row['b_staging']} for a {blob_bytes}-"
+                                 f"byte warm start")
 
         # traffic: shared system prompts, every prompt once, then again
         rng = np.random.default_rng(SEED + 7)
@@ -1810,6 +2000,13 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
                 _rel_err(h[:, :, :n].float(), c[:, :, :n].float())
                 for h, c in zip(hit.payload, ref.payload)))
             del hit, ref
+        # a prefix hit's suffix prefill is keyed by its matched length,
+        # which the second pass's replayed prompts spread over many
+        # blocks: a churn of engine.prefill_sfx signatures the watch must
+        # attribute to seq_len
+        row["compile_watch"] = compile_row(
+            watcher, watch_journal, watch_registry, inner._shapes, "serve",
+            churning=("engine.prefill_sfx",))
         row.update(prefix_checks=n_hits,
                    prefix_rows_computed_of_bucket=rows_computed,
                    prefix_first_token_agreement=hit_first / max(1, n_hits),
@@ -2230,6 +2427,7 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
              params["lm_head"][:64, :64].clone()]
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    acct, watcher, _journal, _registry = fresh_ledger()
 
     # the main path: `steps` train steps, counted
     fa.reset_launch_counts()
@@ -2257,6 +2455,31 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
                              f"params moved {moved}")
     peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
                if device.type == "cuda" else None)
+    # the trainer's claims: exactly its state's bytes (the params and the
+    # optimizer state are what phase 5 saves, beside the step counter) and
+    # the f32 accumulators a step allocates at each param's full shape
+    leaves = tree_leaves(state["params"])
+    want_claims = {
+        "params": sum(t.numel() * t.element_size() for t in leaves),
+        "opt_state": sum(t.numel() * t.element_size()
+                         for t in tree_leaves(state["opt_state"])
+                         if isinstance(t, torch.Tensor)),
+        "activations": sum(4 * t.numel() for t in leaves)}
+    got_claims = {c: acct.bytes_for(c) for c in want_claims}
+    step_bytes = state["step"].numel() * state["step"].element_size()
+    if (got_claims != want_claims or got_claims["params"]
+            + got_claims["opt_state"] + step_bytes != _state_bytes(state)):
+        raise AssertionError(f"train: ledger claims {got_claims}, state "
+                             f"{want_claims}, saved bytes "
+                             f"{_state_bytes(state)}")
+    train_memory = dict(ledger_row(acct, device), claims=got_claims,
+                        state_bytes=_state_bytes(state))
+    train_compile = dict(
+        compile_total=watcher.compile_count("trainer.train_step"),
+        misses=watcher.misses())
+    if train_compile["compile_total"] != 1:
+        raise AssertionError(f"train: {train_compile['compile_total']} "
+                             f"step signatures at one batch shape")
 
     # kernel path vs dense path on one micro step
     fixed = next_batch()
@@ -2304,6 +2527,7 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
         peak_memory_gb=peak_gb,
         kernel_vs_dense=versus_dense,
         fixed_batch_losses=fixed_losses, step_profile=profile,
+        memory=train_memory, compile_watch=train_compile,
         lm_head_f32_gemm_ms=lm_head_ms,
         lm_head_f32_share_of_step=3 * accum * lm_head_ms / 1e3 / step_mean,
     ))
@@ -2394,15 +2618,31 @@ def ckpt_phase(trained, device, ckpt_root):
         os.path.join(ckpt_root, "ckpt"), job_name=f"chipsmoke{os.getpid()}",
         node_rank=0, local_rank=0, rank=0, world_size=1,
         local_world_size=1, ipc_socket="/nonexistent")
+    from dlrover_tpu_torch.observability.memory import get_accountant
+
+    acct = get_accountant()
+    shm_key = f"ckpt_shm/{engine._shm.name}"
+    mapped = {}
     try:
-        return _ckpt_checks(engine, state, trainer, batches, device,
-                            nbytes, trained["step_s"], ctx)
+        counts = _ckpt_checks(engine, state, trainer, batches, device,
+                              nbytes, trained["step_s"], ctx, mapped)
     finally:
         engine._shm.unlink()
+    # the frames' segment is its staging claim at its mapped size, and
+    # none once it is released
+    claim, size = mapped.get("claim"), mapped.get("size")
+    released = ledger_claims(acct, "staging").get(shm_key, 0)
+    emit({"phase": "ckpt_ledger", "shm_segment_bytes": size,
+          "staging_claim": claim, "staging_claim_after_release": released,
+          "state_bytes": nbytes})
+    if claim != size or released != 0:
+        raise AssertionError(f"ckpt: staging claim {claim} for a {size}-"
+                             f"byte segment, {released} after release")
+    return counts
 
 
 def _ckpt_checks(engine, state, trainer, batches, device, nbytes,
-                 step_s_train, ctx):
+                 step_s_train, ctx, mapped):
     gb = nbytes / 1e9
     # warm: the first save creates and populates the shm segment
     _sync(device)
@@ -2410,6 +2650,10 @@ def _ckpt_checks(engine, state, trainer, batches, device, nbytes,
     if not engine.save_to_memory(0, state) or not engine.wait_drained():
         raise AssertionError("ckpt: warm-up save failed")
     cold = dict(engine.last_save, wall_s=time.perf_counter() - t0)
+    from dlrover_tpu_torch.observability.memory import get_accountant
+
+    mapped.update(size=engine._shm._shm.size, claim=ledger_claims(
+        get_accountant(), "staging").get(f"ckpt_shm/{engine._shm.name}"))
     saved = [t.clone() for _, t in _state_tensors(state)]
     step0 = int(state["step"])
     _sync(device)
@@ -2530,6 +2774,46 @@ ELASTIC_TORN_SCHEDULE = "shm.write:torn@step=6"
 # an agent-side fault: every commit of the agent's saver waits 10 ms, and
 # the agent's flight recorder (cooldown 0) captures a chaos bundle at each
 ELASTIC_AGENT_FAULT = "storage.commit:delay=10ms"
+# the first incarnation's worker: a forced memory-pressure breach at its
+# first memory sweep (the journal event, and a bundle with memory.json)
+ELASTIC_MEM_SCHEDULE = "mem.pressure:error@times=1"
+
+
+def _optel_vs_metrics():
+    """This worker's op-telemetry compute count and the compute count of
+    the mm family its device-timer endpoint serves (the kernels
+    ``classify`` puts in compute), once the hook's events drained."""
+    import urllib.request
+
+    from dlrover_tpu_torch.common.constants import (
+        ConfigKey,
+        EnvKey,
+        env_int,
+    )
+    from dlrover_tpu_torch.observability.op_telemetry import classify
+    from dlrover_tpu_torch.observability.tpu_timer import (
+        DEFAULT_WORKER_PORT_BASE,
+        KIND_MM,
+        get_timer,
+    )
+
+    timer = get_timer()
+    timer.wait_drained()
+    snap = timer.op_telemetry()
+    port = (env_int(ConfigKey.TPU_TIMER_PORT, DEFAULT_WORKER_PORT_BASE)
+            + env_int(EnvKey.LOCAL_RANK, 0))
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as resp:
+        text = resp.read().decode()
+    mm = 0
+    for ln in text.splitlines():
+        if ln.startswith("XPU_TIMER_MM_KERNEL_COUNT{"):
+            kernel = ln.split('kernel="', 1)[1].split('"', 1)[0]
+            # the GC hook's pauses ride the mm family but no op class
+            if kernel != "py_gc" and classify(KIND_MM, kernel) == "compute":
+                mm += int(float(ln.rsplit(" ", 1)[1]))
+    return dict(compute_n=snap["classes"].get("compute", {}).get("n", 0),
+                seq=snap["seq"], mm_compute=mm)
 
 
 def elastic_child(args) -> int:
@@ -2541,7 +2825,10 @@ def elastic_child(args) -> int:
     from dlrover_tpu_torch.common.constants import EnvKey, env_int
 
     restart = env_int(EnvKey.RESTART_COUNT, 0)
-    if restart != 1:
+    if restart == 0:
+        # the memory-pressure breach is the first incarnation's fault
+        os.environ["DLROVER_FAULT_SCHEDULE"] = ELASTIC_MEM_SCHEDULE
+    elif restart != 1:
         # the torn frame is the second incarnation's fault alone
         os.environ.pop("DLROVER_FAULT_SCHEDULE", None)
     spec = importlib.util.spec_from_file_location(
@@ -2593,6 +2880,10 @@ def elastic_child(args) -> int:
     def on_step(step, loss):
         emit_line("STEP", step=step, loss=float(loss),
                   launches=_launches(), ckpt_traces=ckpt_traces())
+        # the op telemetry this step's publish will carry, beside the mm
+        # family's compute count on this worker's device-timer /metrics:
+        # both from the one native engine, read once its events drained
+        emit_line("OPTEL", step=step, **_optel_vs_metrics())
         if kind == "hang" and step + 1 == at:
             # the hang restores the wedged step's frame: the drill waits
             # out this drain so that step's save is not skipped as busy
@@ -2846,8 +3137,12 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         "DLROVER_TPU_TRACE_DIR": bundle_dir,
         "DLROVER_TPU_TRACE_BUNDLE_COOLDOWN_S": "0",
     })
+    # the standalone master's HTTP routes, read while the run lasts
+    master_http = f"127.0.0.1:{find_free_port('127.0.0.1')}"
+    env["DLROVER_TPU_HTTP_PORT"] = master_http.rsplit(":", 1)[1]
     log_path = os.path.join(ckpt_root, f"{job}.log")
     t0 = time.time()
+    scraped = {}
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-c", ELASTIC_AGENT, "--standalone",
@@ -2858,7 +3153,11 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
             env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
             cwd=REPO, start_new_session=True)
         try:
-            rc = proc.wait(timeout=timeout)
+            deadline = time.monotonic() + timeout
+            while proc.poll() is None and time.monotonic() < deadline:
+                _scrape_master(master_http, scraped)
+                time.sleep(1.0)
+            rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
         finally:
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL)
@@ -2882,6 +3181,8 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
     starts = {r["restart"]: r for r in _lines(text, "START")}
     step_lines = _lines(text, "STEP")
     arc = _ckpt_arc(bundle_dir, step_lines)
+    attribution = _attribution_checks(scraped, bundle_dir, ckpt_root, job,
+                                      _lines(text, "OPTEL"), text)
     shutil.rmtree(bundle_dir, ignore_errors=True)
     kills = {r["killed_at_step"]: r["ts"] for r in
              (json.loads(ln) for ln in text.splitlines()
@@ -3005,11 +3306,185 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         jax_modules_agent=agent_modules,
         jax_modules_workers=[m["forbidden"] for m in modules],
         agent_chaos_bundle=arc["chaos_bundle"], ckpt_arc=arc["shared"],
-        device_timer=timer, card=_card() if device.type == "cuda" else None))
+        device_timer=timer, attribution=attribution["row"],
+        card=_card() if device.type == "cuda" else None))
+    problems.extend(attribution["problems"])
     if problems:
         raise AssertionError("elastic: " + "; ".join(problems)
                              + "\n" + text[-6000:])
     return per_run
+
+
+def _scrape_master(addr, scraped):
+    """The standalone master's ``/heartbeats``, ``/memory`` and ``/events``
+    into ``scraped`` (the newest answer of each; a route that does not
+    answer keeps the last)."""
+    for route in ("/heartbeats", "/memory", "/events"):
+        try:
+            scraped[route] = json.loads(_http_get(addr, route, timeout_s=5.0,
+                                                  attempts=1))
+        except (OSError, ValueError):
+            continue
+
+
+def _attribution_checks(scraped, bundle_dir, ckpt_root, job, optel, text):
+    """Phase 8's attribution plane, from the master's last answers and the
+    run's files: every beat that reported a step carried op telemetry and
+    a memory ledger; the last beat of each faulted incarnation carried the
+    compute count its worker's device-timer /metrics gave at its last
+    publish; ``/memory`` names rank 0 on node 0; no straggler or hang
+    verdict at world 1; the first incarnation's memory-pressure fault is
+    journaled and its bundle holds ``memory.json``, which the report CLI
+    renders; and the report CLI prints one incident a fault of the
+    journal. Returns ``{"row", "problems"}``."""
+    problems, row = [], {}
+    beats = scraped.get("/heartbeats", {}).get("0", {})
+    rounds = {int(k): v for k, v in beats.items()}
+    row["beats"] = {r: {k: v for k, v in rec.items()
+                        if not k.startswith("last_")}
+                    for r, rec in sorted(rounds.items())}
+    # a beat reports a step once the agent's progress poll (every 5 s)
+    # saw one: the three faulted incarnations live that long, the last
+    # (two steps) may not
+    stepped = [rec for rec in rounds.values() if rec["stepped"]]
+    if len(rounds) != 4 or len(stepped) < 3 or any(
+            rec["stepped_with_op_telemetry"] != rec["stepped"]
+            or rec["stepped_with_memory"] != rec["stepped"]
+            for rec in stepped):
+        problems.append(f"beats without telemetry: {row['beats']}")
+    # every incarnation is one rendezvous round
+    by_restart = dict(enumerate(sorted(rounds)))
+    kills = {int(json.loads(ln)["killed_at_step"]) for ln in text.splitlines()
+             if ln.startswith('{"killed_at_step"')}
+    row["last_beat_compute"] = {}
+    for restart in (0, 1, 2):
+        lines = [r for r in optel if r["restart"] == restart]
+        rnd = by_restart.get(restart)
+        if not lines or rnd is None:
+            problems.append(f"incarnation {restart}: no OPTEL lines or "
+                            f"beats")
+            continue
+        # a killed incarnation's kill step is never published
+        published = [r for r in lines if r["step"] not in kills]
+        last = max(published, key=lambda r: r["step"])
+        snap = rounds[rnd]["last_op_telemetry"].get("0", {})
+        got = snap.get("classes", {}).get("compute", {}).get("n")
+        row["last_beat_compute"][restart] = dict(
+            beat=got, worker=last["compute_n"], metrics=last["mm_compute"],
+            step=last["step"])
+        if not (got == last["compute_n"] == last["mm_compute"] > 0):
+            problems.append(f"incarnation {restart}: last beat's compute "
+                            f"{got}, the worker's {last}")
+    memory = scraped.get("/memory", {})
+    row["memory_ranks"] = {r: {"node_id": v.get("node_id"),
+                               "headroom_frac": v.get("headroom_frac"),
+                               "categories": v.get("categories")}
+                           for r, v in memory.get("ranks", {}).items()}
+    if memory.get("ranks", {}).get("0", {}).get("node_id") != 0:
+        problems.append(f"/memory does not name rank 0 on node 0: "
+                        f"{row['memory_ranks']}")
+    journal = scraped.get("/events", {"events": []})
+    kinds = [e["kind"] for e in journal["events"]]
+    row["journal_kinds"] = {k: kinds.count(k) for k in sorted(set(kinds))}
+    if "straggler_detected" in kinds or "hang_attributed" in kinds:
+        problems.append(f"a skew verdict at world 1: {row['journal_kinds']}")
+    if "memory_pressure" not in kinds:
+        problems.append("the memory-pressure fault was not journaled")
+    bundles = [n for n in (os.listdir(bundle_dir)
+                           if os.path.isdir(bundle_dir) else [])
+               if n.startswith("bundle_worker_0_memory_pressure_")]
+    journal_path = os.path.join(ckpt_root, f"{job}_journal.json")
+    with open(journal_path, "w") as f:
+        json.dump(journal, f)
+    report = {}
+    for name, source in (("bundle", os.path.join(bundle_dir, bundles[0])
+                          if bundles else None), ("journal", journal_path)):
+        if source is None:
+            problems.append("no memory-pressure bundle")
+            continue
+        r = subprocess.run(
+            [sys.executable, "-m", "dlrover_tpu_torch.observability.report",
+             source], capture_output=True, text=True, timeout=120,
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO))
+        report[name] = dict(rc=r.returncode, text=r.stdout)
+    os.remove(journal_path)
+    if bundles:
+        files = sorted(os.listdir(os.path.join(bundle_dir, bundles[0])))
+        row["memory_bundle_files"] = files
+        if ("memory.json" not in files or report["bundle"]["rc"] != 0
+                or "device memory (HBM ledger at capture):"
+                not in report["bundle"]["text"]):
+            problems.append(f"the memory bundle {files} and its report "
+                            f"{report.get('bundle')}")
+    row["report_journal"] = report["journal"]["text"].splitlines()[:8]
+    faults = ("killed at 3", "torn 6 and killed", "hang after 8")
+    if (report["journal"]["rc"] != 0 or not report["journal"]["text"]
+            .startswith(f"incident report: {len(faults)} incident(s)")):
+        problems.append(f"the report of the journal: {report['journal']}")
+    return {"row": row, "problems": problems}
+
+
+# the straggler leg: steps of the drill, and the bf16 GEMMs a step at the
+# train step's MLP shape (16384 x 4096 . 4096 x 11008)
+STRAGGLER_STEPS = 24
+STRAGGLER_MATMULS = 4
+STRAGGLER_MM_SHAPE = "16384,4096,11008"
+
+
+def straggler_phase(device, timeout=240):
+    """The straggler drill on the card (module docstring): two port agents
+    of one worker each on this card, through
+    ``examples/chaos_goodput_torch.py --straggler-only --tpu-timer``."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DLROVER_")}
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, "examples",
+                                      "chaos_goodput_torch.py"),
+         "--device", device.type, "--straggler-only", "--tpu-timer",
+         "--steps", str(STRAGGLER_STEPS), "--step-time", "0",
+         "--matmuls", str(STRAGGLER_MATMULS), "--mm-shape",
+         STRAGGLER_MM_SHAPE],
+        capture_output=True, text=True, timeout=timeout, cwd=REPO, env=env)
+    if r.returncode != 0:
+        raise AssertionError(f"straggler: the drill exited {r.returncode}:\n"
+                             + r.stderr[-6000:])
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    s = res["straggler"]
+    row = dict(phase="straggler", seconds=time.perf_counter() - t0,
+               detect_s=res["straggler_detect_s"], rank=s["rank"],
+               cause=s["cause"], ratio=s["ratio"], mean_us=s["mean_us"],
+               median_us=s["median_us"],
+               skew_ratio_mid=res["skew_ratio_mid"],
+               stack_dump=res["stack_dump"], done=res["done"],
+               worker_errors=res["worker_errors"],
+               steps=STRAGGLER_STEPS, matmuls_per_step=STRAGGLER_MATMULS,
+               wall_s=res["wall_s"])
+    emit(row)
+    problems = []
+    if (s["rank"], s["cause"]) != (1, "compute") or not s["ratio"] > 2.0:
+        problems.append(f"the verdict {s}")
+    if not res["straggler_rank_alive"] or res["verdicts_before_delay"]:
+        problems.append("a verdict before the delay, or rank 1 dead")
+    if not (res["stack_dump"]["source"] == "agent_1"
+            and res["stack_dump"]["holds_worker_stack"]):
+        problems.append(f"the stack dump {res['stack_dump']}")
+    if not res["skew_ratio_mid"] > 0:
+        problems.append(f"the skew gauge {res['skew_ratio_mid']}")
+    # every rank's compute class holds the hook's card-timed GEMMs
+    for d in res["done"]:
+        if (d["hooked_gemms"] != STRAGGLER_MATMULS * STRAGGLER_STEPS
+                or d["compute_n"] < d["hooked_gemms"]):
+            problems.append(f"rank {d['rank']}: {d}")
+    if (len(res["done"]) != 2 or res["forbidden_modules"]
+            or res["agent_exit_codes"] != {"0": 0, "1": 0}):
+        problems.append(f"done {res['done']}, modules "
+                        f"{res['forbidden_modules']}, agents exited "
+                        f"{res['agent_exit_codes']}")
+    if problems:
+        raise AssertionError("straggler: " + "; ".join(problems)
+                             + "\n" + r.stderr[-6000:])
+    return row
 
 
 def _run_children(args, job, ranks=1, timeout=900):
@@ -3333,6 +3808,7 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
     from dlrover_tpu_torch.ckpt.ckpt_saver import latest_step
     from dlrover_tpu_torch.common.config import get_context
     from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
+    from dlrover_tpu_torch.common.rpc import find_free_port
     from dlrover_tpu_torch.master.master import LocalJobMaster
 
     cfg = {f.name: getattr(config, f.name)
@@ -3352,11 +3828,18 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
     master.prepare()
     logs = []
 
+    # each agent's device-timer daemon and its workers' metric ports: the
+    # hook's entry markers of the NCCL all-reduces ride the beats
+    timer_ports = {r: (find_free_port("127.0.0.1"),
+                       find_free_port("127.0.0.1")) for r in (0, 1)}
+
     def start_agent(rank):
         env = {k: v for k, v in os.environ.items()
                if not k.startswith("DLROVER_")}
         env.update({"PYTHONPATH": REPO,
-                    "DLROVER_TPU_HEARTBEAT_INTERVAL_S": "1"})
+                    "DLROVER_TPU_HEARTBEAT_INTERVAL_S": "1",
+                    "TPU_TIMER_DAEMON_PORT": str(timer_ports[rank][0]),
+                    "TPU_TIMER_PORT": str(timer_ports[rank][1])})
         if device.type == "cuda":
             env["CUDA_VISIBLE_DEVICES"] = ",".join(
                 str(rank * per_node + i) for i in range(per_node))
@@ -3367,6 +3850,7 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
                  f"--master-addr={master.addr}", "--nnodes=1:2",
                  f"--node-rank={rank}", f"--nproc-per-node={per_node}",
                  f"--job_name={job}", "--monitor-interval=0.1",
+                 "--tpu-timer",
                  "--max-restarts=3", f"--ckpt_dir={ckpt_dir}",
                  os.path.abspath(__file__), "--node-child",
                  json.dumps(args)],
@@ -3407,6 +3891,21 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
         wait(lambda: latest_step(ckpt_dir) >= storage_every,
              f"storage commit of step {storage_every}")
         killed_after = max(r["step"] for r in step_lines())
+        # steady state: every rank entered the same number of collectives
+        # (the steps are paced, so the ranks idle together between them)
+        # and the skew monitor sees no hang
+        steady = {}
+
+        def equal_collectives():
+            steady["coll"] = master.skew_monitor.last_collectives()
+            seqs = {c.get("seq", 0) for c in steady["coll"].values()}
+            return len(steady["coll"]) == ranks and len(seqs) == 1 \
+                and seqs.pop() > 0
+        wait(equal_collectives, "equal collective counters", 60)
+        steady["hang"] = master.skew_monitor.current_verdicts()["hang"]
+        if steady["hang"] is not None:
+            raise AssertionError(f"node drill: a hang verdict in steady "
+                                 f"state: {steady}")
         os.killpg(agents[1].pid, signal.SIGKILL)
         t_kill = time.time()
         agents.pop(1).wait()
@@ -3455,6 +3954,7 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
     emit(dict(
         phase="node_drill", ranks=ranks, per_node=per_node, steps=steps,
         killed_after_step=killed_after, rejoin_at=rejoin_at,
+        steady_collectives=steady["coll"],
         agent_exit=codes,
         detect_s=detect_s, segments=segments,
         losses=[losses.get(s) for s in range(1, steps + 1)],
@@ -3689,6 +4189,12 @@ def main(argv) -> int:
             shutil.rmtree(root, ignore_errors=True)
         _print_card()
         return 0
+    if argv[1:] == ["--straggler"]:
+        # the straggler leg alone; no result line
+        _build_report()
+        straggler_phase(device)
+        _print_card()
+        return 0
     if argv[1:] == ["--timer"]:
         # the device timer alone: the timer phase, no result line
         timer_phase(device)
@@ -3773,6 +4279,7 @@ def main(argv) -> int:
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
         worker.shutdown()
+    straggler_phase(device)
 
     replaces = {
         "flash_fwd": ("dlrover_tpu_torch/ops/csrc/flash_fwd.cu",

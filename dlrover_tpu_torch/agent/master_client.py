@@ -216,8 +216,11 @@ class MasterClient:
         return resp.values
 
     def heartbeat(self, global_step: int = 0, step_timestamp: float = 0.0,
-                  gauges=None, rdzv_round: int = -1
-                  ) -> comm.HeartbeatResponse:
+                  gauges=None, rdzv_round: int = -1, op_telemetry=None,
+                  memory=None) -> comm.HeartbeatResponse:
+        """One beat: progress, the device timer's gauges, and the local
+        ranks' op-class telemetry and memory ledgers keyed by global rank
+        (empty: the field is omitted)."""
         return self._client.call(
             "heartbeat",
             comm.HeartbeatRequest(node_id=self._node_id,
@@ -225,8 +228,21 @@ class MasterClient:
                                   global_step=global_step,
                                   step_timestamp=step_timestamp,
                                   rdzv_round=rdzv_round,
-                                  gauges=gauges or {}),
+                                  gauges=gauges or {},
+                                  op_telemetry=op_telemetry or {},
+                                  memory=memory or {}),
             retries=_HEARTBEAT_RETRIES)
+
+    def report_resource_stats(self, cpu_percent: float, mem_used_mb: float,
+                              device_util=None, device_mem_mb=None,
+                              device_mem_total_mb=None) -> None:
+        self._client.call(
+            "report_resource_stats",
+            comm.ResourceStats(
+                node_id=self._node_id, cpu_percent=cpu_percent,
+                mem_used_mb=mem_used_mb, device_util=device_util or {},
+                device_mem_mb=device_mem_mb or {},
+                device_mem_total_mb=device_mem_total_mb or {}))
 
     # -- serving -----------------------------------------------------------
 

@@ -22,7 +22,9 @@ runs on each host:
    AsyncCheckpointSaver`) and requeues the node's shard leases.
 
 The agent serves the workers' IPC (:class:`LocalIPCServer`: frame locks,
-the save-event queue, progress) and forwards their steps to the master.
+the save-event queue, progress) and forwards their steps to the master;
+an incarnation's first step is also reported as ``step_resumed``, which
+closes a recovery in the master's journal.
 Its rendezvous rounds, spawns, worker failures, restarts and breakpoint
 saves are events of target ``agent_<node_rank>`` (``common/event.py``:
 the log, and JSONL under ``DLROVER_TPU_EVENT_DIR``).
@@ -37,6 +39,19 @@ gauges, so the master's hang rule hears each node's vote; a rising hang
 gauge pulls the workers' stacks and requests a ``torch.profiler`` trace
 from each, and a wedged restart waits for that evidence first.
 
+Every beat also carries the workers' cumulative op-class telemetry and
+memory ledgers, re-keyed by global rank (``agent/monitor.py``), for the
+master's skew monitor and fleet memory monitor, and a
+:class:`ResourceMonitor` reports host usage and the workers' card memory
+every ``resource_report_interval_s``. A ``STACK_DUMP`` action (the
+master's straggler rule naming one of this node's ranks) captures
+evidence from the named rank's worker on a thread of its own without
+touching the training: through the device timer's daemon (so with
+``--tpu-timer``), its Python stack; the agent reports
+``stack_dump_captured`` with the file's path to the master. Unlike the
+reference it requests no ``torch.profiler`` trace of the live worker: on
+the card such a capture took its worker down at exit (ROADMAP C16).
+
 Tracing: a rendezvous round is one ``rdzv.client_round`` trace (the
 client's join and world-wait spans and the master's join and cut spans
 nest under it), and a restart the master ordered runs under
@@ -46,9 +61,9 @@ flight recorder captures a bundle on an unhandled exception and on every
 injected fault (its reporter also reports ``fault_injected`` to the
 master), and with ``DLROVER_TPU_AGENT_METRICS_PORT`` set (0: a free port;
 else the port plus the node rank) the agent serves ``GET /metrics`` and
-``/debug/bundle``. Not ported: warm spawn, the actor host, the
-master-requested stack dump (A11c), fan-in, the partition-degraded mode,
-the replica and reshard services, the network check.
+``/debug/bundle``. Not ported: warm spawn, the actor host, fan-in, the
+partition-degraded mode, the replica and reshard services, the network
+check.
 """
 
 import os
@@ -66,7 +81,13 @@ from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.agent.config import ElasticLaunchConfig
 from dlrover_tpu_torch.agent.master_client import MasterClient
-from dlrover_tpu_torch.agent.monitor import TrainingMonitor
+from dlrover_tpu_torch.agent.monitor import (
+    MemorySnapshotCollector,
+    OpTelemetryCollector,
+    ResourceMonitor,
+    TrainingMonitor,
+    device_stats_from_ipc,
+)
 from dlrover_tpu_torch.common.comm import NodeMeta
 from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.config import get_context
@@ -231,6 +252,10 @@ class ElasticTrainingAgent:
             local_world_size=config.nproc_per_node,
             stack_mode="all" if shutil.which("gdb") else "python",
             peer_failed=self._peer_failed)
+        # the workers' op-class telemetry and memory ledgers, re-keyed by
+        # global rank for the beat
+        self._op_telemetry = OpTelemetryCollector(self._ipc_server)
+        self._mem_snapshots = MemorySnapshotCollector(self._ipc_server)
 
     def _maybe_start_metrics_server(self) -> Optional[HTTPTransportServer]:
         """``GET /metrics`` and ``/debug/bundle``, when
@@ -442,12 +467,18 @@ class ElasticTrainingAgent:
     def _heartbeat_loop(self) -> None:
         interval = get_context().heartbeat_interval_s
         while not self._stop_flag.wait(interval):
+            # the workers' telemetry before the step: a restart zeroes the
+            # step before it clears the telemetry, so a beat that reports
+            # a step never misses the telemetry that came with it
+            gauges = self._diagnosis.collect_gauges()
+            op_telemetry = self._op_telemetry.collect()
+            memory = self._mem_snapshots.collect()
             try:
                 resp = self._client.heartbeat(
                     global_step=self._last_global_step,
                     step_timestamp=self._last_step_ts,
-                    gauges=self._diagnosis.collect_gauges(),
-                    rdzv_round=self._current_round)
+                    gauges=gauges, rdzv_round=self._current_round,
+                    op_telemetry=op_telemetry, memory=memory)
             except (ConnectionError, RuntimeError):
                 logger.warning("node %s heartbeat failed",
                                self._config.node_rank)
@@ -457,11 +488,46 @@ class ElasticTrainingAgent:
     def _handle_heartbeat_action(self, resp) -> None:
         if resp.action_type == DiagnosisActionType.NONE:
             return
+        if resp.action_type == DiagnosisActionType.STACK_DUMP:
+            # evidence only: the workers keep training
+            self._capture_stack_dump(dict(resp.action_data or {}))
+            return
         with self._action_lock:
             self._pending_action = (resp.action_type,
                                     dict(resp.action_data or {}))
         logger.info("received diagnosis action %s (%s)", resp.action_type,
                     resp.action_data)
+
+    def _capture_stack_dump(self, action_data: Dict) -> None:
+        """Serve the straggler rule's ``STACK_DUMP`` for the named rank's
+        worker (every local worker when it is not this node's): its
+        Python stack through the device timer's daemon, on a thread of its
+        own (a stack capture can take seconds a worker); reports
+        ``stack_dump_captured`` with the file's path ('' when the daemon
+        gave none) to the master. The span joins the trace of the master's
+        verdict, whose context the action's data carries."""
+        carried = tracing.extract_wire(action_data.get(tracing.WIRE_KEY))
+        rank = action_data.get("rank", -1)
+        named = [w for w in self._workers if w.global_rank == rank]
+
+        def capture():
+            try:
+                with tracing.activate(carried), tracing.span(
+                        SpanName.AGENT_STACK_DUMP,
+                        source=f"agent_{self._config.node_rank}",
+                        rank=rank):
+                    path = self._diagnosis.capture_worker_stacks(
+                        pid=named[0].proc.pid if named else None)
+                self._client.report_event(
+                    JournalEvent.STACK_DUMP_CAPTURED,
+                    {"rank": rank, "cause": action_data.get("cause", ""),
+                     "path": path})
+            except Exception:  # noqa: BLE001 — evidence is best-effort;
+                # the training plane stays untouched
+                logger.warning("stack-dump capture failed", exc_info=True)
+
+        threading.Thread(target=capture, name="stack-dump",
+                         daemon=True).start()
 
     def _take_pending_action(self):
         """(action_type, action_data), or (None, {})."""
@@ -470,6 +536,11 @@ class ElasticTrainingAgent:
             return pending if pending is not None else (None, {})
 
     def observe_global_step(self, step: int, ts: float) -> None:
+        if self._last_step_ts == 0.0:
+            # the incarnation's first step: training is live again (the
+            # master's journal closes a recovery here)
+            self._client.report_event(JournalEvent.STEP_RESUMED,
+                                      {"step": step})
         self._last_global_step = step
         self._last_step_ts = ts
 
@@ -499,6 +570,12 @@ class ElasticTrainingAgent:
             self._ipc_server, self._client, on_step=self.observe_global_step,
             round_provider=lambda: self._current_round)
         self._training_monitor.start()
+        resource_monitor = ResourceMonitor(
+            self._client,
+            interval_s=get_context().resource_report_interval_s,
+            extra_device_stats=lambda: device_stats_from_ipc(
+                self._ipc_server))
+        resource_monitor.start()
         timer_daemon = None
         try:
             if self._config.tpu_timer:
@@ -513,6 +590,7 @@ class ElasticTrainingAgent:
         finally:
             self._stop_flag.set()
             self._training_monitor.stop()
+            resource_monitor.stop()
             self._stop_workers()
             if timer_daemon is not None:
                 timer_daemon.kill()

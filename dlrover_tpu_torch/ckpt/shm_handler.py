@@ -20,6 +20,10 @@ The writer streams: a buffer may be a numpy array or any object with
 larger than the pinned staging ring passes through it. The crash-safe
 order is the reference's: zero the length word, write the data and the
 meta, seal by writing the length word last.
+
+A handler's mapped segment is its ``staging`` claim in the memory ledger
+(``observability/memory.py``), synced to the mapped size whenever the
+segment is created, opened or closed (0: released).
 """
 
 import os
@@ -132,6 +136,16 @@ class SharedMemoryHandler:
     def name(self) -> str:
         return self._name
 
+    def _ledger(self) -> None:
+        """Sync this segment's claim in the memory ledger to its mapped
+        size (0 = released)."""
+        from dlrover_tpu_torch.common.constants import MetricLabel
+        from dlrover_tpu_torch.observability.memory import get_accountant
+
+        get_accountant().adjust(
+            MetricLabel.MEM_STAGING, f"ckpt_shm/{self._name}",
+            int(self._shm.size) if self._shm is not None else 0)
+
     def _ensure(self, size: int) -> bool:
         if self._shm is not None and self._shm.size >= size:
             return True
@@ -140,18 +154,21 @@ class SharedMemoryHandler:
             self._shm = None
         alloc = max(1024, int(size * 1.05))
         self._shm = create_shared_memory(self._name, create=True, size=alloc)
+        self._ledger()
         return self._shm is not None
 
     def open(self) -> bool:
         if self._shm is not None:
             return True
         self._shm = create_shared_memory(self._name, create=False)
+        self._ledger()
         return self._shm is not None
 
     def close(self) -> None:
         if self._shm is not None:
             self._shm.close()
             self._shm = None
+            self._ledger()
         if self._fd is not None:
             try:
                 os.close(self._fd)

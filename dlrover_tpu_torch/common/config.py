@@ -35,6 +35,8 @@ class DefaultValues:
     # --- hang detection ---
     hang_downtime_s: float = 1800.0
     diagnosis_interval_s: float = 60.0
+    # how often an agent reports host and card usage to the master
+    resource_report_interval_s: float = 15.0
     # observe-only unless set: the hang rule then restarts the workers
     hang_restart_workers: bool = False
     # --- flash checkpoint ---

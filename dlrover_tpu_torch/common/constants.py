@@ -139,6 +139,9 @@ class ChaosSite:
     SERVE_REPLICA = "serve.replica"
     SERVE_PREFIX = "serve.prefix"
     DATA_DISPATCH = "data.dispatch"
+    # the memory accountant (observability/memory.py): an injected error
+    # here forces the pressure → journal → bundle path
+    MEM_PRESSURE = "mem.pressure"
 
 
 class SpanName:
@@ -181,6 +184,8 @@ class SpanName:
     # the detect → relaunch arc (master/master.py → agent/training.py)
     FAULT_RELAUNCH = "fault.relaunch"
     AGENT_RESTART_WORKERS = "agent.restart_workers"
+    # the straggler rule's evidence capture on the agent
+    AGENT_STACK_DUMP = "agent.stack_dump"
     # span events: the retry plane, the chaos plane, serving re-routes
     EVT_RPC_RETRY = "rpc.retry"
     EVT_BREAKER_OPEN = "rpc.breaker_open"
@@ -220,6 +225,30 @@ class MetricLabel:
     # the checkpoint-commit trigger the incident stitcher's counterfactual
     # scores (a brain's pre-emptive save)
     CKPT_TRIGGER_PREEMPTIVE = "preemptive"
+    # device-memory ledger categories (observability/memory.py): every
+    # byte the accountant tracks is attributed to exactly one
+    MEM_PARAMS = "params"
+    MEM_OPT_STATE = "opt_state"
+    MEM_ACTIVATIONS = "activations"
+    MEM_KV_CACHE = "kv_cache"
+    MEM_PREFIX_CACHE = "prefix_cache"
+    MEM_STAGING = "staging"
+    MEM_OTHER = "other"
+    MEMORY_CATEGORIES = (
+        MEM_PARAMS, MEM_OPT_STATE, MEM_ACTIVATIONS, MEM_KV_CACHE,
+        MEM_PREFIX_CACHE, MEM_STAGING, MEM_OTHER,
+    )
+    # the varying dimension a recompile storm is attributed to
+    # (observability/compile_watch.py)
+    STORM_DIM_BATCH = "batch"
+    STORM_DIM_SEQ_LEN = "seq_len"
+    STORM_DIM_FN = "fn"
+    STORM_DIM_DTYPE = "dtype"
+    STORM_DIM_UNKNOWN = "unknown"
+    STORM_DIMS = (
+        STORM_DIM_BATCH, STORM_DIM_SEQ_LEN, STORM_DIM_FN, STORM_DIM_DTYPE,
+        STORM_DIM_UNKNOWN,
+    )
 
 
 class EnvKey:
@@ -268,6 +297,10 @@ class ConfigKey:
     # worker: process-group shutdown and peer-heartbeat timeouts (s)
     DIST_SHUTDOWN_S = "DLROVER_TPU_DIST_SHUTDOWN_S"
     DIST_HEARTBEAT_S = "DLROVER_TPU_DIST_HEARTBEAT_S"
+    # worker: the default process group's backend (unset: nccl on a card,
+    # gloo on the CPU); gloo lets ranks that share one card form a world,
+    # which NCCL refuses
+    DIST_BACKEND = "DLROVER_TPU_DIST_BACKEND"
     # serving: int8 KV cache in the batched engine (default off), radix
     # prefix-cache reuse on/off, its byte budget and match-block quantum,
     # and the speculative draft length k
@@ -332,6 +365,16 @@ class ConfigKey:
     SERVE_TAIL_PCTL = "DLROVER_TPU_SERVE_TAIL_PCTL"
     SERVE_TAIL_MIN_WINDOW = "DLROVER_TPU_SERVE_TAIL_MIN_WINDOW"
     SERVE_TRACE_WORST = "DLROVER_TPU_SERVE_TRACE_WORST"
+    # the skew monitor (master/skew_monitor.py): the straggler multiple of
+    # the lower median, and the snapshots kept per rank
+    SKEW_THRESHOLD = "DLROVER_TPU_SKEW_THRESHOLD"
+    SKEW_WINDOW = "DLROVER_TPU_SKEW_WINDOW"
+    # the memory accountant (observability/memory.py): a synthetic device
+    # limit where the device gives none, and the pressure threshold as a
+    # fraction of the limit; the compile watch's storm size
+    HBM_LIMIT_BYTES = "DLROVER_TPU_HBM_LIMIT_BYTES"
+    MEM_PRESSURE_FRAC = "DLROVER_TPU_MEM_PRESSURE_FRAC"
+    COMPILE_STORM_N = "DLROVER_TPU_COMPILE_STORM_N"
 
 
 class CheckpointConstant:
@@ -348,6 +391,12 @@ class CheckpointConstant:
 
 class SharedResourceName:
     """Names of agent-served IPC resources."""
+
+    # key prefixes in the workers' training-metrics SharedDict: a worker
+    # publishes its cumulative op-class histograms under
+    # ``optel/<local_rank>`` and its memory ledger under ``mem/<local_rank>``
+    OPTEL_KEY_PREFIX = "optel/"
+    MEM_KEY_PREFIX = "mem/"
 
     SAVE_LOCK = "flash_ckpt_save_lock"
     SAVE_EVENT_QUEUE = "flash_ckpt_event_queue"

@@ -33,8 +33,11 @@ journal events (``fabric_source_failed``, ``fabric_stripe_retried``,
 counts ``dlrover_fabric_bytes_total{source}``,
 ``dlrover_fabric_stripe_retries_total``,
 ``dlrover_fabric_sessions_total{outcome}`` and
-``dlrover_fabric_session_seconds``, the reference's families. Not ported
-yet: topology-ranked sources and per-source key aliases.
+``dlrover_fabric_session_seconds``, the reference's families. A fetch's
+assembly buffer is a ``staging`` claim in the memory ledger
+(``observability/memory.py``) from the session's start until ``run``
+hands the payload off. Not ported yet: topology-ranked sources and
+per-source key aliases.
 """
 
 import random
@@ -49,6 +52,7 @@ from dlrover_tpu_torch.common import comm
 from dlrover_tpu_torch.common.constants import (
     ChaosSite,
     ConfigKey,
+    MetricLabel,
     SpanName,
     env_int,
 )
@@ -56,6 +60,7 @@ from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.common.rpc import RPCClient, RPCError, RPCServer
 from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.observability.journal import JournalEvent
+from dlrover_tpu_torch.observability.memory import get_accountant
 from dlrover_tpu_torch.observability.registry import get_registry
 
 FABRIC_CONNECT_SITE = ChaosSite.FABRIC_CONNECT
@@ -220,6 +225,11 @@ class _FetchSession:
         self.sources = list(sources)
         self.stripes = stripes
         self.buf = bytearray(total)
+        # the assembly buffer is the fabric's staging claim in the memory
+        # ledger, released when run() hands the payload off
+        self._ledger_name = f"fabric/{key}/{step}"
+        get_accountant().register(
+            MetricLabel.MEM_STAGING, self._ledger_name, total)
         self._cond = threading.Condition()
         self._abort_evt = threading.Event()
         self._missing = set(range(len(stripes)))
@@ -373,6 +383,7 @@ class _FetchSession:
             if got != self.crc:
                 abort = "content_mismatch"
                 detail = f"assembled crc {got} != content address {self.crc}"
+        get_accountant().release(MetricLabel.MEM_STAGING, self._ledger_name)
         return abort, detail
 
     def stats(self) -> Dict[str, Any]:

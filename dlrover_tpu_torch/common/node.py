@@ -1,8 +1,8 @@
 """A node of the job and its status machine.
 
-The port's copy of ``dlrover_tpu/common/node.py`` (``Node`` and
-``transition_allowed``), trimmed of the resource and scheduling fields
-that only a pod-relaunching master reads.
+The port's copy of ``dlrover_tpu/common/node.py`` (``Node``, the usage
+part of ``NodeResource`` and ``transition_allowed``), trimmed of the
+resource and scheduling fields that only a pod-relaunching master reads.
 """
 
 import time
@@ -34,6 +34,17 @@ def transition_allowed(from_status: str, to_status: str) -> bool:
 
 
 @dataclass
+class NodeResource:
+    """A node's reported usage (``rpc_report_resource_stats``)."""
+
+    cpu: float = 0.0
+    memory_mb: float = 0.0
+    # mean card duty-cycle % over the last report (None = no telemetry;
+    # diagnosis must not infer a stall from absence)
+    device_util: Optional[float] = None
+
+
+@dataclass
 class Node:
     """One host of the job. Its stamps are master-monotonic seconds: they
     only exist to be subtracted (heartbeat timeout, uptime)."""
@@ -57,6 +68,7 @@ class Node:
     contact_time: float = 0.0
     # the agent's reported wall time, for display only
     agent_report_ts: float = 0.0
+    used_resource: NodeResource = field(default_factory=NodeResource)
 
     def update_status(self, status: str) -> bool:
         if transition_allowed(self.status, status):

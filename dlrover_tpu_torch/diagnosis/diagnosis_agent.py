@@ -261,10 +261,12 @@ class DiagnosisAgent:
         out_dir: Optional[str] = None,
         mode: Optional[str] = None,
         timeout_s: Optional[float] = None,
+        pid: Optional[int] = None,
     ) -> str:
-        """Fetch every worker's stacks through the daemon's /stacktrace
-        (faulthandler readback, and gdb where installed) and persist them;
-        returns the dump path ('' on failure)."""
+        """Fetch every worker's stacks (``pid``: that worker's only)
+        through the daemon's /stacktrace (faulthandler readback, and gdb
+        where installed) and persist them; returns the dump path ('' on
+        failure)."""
         import urllib.request
 
         port = self._timer_port if port is None else port
@@ -274,6 +276,8 @@ class DiagnosisAgent:
             # worst case ~22s/worker (gdb timeout + dump wait), serial
             timeout_s = 30.0 + 25.0 * 8
         url = f"http://{host}:{port}/stacktrace?mode={mode}"
+        if pid:
+            url += f"&pid={int(pid)}"
         try:
             with urllib.request.urlopen(url, timeout=timeout_s) as resp:
                 text = resp.read().decode()

@@ -31,14 +31,30 @@ replica's after the serve registry dropped it, so a bundle never delays
 the re-route). With ``DLROVER_TPU_HTTP_PORT`` set (0: a free port) an
 :class:`HTTPTransportServer` serves the servicer's methods over ``POST
 /rpc`` and ``GET /metrics``, ``/events``, ``/debug/bundle`` and
-``/incidents``. ``stop`` takes the journal's, the recorder's and the
-incident stitcher's collect hooks off the registry. ``run`` blocks until
-the job succeeds or fails. Not ported: the brain (and ``/brain``), the
-memory monitor (``/memory``), fan-in, state snapshots, the
-network-check rendezvous, and starting the training auto-scaler from the
-master itself.
+``/incidents``, ``/memory`` and ``/heartbeats`` (what each node's beats
+carried, per rendezvous round). ``stop`` takes the journal's, the
+recorder's and the incident stitcher's collect hooks off the registry.
+``run`` blocks until the job succeeds or fails.
+
+Attribution and device memory: the agents' beats feed the
+:class:`SkewMonitor` (straggler and hang verdicts, journaled and gauged;
+its straggler history biases the training rendezvous's world cut and its
+verdicts drive the straggler rule's ``STACK_DUMP``; a failed node's
+windows are dropped) and the
+:class:`FleetMemoryMonitor` (the min-headroom rank, ``GET /memory``);
+the master's own :class:`MemoryAccountant` journals into its journal and
+captures a ``memory_pressure`` bundle on a breach, and every bundle holds
+``memory.json`` (the master's ledger and the fleet view). Resource
+reports land in the job metric context the metric-stall rule reads, and
+a :class:`JobMetricCollector` snapshots the job every 15 s.
+
+Not ported: the brain (and ``/brain``, and with it the pre-scale guard
+that reads the fleet headroom, ROADMAP A14), straggler-driven shard
+stealing (A13), fan-in, state snapshots, the network-check rendezvous,
+and starting the training auto-scaler from the master itself.
 """
 
+import json
 import time
 from typing import Dict, Optional
 
@@ -55,6 +71,7 @@ from dlrover_tpu_torch.common.constants import (
 )
 from dlrover_tpu_torch.common.http_server import HTTPTransportServer
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.common.metric import JobMetricContext
 from dlrover_tpu_torch.common.rpc import RPCServer
 from dlrover_tpu_torch.diagnosis.action import DiagnosisAction
 from dlrover_tpu_torch.diagnosis.diagnosis_master import DiagnosisMaster
@@ -66,9 +83,12 @@ from dlrover_tpu_torch.master.rdzv_manager import (
     RendezvousManager,
 )
 from dlrover_tpu_torch.master.servicer import MasterServicer
+from dlrover_tpu_torch.master.skew_monitor import SkewMonitor
+from dlrover_tpu_torch.master.stats import JobMetricCollector
 from dlrover_tpu_torch.master.task_manager import TaskManager
 from dlrover_tpu_torch.observability import tracing
 from dlrover_tpu_torch.observability.flight_recorder import (
+    REASON_MEMORY,
     REASON_NODE_FAULT,
     FlightRecorder,
 )
@@ -76,6 +96,13 @@ from dlrover_tpu_torch.observability.incidents import IncidentStitcher
 from dlrover_tpu_torch.observability.journal import (
     EventJournal,
     JournalEvent,
+    Phase,
+)
+from dlrover_tpu_torch.observability.memory import (
+    FleetMemoryMonitor,
+    MemoryAccountant,
+    get_accountant,
+    set_accountant,
 )
 from dlrover_tpu_torch.observability.registry import get_registry
 from dlrover_tpu_torch.serving.registry import ServeReplicaRegistry
@@ -97,7 +124,8 @@ class JobMaster:
         # GET /debug/bundle; per-recovery incidents from the journal
         self.flight_recorder = FlightRecorder(
             source="master", journal=self.event_journal,
-            registry=self.metrics_registry)
+            registry=self.metrics_registry,
+            memory_snapshot_fn=self._memory_snapshot)
         self.perf_monitor = PerfMonitor()
         self.incident_stitcher = IncidentStitcher(
             self.event_journal, step_time_fn=self._step_time_s)
@@ -116,8 +144,32 @@ class JobMaster:
         max_n = node_num if max_nodes is None else max_nodes
         for manager in self.rdzv_managers.values():
             manager.update_rdzv_params(min_n, max_n, node_unit=node_unit)
-        self.diagnosis_master = DiagnosisMaster(self.job_manager,
-                                                self.perf_monitor)
+        # cross-worker skew and hang attribution over the op telemetry
+        # the beats carry; its straggler history biases the world cut
+        self.skew_monitor = SkewMonitor(event_journal=self.event_journal,
+                                        registry=self.metrics_registry)
+        self.rdzv_managers[RendezvousName.TRAINING].straggler_history = (
+            self.skew_monitor.node_straggler_counts)
+        # the fleet's memory ledgers (min-headroom rank, GET /memory), and
+        # the master's own accountant journaling into this journal with a
+        # breach hook that writes an OOM-forensics bundle
+        self.memory_monitor = FleetMemoryMonitor(
+            event_journal=self.event_journal,
+            registry=self.metrics_registry)
+        self._accountant = set_accountant(MemoryAccountant(
+            journal=self.event_journal, registry=self.metrics_registry,
+            source="master",
+            breach_hook=lambda data: self.flight_recorder.capture(
+                REASON_MEMORY, extra=data)))
+        self.metric_context = JobMetricContext()
+        self.metric_collector = JobMetricCollector(
+            self.job_manager, self.perf_monitor,
+            goodput_fn=self._journal_goodput)
+        self.diagnosis_master = DiagnosisMaster(
+            self.job_manager, self.perf_monitor,
+            metric_context=self.metric_context,
+            skew_monitor=self.skew_monitor,
+            event_journal=self.event_journal)
         self.serve_registry = ServeReplicaRegistry(
             event_journal=self.event_journal,
             registry=self.metrics_registry)
@@ -127,7 +179,10 @@ class JobMaster:
             task_manager=self.task_manager, perf_monitor=self.perf_monitor,
             diagnosis_master=self.diagnosis_master,
             serve_registry=self.serve_registry,
-            event_journal=self.event_journal)
+            event_journal=self.event_journal,
+            skew_monitor=self.skew_monitor,
+            memory_monitor=self.memory_monitor,
+            metric_context=self.metric_context)
         self._server = RPCServer(host=host, port=port)
         self._server.register_object(self.servicer)
         self._server.set_on_disconnect(
@@ -170,7 +225,28 @@ class JobMaster:
                              self.flight_recorder.http_handler())
         server.add_get_route("/incidents", lambda: (
             "application/json", self.incident_stitcher.to_json()))
+        server.add_get_route("/memory", lambda: (
+            "application/json", json.dumps(self.memory_monitor.status())))
+        server.add_get_route("/heartbeats", lambda: (
+            "application/json", json.dumps(self.servicer.beat_report())))
         return server
+
+    def _memory_snapshot(self) -> dict:
+        """A bundle's ``memory.json``: the master process's own ledger and
+        the fleet view (per-rank headroom)."""
+        snap = get_accountant().snapshot()
+        monitor = getattr(self, "memory_monitor", None)
+        if monitor is not None:
+            snap["fleet"] = monitor.status()
+        return snap
+
+    def _journal_goodput(self) -> float:
+        """The productive share of the journal's wall time."""
+        now_t = self.event_journal.now()
+        if now_t <= 0:
+            return 1.0
+        return (self.event_journal.phase_seconds(now_t)
+                .get(Phase.PRODUCTIVE, 0.0) / now_t)
 
     def _step_time_s(self) -> Optional[float]:
         """Seconds a step from the perf monitor's running speed."""
@@ -205,6 +281,8 @@ class JobMaster:
                 trace_id=fspan.trace_id)
             for manager in self.rdzv_managers.values():
                 manager.remove_alive_node(node.rank)
+            # its ranks' stalled counters must not read as a hang
+            self.skew_monitor.forget_node(node.id)
             carry = tracing.inject_wire()
             for peer in self.job_manager.list_nodes():
                 if (peer.id != node.id and peer.status == NodeStatus.RUNNING
@@ -243,6 +321,7 @@ class JobMaster:
             self._http_server.start()
         self.job_manager.start()
         self.task_manager.start()
+        self.metric_collector.start()
         self.diagnosis_master.start()
         logger.info("master for job %s serving on port %s", self.job_name,
                     self.port)
@@ -250,11 +329,13 @@ class JobMaster:
     def stop(self) -> None:
         self.metrics_registry.remove_collect_hook(self._gauge_hook)
         self.metrics_registry.remove_collect_hook(self._incident_hook)
+        self._accountant.close()
         self.flight_recorder.close()
         if self._http_server is not None:
             self._http_server.stop()
         self.job_manager.stop()
         self.task_manager.stop()
+        self.metric_collector.stop()
         self.diagnosis_master.stop()
         self._server.stop()
 

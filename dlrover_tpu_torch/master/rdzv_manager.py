@@ -8,7 +8,10 @@ The port's copy of ``RendezvousManager`` and
   have joined and either ``max_nodes`` have or the last-call window has
   expired;
 - the world is truncated to a multiple of ``node_unit``, keeping the
-  lowest node ranks; the rest wait for the next round;
+  lowest node ranks — unless the master wired in the skew monitor's
+  straggler history (``straggler_history``, a callable returning
+  ``{node_id: straggler episodes}``), which drops the repeat stragglers
+  first; the rest wait for the next round;
 - a node known dead shrinks the world the cut waits for, so survivors of
   a fault re-form at once instead of waiting out the last call;
 - the cut world carries the process-group bootstrap address: comm rank
@@ -17,13 +20,13 @@ The port's copy of ``RendezvousManager`` and
 A join fires the ``rdzv.join`` chaos site and is an ``rdzv.join`` span,
 and a cut an ``rdzv.world_cut`` span; the servicer activated the caller's
 trace context, so both land inside the agent's rendezvous round. Not
-ported: the network-check rendezvous, the straggler-history cut, the
-reshard announcement, the journal and the metrics.
+ported: the network-check rendezvous, the reshard announcement, the
+journal and the metrics.
 """
 
 import time
 from threading import Lock
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.comm import NodeMeta
@@ -82,6 +85,9 @@ class RendezvousManager:
         # node ranks known dead: the world the cut waits for shrinks by
         # them
         self._dead_ranks: set = set()
+        # node_id -> straggler episodes (SkewMonitor.node_straggler_counts):
+        # when a cut must drop nodes, repeat stragglers go first
+        self.straggler_history: Optional[Callable[[], Dict[int, int]]] = None
 
     @property
     def name(self) -> str:
@@ -160,7 +166,7 @@ class RendezvousManager:
         with tracing.span(SpanName.RDZV_WORLD_CUT, source="master",
                           rdzv_name=self._name,
                           round=self._rdzv_round + 1):
-            ranks = sorted(self._waiting_nodes)[:world_size]
+            ranks = self._select_world_ranks(world_size)
             self._rdzv_nodes = {r: self._waiting_nodes[r] for r in ranks}
             stamp_comm_ranks(self._rdzv_nodes)
             self._latest_rdzv_nodes = ranks
@@ -173,6 +179,34 @@ class RendezvousManager:
                     "leftover=%s)", self._name, self._rdzv_round, ranks,
                     sorted(self._waiting_nodes))
         return True
+
+    def _select_world_ranks(self, world_size: int) -> List[int]:
+        """Which waiting nodes make the cut. Caller holds ``self._lock``.
+        The lowest node ranks, unless nodes must be dropped and the
+        straggler history names some of them: then the nodes with the
+        most straggler episodes are left waiting."""
+        waiting = sorted(self._waiting_nodes)
+        if len(waiting) <= world_size or self.straggler_history is None:
+            return waiting[:world_size]
+        try:
+            counts = dict(self.straggler_history())
+        except Exception:  # noqa: BLE001 — the history is advisory only
+            logger.warning("straggler history unavailable for world cut",
+                           exc_info=True)
+            return waiting[:world_size]
+        if not any(counts.values()):
+            return waiting[:world_size]
+
+        def straggles(rank: int) -> int:
+            meta = self._waiting_nodes[rank]
+            return int(counts.get(getattr(meta, "node_id", rank), 0))
+
+        ranks = sorted(waiting, key=lambda r: (straggles(r), r))[:world_size]
+        excluded = [r for r in waiting if r not in ranks]
+        logger.warning("%s world cut dropped straggler-history nodes %s "
+                       "(counts %s)", self._name, excluded,
+                       {r: straggles(r) for r in excluded})
+        return sorted(ranks)
 
     def get_comm_world(self, node_rank: int
                        ) -> Tuple[int, int, Dict[int, NodeMeta]]:

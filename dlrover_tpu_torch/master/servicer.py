@@ -8,9 +8,13 @@ agents, workers, replicas and routers call, each handler a named
   ``num_nodes_waiting``;
 - KV and barriers: ``kv``, ``barrier``;
 - liveness: ``update_node_status``, ``heartbeat`` (its reply carries the
-  node's next queued diagnosis action), ``report_failure``,
-  ``report_event`` (into the master's journal, arrival-stamped),
-  ``report_resource_stats``, ``get_pre_check_result``, ``ping``;
+  node's next queued diagnosis action; its op-class telemetry feeds the
+  skew monitor and its memory ledgers the fleet memory monitor),
+  ``report_failure`` (a worker fault, journaled as ``fault_detected``
+  unless a recovery is already open), ``report_event`` (into the
+  master's journal, arrival-stamped), ``report_resource_stats`` (into
+  the job metric context the metric-stall rule reads),
+  ``get_pre_check_result``, ``ping``;
 - progress: ``report_global_step``;
 - data shards: ``setup_dataset``, ``get_task``, ``report_task_result``,
   ``recover_shard_tasks`` and the shard checkpoint pair;
@@ -21,8 +25,9 @@ Names and messages are the reference's, so the JAX package's agents,
 workers and replicas talk to a port master and the reverse. ``heartbeat``
 and ``serve_register`` stamp the caller's node id on the connection, so
 the master notices the node's death when the connection drops. Not
-ported: the network-check and straggler RPCs, the fan-in plane, the
-batched acks and data-state export, the parallel-config tuner.
+ported: the network-check and straggler RPCs, the fan-in plane (and with
+it the telemetry shedding under backpressure), the batched acks and
+data-state export, the parallel-config tuner.
 """
 
 import json
@@ -37,9 +42,14 @@ from dlrover_tpu_torch.common.constants import (
     env_str,
 )
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.common.metric import NodeMetrics, TpuMetric
 from dlrover_tpu_torch.common.rpc import connection_ctx
 from dlrover_tpu_torch.master.job_manager import JobManager
 from dlrover_tpu_torch.master.kv_store import KVStoreService, SyncService
+from dlrover_tpu_torch.observability.journal import (
+    JournalEvent,
+    recovery_open,
+)
 
 
 class MasterServicer:
@@ -50,7 +60,8 @@ class MasterServicer:
                  sync_service: Optional[SyncService] = None,
                  task_manager=None, perf_monitor=None,
                  diagnosis_master=None, serve_registry=None,
-                 event_journal=None):
+                 event_journal=None, skew_monitor=None,
+                 memory_monitor=None, metric_context=None):
         self._job_manager = job_manager
         self._rdzv_managers = rdzv_managers
         self._kv_store = kv_store or KVStoreService()
@@ -60,14 +71,44 @@ class MasterServicer:
         self._diagnosis_master = diagnosis_master
         self.serve_registry = serve_registry
         self._event_journal = event_journal
+        self._skew_monitor = skew_monitor
+        self._memory_monitor = memory_monitor
+        self._metric_context = metric_context
         # node_id -> {"t": monotonic time of the last beat, "gauges"}
         self._beats: Dict[int, Dict] = {}
+        # node_id -> rendezvous round -> what its beats carried
+        self._beat_rounds: Dict[int, Dict[int, Dict]] = {}
         self._start_time = time.monotonic()
 
     def last_beat(self, node_id: int) -> Optional[Dict]:
         """The node's last beat ``{"t", "gauges"}``, or None."""
         beat = self._beats.get(node_id)
         return dict(beat) if beat is not None else None
+
+    def beat_report(self) -> Dict[str, Dict[str, Dict]]:
+        """``{node_id: {round: record}}`` (string keys, JSON-safe): per
+        rendezvous round, the beats a node sent, those that reported a step
+        and how many of these carried op telemetry and a memory ledger,
+        and the last op telemetry its beats carried. The master serves it
+        on ``GET /heartbeats``."""
+        return {str(node): {str(rnd): dict(rec) for rnd, rec in rounds.items()}
+                for node, rounds in list(self._beat_rounds.items())}
+
+    def _note_beat(self, req) -> None:
+        rec = self._beat_rounds.setdefault(req.node_id, {}).setdefault(
+            req.rdzv_round, {"beats": 0, "stepped": 0,
+                             "stepped_with_op_telemetry": 0,
+                             "stepped_with_memory": 0,
+                             "last_op_telemetry": {}})
+        rec["beats"] += 1
+        if req.global_step:
+            # a reported step follows a worker's publish, which carries
+            # both: every such beat should too
+            rec["stepped"] += 1
+            rec["stepped_with_op_telemetry"] += bool(req.op_telemetry)
+            rec["stepped_with_memory"] += bool(req.memory)
+        if req.op_telemetry:
+            rec["last_op_telemetry"] = dict(req.op_telemetry)
 
     # -- rendezvous ----------------------------------------------------------
 
@@ -168,12 +209,17 @@ class MasterServicer:
                                                     req.timestamp)
         self._beats[req.node_id] = {"t": time.monotonic(),
                                     "gauges": dict(req.gauges)}
+        self._note_beat(req)
         if req.global_step and self._perf_monitor is not None:
             self._perf_monitor.collect_global_step(
                 req.global_step, req.step_timestamp or time.time(),
                 rdzv_round=req.rdzv_round)
         if self._diagnosis_master is not None:
             self._diagnosis_master.observe_heartbeat(req)
+        if self._skew_monitor is not None and req.op_telemetry:
+            self._skew_monitor.observe(req.node_id, req.op_telemetry)
+        if self._memory_monitor is not None and req.memory:
+            self._memory_monitor.observe(req.node_id, req.memory)
         if req.shard_acks and self._task_manager is not None:
             for r in req.shard_acks:
                 self._task_manager.report_task_result(
@@ -184,8 +230,21 @@ class MasterServicer:
 
     def rpc_report_failure(self, req: comm.NodeFailureReport
                            ) -> comm.BaseResponse:
+        """A worker failure an agent reports. Journaled as
+        ``fault_detected`` when no recovery is open in the journal (no
+        fault since the last ``step_resumed``): a single node's worker
+        faults then open their incidents, and a worker that failed
+        because a peer node died joins that node's incident."""
         self._job_manager.report_failure(req.node_id, req.error_data,
                                          req.level, req.restart_count)
+        if (self._event_journal is not None
+                and not recovery_open(self._event_journal)):
+            self._event_journal.record(
+                JournalEvent.FAULT_DETECTED, node_id=req.node_id,
+                status="worker_failure", level=req.level,
+                restart_count=req.restart_count,
+                step=(self._perf_monitor.completed_global_step
+                      if self._perf_monitor is not None else None))
         return comm.BaseResponse()
 
     def rpc_report_global_step(self, req: comm.GlobalStep
@@ -198,8 +257,28 @@ class MasterServicer:
 
     def rpc_report_resource_stats(self, req: comm.ResourceStats
                                   ) -> comm.BaseResponse:
-        """Accepted and dropped: the port's master keeps no resource
-        metrics (they feed the reference's tuners, not ported)."""
+        """A node's host and card usage: onto its node record (the stats
+        collector reads it) and into the job metric context (the
+        metric-stall rule reads it). A card with memory stats but no duty
+        cycle keeps ``duty_cycle_pct=None``: absent telemetry is not 0%."""
+        node = self._job_manager.get_node(req.node_id)
+        node.used_resource.cpu = req.cpu_percent
+        node.used_resource.memory_mb = req.mem_used_mb
+        if req.device_util:
+            node.used_resource.device_util = (
+                sum(req.device_util.values()) / len(req.device_util))
+        if self._metric_context is not None:
+            self._metric_context.add_node_metrics(NodeMetrics(
+                node_id=req.node_id, cpu_percent=req.cpu_percent,
+                mem_used_mb=req.mem_used_mb,
+                devices=[
+                    TpuMetric(
+                        device_id=d,
+                        duty_cycle_pct=req.device_util.get(d),
+                        hbm_used_mb=req.device_mem_mb.get(d, 0.0),
+                        hbm_total_mb=req.device_mem_total_mb.get(d, 0.0))
+                    for d in sorted(set(req.device_util)
+                                    | set(req.device_mem_mb))]))
         return comm.BaseResponse()
 
     def rpc_get_pre_check_result(self, req: comm.PreCheckRequest

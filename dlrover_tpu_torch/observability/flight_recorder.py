@@ -13,6 +13,11 @@ directory that replays the process's last minutes without it::
                              and, given a journal, its job-phase, skew,
                              brain, incident and device tracks, one clock
         worst_requests.json  a replica's worst requests with their spans
+        memory.json          the device-memory ledger snapshot (category
+                             totals, top buffers, recent deltas, step
+                             watermarks, the last reconcile), when a
+                             memory snapshot function is wired
+                             (observability/memory.py)
         journal.json         the event journal (EventJournal.to_json())
         incidents.json       the journal stitched into incidents
         metrics.prom         a /metrics snapshot
@@ -24,8 +29,9 @@ the temp dir). Every capture is journaled as ``trace_bundle_captured``
 and counted in ``dlrover_trace_bundles_total{reason}``. Captures are
 best-effort and rate-limited per reason
 (``DLROVER_TPU_TRACE_BUNDLE_COOLDOWN_S``, 30 s); ``force`` bypasses the
-limit (an HTTP request always captures). Not ported: the memory ledger
-(``memory.json``, ROADMAP A11b) and the partition-degraded reason.
+limit (an HTTP request always captures). The memory accountant's breach
+hook captures with reason ``memory_pressure``. Not ported: the
+partition-degraded reason.
 """
 
 import json
@@ -60,6 +66,7 @@ REASON_HTTP = "http_request"
 REASON_CRASH = "unhandled_exception"
 REASON_CHAOS = "chaos_fault"
 REASON_NODE_FAULT = "node_fault"
+REASON_MEMORY = "memory_pressure"
 
 DEFAULT_COOLDOWN_S = 30.0
 
@@ -117,6 +124,7 @@ class FlightRecorder:
         registry=None,
         cooldown_s: Optional[float] = None,
         worst_traces_fn=None,
+        memory_snapshot_fn=None,
     ):
         self.source = source
         self.out_dir = out_dir or default_trace_dir()
@@ -125,6 +133,9 @@ class FlightRecorder:
         # () -> list of worst-request summaries (TailAttributor on a
         # serving replica): bundles then embed the N worst waterfalls
         self.worst_traces_fn = worst_traces_fn
+        # () -> the device-memory ledger snapshot: bundles then embed it as
+        # memory.json (the OOM-forensics half, observability/memory.py)
+        self.memory_snapshot_fn = memory_snapshot_fn
         self.cooldown_s = (
             env_float(ConfigKey.TRACE_BUNDLE_COOLDOWN_S, DEFAULT_COOLDOWN_S)
             if cooldown_s is None else cooldown_s
@@ -244,6 +255,18 @@ class FlightRecorder:
                             rec.get("trace_id"), []))
                         for rec in worst
                     ], f)
+
+        if self.memory_snapshot_fn is not None:
+            try:
+                snap = self.memory_snapshot_fn()
+            except Exception:  # noqa: BLE001 — optional device detail,
+                # never the reason a crash bundle fails to write
+                logger.warning("memory snapshot dump failed", exc_info=True)
+                snap = None
+            if snap is not None:
+                with open(os.path.join(bundle_dir, "memory.json"),
+                          "w") as f:
+                    json.dump(snap, f)
 
         if journal_dict is not None:
             with open(os.path.join(bundle_dir, "journal.json"), "w") as f:

@@ -23,8 +23,9 @@ a counterfactual line for a pre-emptive save.
 Served by the master's ``GET /incidents``, written into every bundle as
 ``incidents.json``, and drawn as the timeline's "incidents" track; the
 ``dlrover_incident_*`` families come from
-:meth:`IncidentStitcher.attach_metrics`. The post-mortem CLI
-(``report.py``) is not ported (ROADMAP A11c).
+:meth:`IncidentStitcher.attach_metrics`; the post-mortem CLI
+(``python -m dlrover_tpu_torch.observability.report``) renders them as
+text.
 """
 
 import json

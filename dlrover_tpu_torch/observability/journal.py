@@ -82,6 +82,17 @@ class JournalEvent:
     FABRIC_STRIPE_RETRIED = "fabric_stripe_retried"
     FABRIC_SESSION_COMPLETE = "fabric_session_complete"
     FABRIC_SESSION_ABORTED = "fabric_session_aborted"
+    # informational, recorded by the port's attribution plane: the skew
+    # monitor's verdicts (master/skew_monitor.py), the evidence an agent
+    # captured for a straggler verdict, the memory accountant's pressure
+    # and degraded sweeps (observability/memory.py) and the compile
+    # watch's storms (observability/compile_watch.py)
+    STRAGGLER_DETECTED = "straggler_detected"
+    HANG_ATTRIBUTED = "hang_attributed"
+    STACK_DUMP_CAPTURED = "stack_dump_captured"
+    MEMORY_PRESSURE = "memory_pressure"
+    MEMORY_DEGRADED = "memory_degraded"
+    RECOMPILE_STORM = "recompile_storm"
     # informational kinds of the reference's planes the port has not
     # ported, read by the incident stitcher and the timeline's tracks
     # when a JAX peer's journal carries them
@@ -89,8 +100,6 @@ class JournalEvent:
     CKPT_CHAIN_TRUNCATED = "ckpt_chain_truncated"
     RESHARD_PLANNED = "reshard_planned"
     RESHARD_REPLAN_DEGRADED = "reshard_replan_degraded"
-    STRAGGLER_DETECTED = "straggler_detected"
-    HANG_ATTRIBUTED = "hang_attributed"
     BRAIN_PREDICTED_FAILURE = "brain_predicted_failure"
     BRAIN_PREDICTED_RAMP = "brain_predicted_ramp"
     BRAIN_PREDICTED_STRAGGLER = "brain_predicted_straggler"
@@ -99,9 +108,6 @@ class JournalEvent:
     BRAIN_DEGRADED = "brain_degraded"
     BRAIN_RECOVERED = "brain_recovered"
     BRAIN_PRESCALE_REFUSED = "brain_prescale_refused"
-    MEMORY_PRESSURE = "memory_pressure"
-    MEMORY_DEGRADED = "memory_degraded"
-    RECOMPILE_STORM = "recompile_storm"
 
     ALL = (
         FAULT_DETECTED, RDZV_START, RDZV_COMPLETE, RESTORE_START,
@@ -114,7 +120,8 @@ class JournalEvent:
         REQUEST_TAIL_ATTRIBUTED, FABRIC_SOURCE_FAILED, FABRIC_STRIPE_RETRIED,
         FABRIC_SESSION_COMPLETE, FABRIC_SESSION_ABORTED, CKPT_COMMITTED,
         CKPT_CHAIN_TRUNCATED, RESHARD_PLANNED, RESHARD_REPLAN_DEGRADED,
-        STRAGGLER_DETECTED, HANG_ATTRIBUTED, BRAIN_PREDICTED_FAILURE,
+        STRAGGLER_DETECTED, HANG_ATTRIBUTED, STACK_DUMP_CAPTURED,
+        BRAIN_PREDICTED_FAILURE,
         BRAIN_PREDICTED_RAMP, BRAIN_PREDICTED_STRAGGLER,
         BRAIN_PREDICTION_SCORED, BRAIN_ACTION, BRAIN_DEGRADED,
         BRAIN_RECOVERED, BRAIN_PRESCALE_REFUSED, MEMORY_PRESSURE,
@@ -297,6 +304,17 @@ class EventJournal:
 
         registry.add_collect_hook(collect)
         return collect
+
+
+def recovery_open(journal: "EventJournal") -> bool:
+    """Whether the journal's latest ``fault_detected`` has not been
+    followed by a ``step_resumed``: a recovery is under way."""
+    for e in reversed(journal.events()):
+        if e["kind"] == JournalEvent.STEP_RESUMED:
+            return False
+        if e["kind"] == JournalEvent.FAULT_DETECTED:
+            return True
+    return False
 
 
 def phase_segments(events: List[Dict[str, Any]], now_t: float,

@@ -21,6 +21,13 @@ The listener is its own thread and the agent never waits on it: stopping
 the profiler can block on a wedged card (it flushes the device's activity
 buffers), and :func:`await_profile` has a timeout. CUPTI's device activity
 is process-wide, so the trace holds the main thread's kernels.
+
+On a card, :meth:`ProfileListener.start` (called from the main thread)
+first runs one empty profile there: libkineto initialises its client only
+on the thread that registered it (the main thread, at import), and a first
+profile started on the listener thread leaves the client uninitialised
+("External init callback must run in same thread as registerClient") and
+the process aborts at exit.
 """
 
 import os
@@ -50,6 +57,25 @@ def default_profile_dir() -> str:
         tempfile.gettempdir(), "dlrover_tpu_profiles")
 
 
+def _init_profiler_here() -> None:
+    """One empty CPU + CUDA profile on the calling thread, where CUDA is
+    up: libkineto initialises its client on this thread, so a later
+    profile from the listener thread finds it ready."""
+    import torch
+
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()):
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            pass
+    except Exception:  # noqa: BLE001 — a profiler that cannot start here
+        # will fail its captures, which report back; the worker goes on
+        logger.warning("torch.profiler warm-up failed", exc_info=True)
+
+
 class ProfileListener:
     """Worker-side daemon serving profile requests for this process."""
 
@@ -64,6 +90,7 @@ class ProfileListener:
         self._thread: Optional[threading.Thread] = None
 
     def start(self) -> None:
+        _init_profiler_here()
         # seed the dedup id from any pre-existing request: a relaunched
         # worker must not replay the pre-restart hang request and trace
         # its own startup noise

@@ -14,19 +14,29 @@ The port's copy of ``dlrover_tpu/observability/tpu_timer.py``:
 - ``faulthandler`` armed on SIGUSR1: the native hang watchdog (or the
   daemon's ``/dump_stack``) raises the signal and every Python thread's
   stack lands in ``/tmp/tpu_timer_pystack_<pid>.txt``.
+- :meth:`TpuTimer.op_telemetry`: the op-class telemetry the worker
+  publishes for the master's skew monitor (``observability/
+  op_telemetry.py``). With the library loaded the native engine keeps it
+  over everything it records (the hook's GEMMs and collectives and the
+  Python spans, ``tt_op_telemetry``) and a span does not also observe in
+  Python, so it counts once; without the library the spans feed the
+  pure-Python accumulator, as in the reference.
 
 Departure from the reference (ROADMAP C13): the reference is a silent
 no-op when its library is missing. Here ``install`` raises when the
-library is not loaded, when its hook is not the process's definition of
-the hooked symbols (``LD_PRELOAD`` unset), and, for a CUDA device, when
+library is not loaded, when it lacks ``tt_op_telemetry`` (a build of older
+sources), when its hook is not the process's definition of the hooked
+symbols (``LD_PRELOAD`` unset), and, for a CUDA device, when
 ``libcuda.so.1`` cannot be loaded: a timer the agent asked for never
-quietly measures nothing. Without ``install`` the recording methods stay
-no-ops when the library is absent, as in the reference.
+quietly measures nothing, nor sends empty telemetry. Without ``install``
+the recording methods stay no-ops when the library is absent, as in the
+reference.
 """
 
 import ctypes
 import faulthandler
 import gc
+import json
 import os
 import signal
 import time
@@ -34,6 +44,7 @@ from typing import Optional
 
 from dlrover_tpu_torch.common.constants import ConfigKey, env_int, env_str
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability.op_telemetry import get_accumulator
 
 ENV_LIB = ConfigKey.TPU_TIMER_LIB
 ENV_PORT = ConfigKey.TPU_TIMER_PORT
@@ -65,10 +76,16 @@ def _is_cuda(device) -> bool:
 
 
 def _read_text(fn) -> str:
+    """A text the engine copies out (``fn(buf, cap)`` returns its full
+    length): the engine records on other threads between the sizing call
+    and the copy, so a text that outgrew the buffer is read again."""
     n = fn(None, 0)
-    buf = ctypes.create_string_buffer(n + 1)
-    fn(buf, n + 1)
-    return buf.value.decode()
+    while True:
+        cap = n + 4096
+        buf = ctypes.create_string_buffer(cap)
+        n = fn(buf, cap)
+        if n < cap:
+            return buf.value.decode()
 
 
 class TpuTimer:
@@ -132,6 +149,11 @@ class TpuTimer:
             # elastic re-init calls install() again; the engine, port and
             # faulthandler registration are already live
             return True
+        if not hasattr(self._lib, "tt_op_telemetry"):
+            raise RuntimeError(
+                f"tpu_timer: {self._path} has no tt_op_telemetry (a build "
+                "of older sources): rebuild it with python -m "
+                "dlrover_tpu_torch.tpu_timer.build")
         if not self._lib.tt_hook_interposed():
             raise RuntimeError(
                 f"tpu_timer: {self._path} is loaded but not preloaded, so "
@@ -179,12 +201,15 @@ class TpuTimer:
             self._lib.tt_shutdown()
 
     # -- recording ----------------------------------------------------------
-    # (the op-telemetry accumulator's feed goes here with A11c)
+    # the op-class telemetry: the native engine's while the library is
+    # loaded, the pure-Python accumulator's otherwise (never both)
     def record(self, kind: int, name: str, dur_us: float,
                payload: float = 0.0) -> None:
         if self._lib:
             self._lib.tt_record(kind, name.encode(), float(dur_us),
                                 float(payload))
+        else:
+            get_accumulator().observe_span(kind, name, dur_us)
 
     def begin(self, kind: int, name: str) -> int:
         return self._lib.tt_begin(kind, name.encode()) if self._lib else 0
@@ -199,13 +224,24 @@ class TpuTimer:
             self._t, self._kind, self._name = timer, kind, name
             self._payload = payload
             self._tok = 0
+            self._t0 = 0.0
 
         def __enter__(self):
+            if self._t._lib is None:
+                # a collective's entry is marked before it runs: a hung
+                # collective never exits
+                if self._kind == KIND_COLL:
+                    get_accumulator().enter_collective(self._name)
+                self._t0 = time.monotonic()
             self._tok = self._t.begin(self._kind, self._name)
             return self
 
         def __exit__(self, *exc):
             self._t.end(self._tok, self._payload)
+            if self._t._lib is None:
+                get_accumulator().observe_span(
+                    self._kind, self._name,
+                    (time.monotonic() - self._t0) * 1e6)
             return False
 
     def span(self, name: str, kind: int = KIND_MM,
@@ -273,6 +309,24 @@ class TpuTimer:
     def dump_trace(self, path: str) -> bool:
         return bool(self._lib) and \
             self._lib.tt_dump_trace(path.encode()) == 0
+
+    def op_telemetry(self) -> dict:
+        """The cumulative op-class telemetry snapshot (``op_telemetry.py``'s
+        wire format): the native engine's when the library is loaded (a
+        library without ``tt_op_telemetry`` raises), else the pure-Python
+        accumulator's."""
+        if self._lib is None:
+            return get_accumulator().snapshot()
+        if not hasattr(self._lib, "tt_op_telemetry"):
+            raise RuntimeError(
+                f"tpu_timer: {self._path} has no tt_op_telemetry")
+        snap = json.loads(_read_text(self._lib.tt_op_telemetry))
+        # the C side prints whole sums without a point: floats, as the
+        # Python accumulator's wire carries them
+        for wire in snap["classes"].values():
+            wire["sum"] = float(wire["sum"])
+            wire["max"] = float(wire["max"])
+        return snap
 
     def hang_detected(self) -> bool:
         return bool(self._lib) and self._lib.tt_hang_detected() == 1

@@ -41,8 +41,17 @@ only slices and concatenates them.
 :func:`export_params` / :func:`import_params` carry weights between
 replicas in the JAX package's blob format, so a port replica and a JAX
 replica warm-start from each other. :class:`ToyEngine` (pure host code)
-backs the batcher and router tests. Not ported yet: the memory-accountant
-and compile-watcher hooks.
+backs the batcher and router tests.
+
+The slot caches are the engine's ``kv_cache`` claim in the memory ledger
+(``observability/memory.py``; their exact bytes, :meth:`kv_cache_bytes`).
+Every call notes its shape key — ``("prefill", bucket)``,
+``("prefill_sfx", bucket, m)``, ``("insert", bucket)``, ``("step",)`` —
+in the compile watch (``observability/compile_watch.py``) as the function
+``engine.<kind>`` with structured dims; the first call of a key is timed
+as its miss (the eager engine compiles nothing, but that call pays the
+new shapes' cuBLAS heuristics, lazy module loads and allocator growth).
+:attr:`compile_count` is the number of distinct keys.
 """
 
 import re
@@ -55,7 +64,9 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch.common import msgpack
+from dlrover_tpu_torch.common.constants import MetricLabel
 from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.convert import named_leaves
 from dlrover_tpu_torch.models.decode import (
     _attend,
@@ -73,6 +84,21 @@ from dlrover_tpu_torch.models.llama import (
     mlp,
     rms_norm,
 )
+from dlrover_tpu_torch.observability.compile_watch import get_watcher
+from dlrover_tpu_torch.observability.memory import get_accountant
+
+
+def _shape_sig(key):
+    """An engine shape key as a compile-watch signature: (fn, structured
+    dims), the dims what lets the watch attribute a storm (ragged buckets
+    → seq_len)."""
+    name = key[0]
+    dims = {}
+    if name in ("prefill", "insert") and len(key) > 1:
+        dims["bucket"] = key[1]
+    elif name == "prefill_sfx" and len(key) > 2:
+        dims["bucket"], dims["prefix_len"] = key[1], key[2]
+    return f"engine.{name}", dims
 
 
 @dataclass
@@ -104,6 +130,11 @@ class ToyEngine:
         self._counts = [0] * slots
         self._shapes_lock = threading.Lock()
         self._shapes = set()
+        # nominal KV residency (16 bytes a token, the prefix_entry rate),
+        # so toy-backed fleet tests exercise the same ledger
+        get_accountant().register(
+            MetricLabel.MEM_KV_CACHE, f"toy_engine/{id(self):x}/kv",
+            16 * slots * cache_len)
 
     @property
     def compile_count(self) -> int:
@@ -115,6 +146,8 @@ class ToyEngine:
     def _note_shape(self, key) -> None:
         with self._shapes_lock:
             self._shapes.add(key)
+        fn, dims = _shape_sig(key)
+        get_watcher().note(fn, **dims)
 
     @staticmethod
     def _seed(prompt: Sequence[int]) -> int:
@@ -212,6 +245,28 @@ class BatchDecodeEngine:
         self._pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
         # the decode.py routing policy, decided once per engine
         self._flash = flash_decode_wanted(cache_len, quantize, device=dev)
+        self._shapes_lock = threading.Lock()
+        self._shapes = set()
+        # the slot caches' exact bytes are the engine's kv_cache claim
+        get_accountant().register(
+            MetricLabel.MEM_KV_CACHE, f"engine/{id(self):x}/kv",
+            self.kv_cache_bytes())
+
+    @property
+    def compile_count(self) -> int:
+        """Distinct shape keys called so far."""
+        with self._shapes_lock:
+            return len(self._shapes)
+
+    def _note_shape(self, key):
+        """Note ``key`` and return the compile watch's timer: the first
+        call of a key is timed as its miss."""
+        with self._shapes_lock:
+            if key not in self._shapes:
+                self._shapes.add(key)
+                logger.info("serving engine: first call of %s", key)
+        fn, dims = _shape_sig(key)
+        return get_watcher().time(fn, **dims)
 
     def kv_cache_bytes(self) -> int:
         """Resident bytes of the slot caches (k/v plus the int8 scales)."""
@@ -267,7 +322,8 @@ class BatchDecodeEngine:
                 f"bucket {bucket_len} exceeds cache length {self.cache_len}")
         padded = list(prompt) + [0] * (bucket_len - len(prompt))
         tokens = torch.tensor(padded, dtype=torch.int64, device=self.device)
-        first, ks, vs = self._prefill(tokens, len(prompt))
+        with self._note_shape(("prefill", bucket_len)):
+            first, ks, vs = self._prefill(tokens, len(prompt))
         return PrefillResult(
             first_token=first,
             real_len=len(prompt),
@@ -325,17 +381,22 @@ class BatchDecodeEngine:
         padded = list(prompt) + [0] * (bucket_len - len(prompt))
         tokens = torch.tensor(padded[m:], dtype=torch.int64,
                               device=self.device)
-        first, ks, vs = self._prefill_suffix(
-            tokens, len(prompt), pre_ks[:, :, :m], pre_vs[:, :, :m])
+        with self._note_shape(("prefill_sfx", bucket_len, m)):
+            first, ks, vs = self._prefill_suffix(
+                tokens, len(prompt), pre_ks[:, :, :m], pre_vs[:, :, :m])
         return PrefillResult(first_token=first, real_len=len(prompt),
                              bucket_len=bucket_len, payload=(ks, vs))
 
     # -- decode-thread state commits ---------------------------------------
 
-    @torch.no_grad()
     def insert(self, result: PrefillResult, slot: int) -> int:
         """Write the whole bucket's rows (the tail past ``real_len`` too)
         into ``slot`` and set its position to ``real_len``."""
+        with self._note_shape(("insert", result.bucket_len)):
+            return self._insert(result, slot)
+
+    @torch.no_grad()
+    def _insert(self, result: PrefillResult, slot: int) -> int:
         ks, vs = result.payload
         P = result.bucket_len
         for li in range(self.config.n_layers):
@@ -352,12 +413,17 @@ class BatchDecodeEngine:
         self._pos[slot] = result.real_len
         return result.first_token
 
-    @torch.no_grad()
     def step(self, tokens: Sequence[int],
              active: Sequence[bool]) -> List[int]:
         """One decode step for every slot; returns each slot's next greedy
         token (inactive slots' tokens are meaningless). Only active slots
         advance."""
+        with self._note_shape(("step",)):
+            return self._step(tokens, active)
+
+    @torch.no_grad()
+    def _step(self, tokens: Sequence[int],
+              active: Sequence[bool]) -> List[int]:
         c = self.config
         params = self.params
         dev = self.device

@@ -22,8 +22,10 @@ any donor prompt sharing the first ``m`` tokens holds the same rows there.
 
 A reuse is journaled as ``serve_prefix_hit`` (with the tokens it saved)
 and a dropped one as ``serve_prefix_dropped``, into the journal the
-batcher attaches (the replica's own). Not ported yet: the
-memory-accountant ledger.
+batcher attaches (the replica's own). The cache's resident bytes are its
+claim in the memory ledger (``prefix_cache`` category,
+``observability/memory.py``), synced after every insert, invalidation
+and eviction.
 """
 
 import threading
@@ -33,11 +35,13 @@ from dlrover_tpu_torch.chaos import get_injector
 from dlrover_tpu_torch.common.constants import (
     ChaosSite,
     ConfigKey,
+    MetricLabel,
     env_flag,
     env_int,
 )
 from dlrover_tpu_torch.common.log import logger
 from dlrover_tpu_torch.observability.journal import JournalEvent
+from dlrover_tpu_torch.observability.memory import get_accountant
 from dlrover_tpu_torch.observability.registry import get_registry
 
 SERVE_PREFIX_SITE = ChaosSite.SERVE_PREFIX
@@ -85,6 +89,11 @@ class RadixPrefixCache:
         self._entries: Dict[Tuple[int, ...], _Entry] = {}
         self.bytes = 0
         self.evictions = 0
+        self._ledger_name = f"prefix_cache/{id(self):x}"
+
+    def _sync_ledger(self) -> None:
+        get_accountant().adjust(
+            MetricLabel.MEM_PREFIX_CACHE, self._ledger_name, self.bytes)
 
     def __len__(self) -> int:
         return len(self._entries)
@@ -139,6 +148,7 @@ class RadixPrefixCache:
                 node = node.children.setdefault(t, _Node())
                 node.keys.add(toks)
             self._evict_to_budget()
+            self._sync_ledger()
 
     def invalidate(self, key) -> bool:
         """Drop one entry; True when it was resident."""
@@ -148,6 +158,7 @@ class RadixPrefixCache:
                 return False
             self.bytes -= entry.nbytes
             self._remove_from_trie(key)
+            self._sync_ledger()
             return True
 
     def _remove_from_trie(self, key) -> None:

@@ -14,6 +14,15 @@
 //   XPU_TIMER_MEMORY_COUNTER / _BYTES
 //   XPU_TIMER_COMMON_{HANG,START_DUMP,END_DUMP,GC_COUNT,...,PID}
 //
+// Beside them the engine keeps the op-class telemetry of
+// dlrover_tpu_torch/observability/op_telemetry.py over everything it
+// records: four fixed-bucket histograms (compute, collective, input, ckpt)
+// with that module's bucket bounds, the observation count, and the
+// last-entered-collective marker, read as that module's wire JSON
+// (opTelemetryJson). A hooked GEMM is compute, a hooked or Python
+// collective is collective, a Python span is classed by its name as
+// op_telemetry.classify does, and a hooked copy has no class.
+//
 // The watchdog judges two things stuck: a host bracket (begin without end)
 // older than the timeout, as the reference does, and a device stream the
 // hook reports through setDeviceStuck (an op whose end event is incomplete
@@ -62,6 +71,24 @@ struct KernelStats {
   void summarize(double* avg, double* mx, double* p99, double* mn) const;
 };
 
+// One op class's histogram: op_telemetry.OpClassHistogram.
+struct OpClassHist {
+  static constexpr int kBuckets = 12;  // 11 bounds + overflow
+  uint64_t b[kBuckets] = {0};
+  double sum_us = 0;
+  double max_us = 0;
+  uint64_t n = 0;
+  void observe(double dur_us);
+};
+
+enum OpClassId : int {
+  kOpNone = -1,
+  kOpCompute = 0,
+  kOpCollective = 1,
+  kOpInput = 2,
+  kOpCkpt = 3,
+};
+
 struct InflightOp {
   std::string name;
   int kind;
@@ -84,6 +111,13 @@ class Engine {
   // Begin/end bracket feeding both stats and the hang watchdog.
   uint64_t begin(int kind, const std::string& name);
   void end(uint64_t token, double payload);
+
+  // A collective was entered (a hooked NCCL call, or a Python collective
+  // span's begin): marked before anything runs, so a rank parked inside
+  // one shows it.
+  void enterCollective(const std::string& name);
+  // The cumulative op-class telemetry as op_telemetry.py's wire JSON.
+  std::string opTelemetryJson();
 
   void setGauge(const std::string& name, double v);
   void incCounter(const std::string& name, double v);
@@ -113,9 +147,9 @@ class Engine {
   void watchdogLoop();
   void httpLoop();
   int32_t internName(const std::string& name);
-  void recordLocked(int kind, const std::string& name, double dur_us,
-                    double payload, int64_t m, int64_t n, int64_t k,
-                    int32_t batch);
+  void recordLocked(int kind, int op_class, const std::string& name,
+                    double dur_us, double payload, int64_t m, int64_t n,
+                    int64_t k, int32_t batch);
 
   std::mutex mu_;
   std::unordered_map<std::string, KernelStats> stats_[3];
@@ -129,6 +163,10 @@ class Engine {
   std::unordered_map<std::string, int32_t> name_ids_;
   std::unordered_map<uint64_t, InflightOp> inflight_;
   std::atomic<uint64_t> next_token_{1};
+  OpClassHist op_hists_[4];
+  uint64_t op_seq_ = 0;
+  uint64_t coll_seq_ = 0;
+  std::string last_coll_;
   std::string device_stuck_;
   int64_t device_stuck_since_us_ = 0;
 

@@ -80,6 +80,12 @@ int tt_trace_json(char* buf, int cap) {
   return CopyOut(Engine::instance().traceJson(), buf, cap);
 }
 
+// The cumulative op-class telemetry (observability/op_telemetry.py's wire
+// JSON), copied out as tt_prometheus copies its text.
+int tt_op_telemetry(char* buf, int cap) {
+  return CopyOut(Engine::instance().opTelemetryJson(), buf, cap);
+}
+
 int tt_dump_trace(const char* path) {
   return Engine::instance().dumpTrace(path) ? 0 : -1;
 }

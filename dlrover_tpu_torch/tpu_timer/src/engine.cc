@@ -17,6 +17,7 @@
 #include <unistd.h>
 
 #include <algorithm>
+#include <cctype>
 #include <cmath>
 #include <cstdio>
 #include <fstream>
@@ -57,6 +58,64 @@ void KernelStats::summarize(double* avg, double* mx, double* p99,
   *mn = sorted.front();
   *mx = sorted.back();
   *p99 = sorted[std::min(n - 1, (int)(0.99 * n))];
+}
+
+namespace {
+// op_telemetry.BUCKET_BOUNDS_US
+const double kOpBucketBounds[OpClassHist::kBuckets - 1] = {
+    10, 40, 160, 640, 2560, 10240, 40960, 163840, 655360, 2621440, 10485760};
+const char* kOpClassNames[4] = {"compute", "collective", "input", "ckpt"};
+
+bool Contains(const std::string& low, const char* marker) {
+  return low.find(marker) != std::string::npos;
+}
+
+// op_telemetry.classify: a collective kind is collective; otherwise the
+// name's checkpoint markers, then its input markers, else compute. The
+// GC hook's pauses (py_gc) and copies get no class.
+int Classify(int kind, const std::string& name) {
+  if (kind == kColl) return kOpCollective;
+  if (kind != kMatmul || name == "py_gc") return kOpNone;
+  std::string low(name);
+  for (char& c : low) c = (char)tolower((unsigned char)c);
+  for (const char* m : {"ckpt", "checkpoint", "save", "restore"})
+    if (Contains(low, m)) return kOpCkpt;
+  for (const char* m :
+       {"input", "data_load", "dataload", "next_batch", "host_fetch"})
+    if (Contains(low, m)) return kOpInput;
+  return kOpCompute;
+}
+
+void JsonString(std::ostringstream& out, const std::string& s) {
+  out << '"';
+  for (char c : s) {
+    if (c == '"' || c == '\\') {
+      out << '\\' << c;
+    } else if ((unsigned char)c < 0x20) {
+      char buf[8];
+      snprintf(buf, sizeof(buf), "\\u%04x", (unsigned char)c);
+      out << buf;
+    } else {
+      out << c;
+    }
+  }
+  out << '"';
+}
+}  // namespace
+
+void OpClassHist::observe(double dur_us) {
+  if (!(dur_us > 0)) dur_us = 0;
+  int idx = kBuckets - 1;
+  for (int i = 0; i < kBuckets - 1; i++) {
+    if (dur_us <= kOpBucketBounds[i]) {
+      idx = i;
+      break;
+    }
+  }
+  b[idx]++;
+  sum_us += dur_us;
+  if (dur_us > max_us) max_us = dur_us;
+  n++;
 }
 
 Engine& Engine::instance() {
@@ -100,10 +159,14 @@ int32_t Engine::internName(const std::string& name) {
   return id;
 }
 
-void Engine::recordLocked(int kind, const std::string& name, double dur_us,
-                          double payload, int64_t m, int64_t n, int64_t k,
-                          int32_t batch) {
+void Engine::recordLocked(int kind, int op_class, const std::string& name,
+                          double dur_us, double payload, int64_t m, int64_t n,
+                          int64_t k, int32_t batch) {
   stats_[kind][name].add(dur_us, payload);
+  if (op_class != kOpNone) {
+    op_hists_[op_class].observe(dur_us);
+    op_seq_++;
+  }
   if (trace_.empty()) trace_.resize(trace_cap_);
   TraceEvent& ev = trace_[trace_next_];
   ev.ts_us = NowUs() - (int64_t)dur_us;
@@ -123,17 +186,48 @@ void Engine::record(int kind, const std::string& name, double dur_us,
                     double payload) {
   if (kind < 0 || kind > 2) return;
   std::lock_guard<std::mutex> g(mu_);
-  recordLocked(kind, name, dur_us, payload, 0, 0, 0, 0);
+  recordLocked(kind, Classify(kind, name), name, dur_us, payload, 0, 0, 0, 0);
 }
 
 void Engine::recordGemm(const std::string& name, double dur_us, double flops,
                         int64_t m, int64_t n, int64_t k, int32_t batch) {
   std::lock_guard<std::mutex> g(mu_);
-  recordLocked(kMatmul, name, dur_us, flops, m, n, k, batch);
+  recordLocked(kMatmul, kOpCompute, name, dur_us, flops, m, n, k, batch);
+}
+
+void Engine::enterCollective(const std::string& name) {
+  std::lock_guard<std::mutex> g(mu_);
+  coll_seq_++;
+  last_coll_ = name;
+  op_seq_++;
+}
+
+std::string Engine::opTelemetryJson() {
+  std::ostringstream out;
+  out.precision(17);
+  std::lock_guard<std::mutex> g(mu_);
+  out << "{\"seq\":" << op_seq_ << ",\"classes\":{";
+  bool first = true;
+  for (int c = 0; c < 4; c++) {
+    const OpClassHist& h = op_hists_[c];
+    if (!h.n) continue;
+    if (!first) out << ",";
+    first = false;
+    out << "\"" << kOpClassNames[c] << "\":{\"b\":[";
+    for (int i = 0; i < OpClassHist::kBuckets; i++)
+      out << (i ? "," : "") << h.b[i];
+    out << "],\"sum\":" << h.sum_us << ",\"max\":" << h.max_us
+        << ",\"n\":" << h.n << "}";
+  }
+  out << "},\"last_collective\":{\"name\":";
+  JsonString(out, last_coll_);
+  out << ",\"seq\":" << coll_seq_ << "}}";
+  return out.str();
 }
 
 uint64_t Engine::begin(int kind, const std::string& name) {
   uint64_t token = next_token_.fetch_add(1);
+  if (kind == kColl) enterCollective(name);
   std::lock_guard<std::mutex> g(mu_);
   inflight_[token] = InflightOp{name, kind, NowUs()};
   return token;

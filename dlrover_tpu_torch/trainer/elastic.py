@@ -26,9 +26,15 @@ Before it writes the state in place the step waits for the registered
 readers of it (``common.state_fence``: a checkpoint snapshot still
 streaming to the host).
 
-Not ported yet: the memory-ledger claims and the compile-watch signature
-of the reference's ``train_step`` (they need the port's own observability
-planes).
+The first step after the world is (re)configured claims the training
+state in the memory ledger (``observability/memory.py``): the params and
+the optimizer state at the exact bytes of this rank's tensors (a
+DTensor's local shard, not its global size) and the f32 grad
+accumulators, which a step allocates at each param's full shape, as
+``activations``. Every step notes its ``(accum, rows, seq)`` signature
+in the compile watch (``observability/compile_watch.py``,
+``trainer.train_step``); the first step at a new signature is timed as
+its miss.
 """
 
 from typing import Any, Callable, Dict, NamedTuple, Optional
@@ -38,8 +44,11 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
 from dlrover_tpu_torch.common import state_fence
+from dlrover_tpu_torch.common.constants import MetricLabel
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability.compile_watch import get_watcher
+from dlrover_tpu_torch.observability.memory import get_accountant
 from dlrover_tpu_torch.parallel import sharding
 from dlrover_tpu_torch.parallel.mesh import MeshPlan, plan_mesh
 from dlrover_tpu_torch.trainer.optim import tree_leaves, tree_unflatten
@@ -83,6 +92,8 @@ class ElasticTrainer:
         self.device = resolve_device(device)
         self.grad_accum_steps = 1
         self._mesh_version = 0
+        # the ledger claims are (re)taken at the first step of a world
+        self._state_claimed = False
 
     def configure_for_world(self, plan: MeshPlan) -> int:
         """(Re)compute grad-accum for the current mesh."""
@@ -95,6 +106,7 @@ class ElasticTrainer:
                 f"constrain the world with node_unit"
             )
         self.grad_accum_steps = self.global_batch_size // denom
+        self._state_claimed = False
         logger.info(
             "elastic trainer: dp_total=%s grad_accum=%s (global batch %s)",
             dp_total, self.grad_accum_steps, self.global_batch_size,
@@ -136,12 +148,41 @@ class ElasticTrainer:
         """Rows per microbatch across the whole mesh."""
         return self.global_batch_size // self.grad_accum_steps
 
+    def claim_state(self, state) -> None:
+        """Claim the training state in the memory ledger: params and
+        optimizer state at this rank's exact bytes, and the f32 grad
+        accumulators (full-shape, as a step allocates them) as
+        activations."""
+        params = tree_leaves(state["params"])
+        params_b = sum(_local(p).numel() * _local(p).element_size()
+                       for p in params)
+        opt_b = sum(_local(t).numel() * _local(t).element_size()
+                    for t in tree_leaves(state["opt_state"])
+                    if isinstance(t, torch.Tensor))
+        accum_b = sum(4 * p.numel() for p in params)
+        acc = get_accountant()
+        acc.register(MetricLabel.MEM_PARAMS, "trainer/params", params_b)
+        acc.register(MetricLabel.MEM_OPT_STATE, "trainer/opt_state", opt_b)
+        acc.register(MetricLabel.MEM_ACTIVATIONS, "trainer/grad_accum",
+                     accum_b)
+        self._state_claimed = True
+
     def train_step(self, state, batch):
         """batch: ``(accum, micro_batch_global, ...)`` tokens (numpy or a
         tensor; moved to the trainer's device), the whole global batch on
         every rank. Returns ``(new_state, TrainStepResult(loss,
         grad_norm))``; the params tensors are updated in place and the
         optimizer state is advanced in place."""
+        if not self._state_claimed:
+            self.claim_state(state)
+        shape = tuple(getattr(batch, "shape", ()) or ())
+        with get_watcher().time(
+                "trainer.train_step", accum=self.grad_accum_steps,
+                batch=shape[1] if len(shape) > 1 else 0,
+                seq_len=shape[2] if len(shape) > 2 else 0):
+            return self._train_step(state, batch)
+
+    def _train_step(self, state, batch):
         batch = torch.as_tensor(batch).to(self.device)
         accum = self.grad_accum_steps
         if batch.shape[0] != accum:

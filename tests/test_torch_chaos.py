@@ -1,8 +1,12 @@
 """The port's kill-shrink-rejoin drill end to end on the CPU:
 ``examples/chaos_goodput_torch.py`` as a subprocess, one port master, two
 port agents and their gloo workers, held to the drill assertions of
-``tests/test_chaos_e2e.py:22-171`` that its slice carries (the straggler,
-reshard, flight-recorder and journal halves wait for their planes).
+``tests/test_chaos_e2e.py:22-171`` that its slice carries, the straggler
+half's among them (the reshard, flight-recorder and journal halves wait
+for their planes); and the straggler half alone with the device timer,
+whose straggler rule's stack dump must reach agent 1 and hold the
+worker's Python stack. Each drill is a subprocess with its own time
+limit.
 """
 
 import json
@@ -57,5 +61,44 @@ def test_chaos_kill_shrink_resume_rejoin_on_the_port():
     assert result["detect_s"] < 3.0, result["detect_s"]
     assert 0 < result["goodput_pct"] <= 100
     assert result["agent_exit_codes"] == {"0": 0, "1": 0}
+    # skew attribution: the injected 0.25 s/step compute delay on agent
+    # 1's worker surfaced through the op-telemetry uplink as a
+    # straggler_detected verdict naming the right rank AND cause, while
+    # the rank was still alive, and the skew gauge was live on the same
+    # mid-drill scrape
+    assert result["straggler"]["rank"] == 1, result["straggler"]
+    assert result["straggler"]["cause"] == "compute", result["straggler"]
+    assert result["straggler"]["ratio"] > 2.0, result["straggler"]
+    assert result["straggler_rank_alive"] is True
+    assert result["skew_ratio_mid"] > 0.0, result["skew_ratio_mid"]
     # no process of the drill loaded JAX or the JAX package
+    assert result["forbidden_modules"] == []
+
+
+def test_straggler_drill_with_the_timer_dumps_the_slow_rank():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DLROVER_TPU_")}
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run(
+        [sys.executable,
+         os.path.join(REPO, "examples", "chaos_goodput_torch.py"),
+         "--steps", "16", "--step-time", "0", "--straggler-only",
+         "--tpu-timer"],
+        env=env, capture_output=True, text=True, timeout=180, cwd=REPO)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [(r["world"], r["start"]) for r in result["segments"]] == [
+        (2, 0), (2, 0)]
+    assert result["verdicts_before_delay"] == []
+    assert (result["straggler"]["rank"], result["straggler"]["cause"]) == (
+        1, "compute")
+    assert result["straggler"]["ratio"] > 2.0
+    assert result["straggler_rank_alive"] is True
+    assert result["skew_ratio_mid"] > 2.0
+    # the straggler rule's STACK_DUMP reached agent 1, whose evidence
+    # holds the worker's Python stack (read through the timer's daemon)
+    assert result["stack_dump"]["source"] == "agent_1"
+    assert result["stack_dump"]["holds_worker_stack"] is True
+    assert result["final_step"] == 15 and result["w_final"] == 16.0
+    assert result["agent_exit_codes"] == {"0": 0, "1": 0}
     assert result["forbidden_modules"] == []

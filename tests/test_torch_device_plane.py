@@ -16,6 +16,10 @@ hang loop end to end on the CPU.
 - ``ProfileListener`` answers a request over the port's ``SharedDict``
   with a ``torch.profiler`` trace, and a relaunched listener does not
   replay the old request;
+- the native engine keeps the op-class telemetry over what it records: a
+  span around N hooked GEMMs counts N + 1, a hooked copy has no class, a
+  collective's entry is marked at the call and its duration taken once
+  its end event completes, and the JAX skew monitor reads the wire;
 - the hang loop: a port agent's beats carrying ``XPU_TIMER_COMMON_HANG`` =
   1 make both the port's master and the JAX master's
   ``TrainingHangDiagnostician`` resolve ``training_hang`` with a wedged
@@ -678,3 +682,148 @@ def test_agent_closes_the_hang_loop_on_the_cpu(tmp_path, monkeypatch,
         for name in os.listdir("/dev/shm"):
             if name.startswith(f"dlrtpu_{job}_"):
                 os.unlink(os.path.join("/dev/shm", name))
+
+
+# ---------------------------------------------------------------------------
+# op-class telemetry from the native engine (the fake CUDA stack)
+# ---------------------------------------------------------------------------
+
+OPTEL_CHILD = r'''
+import ctypes, json, os, sys
+args = json.loads(sys.argv[1])
+fake = ctypes.CDLL(args["fake"])
+caller = ctypes.CDLL(args["caller"])
+for fn in ("fake_blas_handle", "fake_nccl_comm"):
+    getattr(fake, fn).restype = ctypes.c_void_p
+fake.fake_set_kernel_ms.argtypes = [ctypes.c_double]
+from dlrover_tpu_torch.observability.op_telemetry import get_accumulator
+from dlrover_tpu_torch.observability.tpu_timer import KIND_COLL, TpuTimer
+timer = TpuTimer()
+timer.install(0, 1, 0, port=0, device="cuda")
+S = ctypes.c_void_p(0x100)
+S2 = ctypes.c_void_p(0x200)
+blas = ctypes.c_void_p(fake.fake_blas_handle(S))
+size = ctypes.c_size_t
+out = {}
+fake.fake_set_auto(1)
+fake.fake_set_kernel_ms(2.0)
+# one compute span around N hooked GEMMs: N + 1 observations
+with timer.span("train_step"):
+    for _ in range(args["n"]):
+        caller.call_gemm_ex(blas, 0, 0, 64, 64, 64)
+timer.wait_drained(5)
+out["span_and_gemms"] = timer.op_telemetry()
+# a hooked copy has no class; a checkpoint span is ckpt
+caller.call_memcpy(size(1 << 20), 2, S)
+with timer.span("ckpt_save"):
+    pass
+timer.wait_drained(5)
+out["copy_and_ckpt"] = timer.op_telemetry()
+# a collective whose kernel has not completed: its entry is marked at the
+# call, its duration only once its end event completes
+fake.fake_set_auto(0)
+comm = ctypes.c_void_p(fake.fake_nccl_comm(2))
+caller.call_collective(0, size(256), 7, comm, S2)
+out["entered"] = timer.op_telemetry()
+fake.fake_advance(S2, 1000)
+timer.wait_drained(5)
+out["completed"] = timer.op_telemetry()
+with timer.span("psum", kind=KIND_COLL):
+    out["in_python_coll"] = timer.op_telemetry()
+out["python_accumulator_seq"] = get_accumulator().seq
+timer.shutdown()
+os.remove(f"/tmp/tpu_timer_pystack_{os.getpid()}.txt")
+print(json.dumps(out))
+'''
+
+
+@pytest.fixture(scope="module")
+def fake_cuda(tmp_path_factory):
+    out = tmp_path_factory.mktemp("optel_fakes")
+    fakes = build.build_fakes(out)
+    return {"lib": str(build.build()["lib"]), "fake": str(fakes["fake"]),
+            "caller": str(fakes["caller"]), "dir": str(out)}
+
+
+def _optel_child(fake_cuda, n):
+    env = dict(os.environ, PYTHONPATH=REPO, LD_PRELOAD=fake_cuda["lib"],
+               TPU_TIMER_LIB=fake_cuda["lib"],
+               LD_LIBRARY_PATH=fake_cuda["dir"])
+    r = subprocess.run(
+        [sys.executable, "-c", OPTEL_CHILD, json.dumps(dict(
+            fake=fake_cuda["fake"], caller=fake_cuda["caller"], n=n))],
+        capture_output=True, text=True, env=env, timeout=30)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def test_native_engine_feeds_op_telemetry_once(fake_cuda):
+    from dlrover_tpu.master.skew_monitor import SkewMonitor as JaxSkew
+    from dlrover_tpu.observability.op_telemetry import (
+        OpClassHistogram as JaxHist,
+    )
+    from dlrover_tpu.observability.registry import (
+        MetricsRegistry as JaxRegistry,
+    )
+
+    n = 6
+    got = _optel_child(fake_cuda, n)
+    first = got["span_and_gemms"]
+    # the span counts once, in the engine, beside its N GEMMs
+    compute = first["classes"]["compute"]
+    assert compute["n"] == n + 1 and first["seq"] == n + 1
+    # each GEMM's duration is the fake kernel's 2 ms between its events
+    assert compute["b"][4] >= n  # (640, 2560] µs
+    assert isinstance(compute["sum"], float)
+    assert set(first["classes"]) == {"compute"}
+    # the Python accumulator saw nothing: no double count
+    assert got["python_accumulator_seq"] == 0
+    second = got["copy_and_ckpt"]
+    assert second["classes"]["compute"]["n"] == n + 1
+    assert second["classes"]["ckpt"]["n"] == 1
+    assert second["seq"] == n + 2
+    # entry before completion
+    entered = got["entered"]
+    assert entered["last_collective"] == {"name": "ncclAllReduce", "seq": 1}
+    assert "collective" not in entered["classes"]
+    done = got["completed"]["classes"]["collective"]
+    assert done["n"] == 1 and done["sum"] == pytest.approx(2000.0)
+    # a Python collective span marks its entry at begin
+    assert got["in_python_coll"]["last_collective"] == {"name": "psum",
+                                                        "seq": 2}
+    # the native wire is the JAX package's: its histogram reads it back,
+    # and its skew monitor compares two such ranks
+    assert JaxHist.from_wire(compute).to_wire() == compute
+    clock = [100.0]
+    mon = JaxSkew(registry=JaxRegistry(), monotonic=lambda: clock[0])
+    slow = json.loads(json.dumps(done))
+    slow["sum"] *= 5
+    for snap_r0, snap_r1 in ((got["entered"], got["entered"]),
+                             (got["completed"], dict(
+                                 got["completed"], classes=dict(
+                                     got["completed"]["classes"],
+                                     collective=slow)))):
+        clock[0] += 1.0
+        mon.observe(0, {"0": snap_r0, "1": snap_r1})
+    verdicts = mon.current_verdicts()["stragglers"]
+    assert [(s["rank"], s["cause"]) for s in verdicts] == [(1, "collective")]
+
+
+def test_read_text_rereads_a_text_that_grew():
+    """The engine records between the sizing call and the copy: a text
+    that outgrew the buffer is read again, never cut short (a cut op
+    telemetry JSON failed a worker's publish on the card)."""
+    from dlrover_tpu_torch.observability import tpu_timer as tt
+
+    texts = ["x" * 10, "y" * 9000, "z" * 9000]
+    caps = []
+
+    def copy_out(buf, cap):
+        text = texts[min(len(caps), len(texts) - 1)]
+        caps.append(cap)
+        if buf is not None:
+            buf.value = text[:cap - 1].encode()
+        return len(text)
+
+    assert tt._read_text(copy_out) == "z" * 9000
+    assert caps[0] == 0 and len(caps) == 3
