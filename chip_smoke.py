@@ -8,16 +8,18 @@
     python3 chip_smoke.py --elastic  # the agent's fault drill (phase 8)
     python3 chip_smoke.py --timer    # the device timer's checks alone
     python3 chip_smoke.py --straggler  # the straggler leg alone
+    python3 chip_smoke.py --moe      # the Mixtral-class MoE phase alone
+    python3 chip_smoke.py --moe --control dk0  # ... with a kernel made wrong
     python3 chip_smoke.py --timer-ab # phase 6's step without and with it
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and the
-device timer from ``dlrover_tpu_torch/tpu_timer`` and runs eleven phases,
+device timer from ``dlrover_tpu_torch/tpu_timer`` and runs twelve phases,
 each printing one JSON line (the serving runs one each); ``timer`` runs
 after phase 1, phase 7 after phase 3, on the same weights, phase 9 after
-phase 7 (its replica stopped and the weights freed), phase 8 after phase
-6, ``straggler`` last:
+phase 7 (its replica stopped and the weights freed), ``moe`` after phase 9,
+phase 8 after phase 6, ``straggler`` last:
 
 1. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in bf16 at its path's shapes, with the error, the kernel's time, the
@@ -234,6 +236,34 @@ phase 7 (its replica stopped and the weights freed), phase 8 after phase
    registration and the peer each warm-started from, on the journal's
    clock (ROADMAP C12).
 
+``moe`` (after phase 9) — the Mixtral-class MoE path
+   (``models/moe.py``) at Mixtral 8x7B widths (dim 4096, 32/8 heads,
+   head_dim 128, ffn 14336, 8 experts, top-2, vocab 32000, capacity 1.25,
+   bf16, random weights from a seed), its depth cut to fit one card:
+   serving at 8 layers (11.87B parameters, 23.7 GB): the port's routing
+   and expert FFN (``moe._route``, ``_moe_ffn``) of the first and last
+   layer against the reference's one-hot dispatch/combine form written
+   out here (``moe_route_check``: the dispatch equal entry for entry);
+   ``decode.generate``,
+   batch 8, prompt 1024, 32 new tokens, on the bf16 cache (4096 slots)
+   and on the int8 cache, each with K1 = L launches for the prefill and K4
+   = L a decode step exactly; the kernel route's prefill and first step
+   against the plain route's (dense attend, no decode kernel), with the
+   routing decisions that differ between them (route flips) printed and
+   held below MOE_FLIP_SHARE_MAX, the logits of the rows that routed alike
+   at LOGITS_REL_TOL, no greedy miss where the plain route's top-2 gap
+   exceeds the error, both routes' greedy tokens printed; then the engine
+   as phase 3 (int8, 8 slots, 4096 slots, 8 ragged requests, K4 = L a
+   step), its teacher a one-slot engine on the plain route (bf16 cache,
+   dense attend; the engine's routing groups), teacher-forced, at
+   MOE_TEACHER_AGREE_MIN with the step route flips printed; the choices
+   its prefills dropped at capacity are printed. Training at 2 layers (3.16B parameters, a 44.3 GB state
+   with f32 moments and accumulators): 3 ``ElasticTrainer`` steps, global
+   batch 8 × 2048 as 2 micro batches of 4, remat "dots", K1 = 2·L·accum
+   and K2 = K3 = L·accum a step exactly, one micro step on the kernel path
+   against the dense path (loss and every grad leaf's norm, with the route
+   flips), MFU counted by active parameters (the router and two experts a
+   layer), the peak memory. Prints the phase's seconds and the card.
 ``straggler`` (after phase 8) — ``examples/chaos_goodput_torch.py
    --device cuda --straggler-only --tpu-timer``: a port master and two
    port agents of one worker each on this card (their world over gloo:
@@ -245,16 +275,21 @@ phase 7 (its replica stopped and the weights freed), phase 8 after phase
    journals ``straggler_detected(rank=1, cause=compute)`` with a ratio
    above 2 while rank 1 is alive and none before the delay; the straggler
    rule's ``STACK_DUMP`` reached agent 1, whose evidence file holds the
-   worker's Python stack; ``dlrover_skew_ratio`` is above 0 on a
+   worker's Python stack and whose ``torch.profiler`` trace of the slow
+   worker was taken on its main thread between steps and holds the delayed
+   steps' GEMMs (cuBLAS kernels and ``aten::mm`` ops, at least one step's
+   four); ``dlrover_skew_ratio`` is above 0 on a
    mid-drill ``/metrics``; each rank's hook timed exactly 4 GEMMs a step
-   and its compute class holds them; both agents exit 0 (the dump does
-   not take a worker down). Prints the detect seconds (the delay's start
-   → the verdict) and the ratio.
+   and its compute class holds them; both agents exit 0 (the dump and the
+   profile do not take a worker down). Prints the detect seconds (the
+   delay's start → the verdict) and the ratio.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit from ``nvidia-smi``, and, last, ``{"ok": true, "device": ...}``.
 ``--timer`` runs the ``timer`` phase alone, with no result line;
-``--straggler`` the straggler leg alone;
+``--straggler`` the straggler leg alone; ``--moe`` the ``moe`` phase alone,
+and ``--moe --control NAME`` with one kernel made wrong (MOE_CONTROLS),
+exiting 0 only when every check that runs that kernel failed;
 ``--timer-ab`` runs phase 6's unkilled child four times, without and with
 the device timer in turns, and prints each run's median step.
 ``--decode`` builds K4 alone and runs only its rows, with no result line:
@@ -284,7 +319,9 @@ the card are full f32.
 """
 
 import atexit
+import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
@@ -299,7 +336,7 @@ import numpy as np
 import torch
 
 from dlrover_tpu_torch import worker
-from dlrover_tpu_torch.models import decode, llama
+from dlrover_tpu_torch.models import decode, llama, moe
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as fa
 from dlrover_tpu_torch.parallel.mesh import plan_mesh
@@ -1358,6 +1395,42 @@ def _launches():
     return dict(fa.LAUNCHES)
 
 
+@contextlib.contextmanager
+def record_routes(config):
+    """Collect each ``moe._route`` call's decisions while inside, for a
+    MoE ``config`` (an empty list for any other): a list of ``(expert
+    (G, g, k) int, kept (G, g, k) bool)`` pairs, detached, in call order,
+    for comparing two routes of the same inputs. The model's ``_route``
+    is wrapped for the duration and restored after."""
+    routes = []
+    if not isinstance(config, moe.MoEConfig):
+        yield routes
+        return
+    real = moe._route
+
+    def recording(*args, **kwargs):
+        out = real(*args, **kwargs)
+        routes.append((out[0].detach(), out[2].detach()))
+        return out
+
+    moe._route = recording
+    try:
+        yield routes
+    finally:
+        moe._route = real
+
+
+def route_flips(a, b):
+    """(decisions that differ, decisions) between two
+    :func:`record_routes` lists of the same calls: a choice whose expert
+    or whose kept flag differs."""
+    flips = total = 0
+    for (ea, ka), (eb, kb) in zip(a, b):
+        flips += int(((ea != eb) | (ka != kb)).sum())
+        total += ea.numel()
+    return flips, total
+
+
 def _rel_err(out, ref):
     return float((out - ref).abs().max() / ref.abs().max())
 
@@ -1485,8 +1558,53 @@ def _teacher_agreement(params, config, device, pairs):
     return agree / total
 
 
+def _moe_engine_teacher(params, config, device, cache_len, pairs):
+    """The MoE engine's teacher: a one-slot engine on the plain route
+    (bf16 cache, dense attend), teacher-forced on each of ``pairs``
+    (prompt, generated tokens). It routes as the engine does (the
+    bucket-padded prompt one group, each step's token alone), where a
+    single forward over the sequence would route it as one group and drop
+    other choices. Returns the share of tokens it reproduces and, per
+    pair, the routes of its steps (``record_routes`` lists)."""
+    os.environ["DLROVER_TPU_FLASH_DECODE"] = "0"
+    try:
+        teacher = BatchDecodeEngine(params, config, slots=1,
+                                    cache_len=cache_len, device=device)
+        agree = total = 0
+        step_routes = []
+        for prompt, gen in pairs:
+            pred = [teacher.insert(teacher.prefill_rows(
+                prompt, _bucket(len(prompt))), 0)]
+            with record_routes(config) as routes:
+                for t in gen[:-1]:
+                    pred.append(teacher.step([t], [True])[0])
+            agree += sum(int(a == b) for a, b in zip(pred, gen))
+            total += len(gen)
+            step_routes.append(routes)
+    finally:
+        del os.environ["DLROVER_TPU_FLASH_DECODE"]
+    return agree / total, step_routes
+
+
+def _engine_step_flips(routes, marks, teacher_routes, L):
+    """(decisions that differ, decisions) between the engine's steps and
+    the teacher's, token by token: ``marks`` holds, for each of a
+    request's steps, the index of the step's first layer in ``routes`` and
+    the request's slot there."""
+    flips = total = 0
+    for req_marks, t_routes in zip(marks, teacher_routes):
+        for j, (first, slot) in enumerate(req_marks):
+            for li in range(L):
+                ek, kk = routes[first + li]
+                et, kt = t_routes[j * L + li]
+                flips += int(((ek[slot] != et[0]) | (kk[slot] != kt[0]))
+                             .sum())
+                total += et[0].numel()
+    return flips, total
+
+
 def engine_phase(params, config, device, slots, cache_len, n_requests,
-                 len_range, new_range, n_teacher):
+                 len_range, new_range, n_teacher, phase="engine"):
     rng = np.random.default_rng(SEED)
     reqs = []
     for _ in range(n_requests):
@@ -1511,32 +1629,40 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
     fa.reset_launch_counts()
     _sync(device)
     t0 = time.perf_counter()
-    active = [None] * slots  # slot -> [request index, position, tokens]
-    done = {}
-    pending = list(range(n_requests))
-    steps = ragged_steps = 0
-    while pending or any(a is not None for a in active):
-        for s in range(slots):
-            if active[s] is None and pending:
-                r = pending.pop(0)
-                prompt = reqs[r][0]
-                res = engine.prefill_rows(prompt, _bucket(len(prompt)))
-                active[s] = [r, len(prompt), [engine.insert(res, s)]]
-        live = [a is not None for a in active]
-        if len({a[1] for a in active if a is not None}) > 1:
-            ragged_steps += 1
-        nxt = engine.step([a[2][-1] if a else 0 for a in active], live)
-        steps += 1
-        for s, a in enumerate(active):
-            if a is None:
-                continue
-            a[1] += 1
-            a[2].append(nxt[s])
-            if len(a[2]) == reqs[a[0]][1]:
-                done[a[0]] = a[2]
-                active[s] = None
-    _sync(device)
-    serve_s = time.perf_counter() - t0
+    with record_routes(config) as routes:
+        active = [None] * slots  # slot -> [request index, position, tokens]
+        done = {}
+        # per request, its steps' (first route of the step, slot)
+        marks = [[] for _ in range(n_requests)]
+        pending = list(range(n_requests))
+        steps = ragged_steps = 0
+        while pending or any(a is not None for a in active):
+            for s in range(slots):
+                if active[s] is None and pending:
+                    r = pending.pop(0)
+                    prompt = reqs[r][0]
+                    res = engine.prefill_rows(prompt, _bucket(len(prompt)))
+                    active[s] = [r, len(prompt), [engine.insert(res, s)]]
+            live = [a is not None for a in active]
+            if len({a[1] for a in active if a is not None}) > 1:
+                ragged_steps += 1
+            first_route = len(routes)
+            nxt = engine.step([a[2][-1] if a else 0 for a in active], live)
+            steps += 1
+            for s, a in enumerate(active):
+                if a is None:
+                    continue
+                marks[a[0]].append((first_route, s))
+                a[1] += 1
+                a[2].append(nxt[s])
+                if len(a[2]) == reqs[a[0]][1]:
+                    done[a[0]] = a[2]
+                    active[s] = None
+        _sync(device)
+        serve_s = time.perf_counter() - t0
+    # MoE: the choices the prefills dropped at capacity (the steps drop
+    # none)
+    route_drops = sum(int((~kept).sum()) for _, kept in routes)
     counts = _launches()
     want = dict.fromkeys(fa.LAUNCHES, 0)
     want["flash_decode_int8"] = L * steps if flash else 0
@@ -1553,22 +1679,32 @@ def engine_phase(params, config, device, slots, cache_len, n_requests,
     compile_watch = compile_row(watcher, journal, registry, engine._shapes,
                                 "engine")
     memory = ledger_row(acct, device)
-    agreement = _teacher_agreement(
-        params, config, device, [(reqs[r][0], done[r])
-                                 for r in range(n_teacher)])
+    pairs = [(reqs[r][0], done[r]) for r in range(n_teacher)]
+    teacher = {}
+    if isinstance(config, moe.MoEConfig):
+        agreement, t_routes = _moe_engine_teacher(params, config, device,
+                                                  cache_len, pairs)
+        teacher["route_flips_steps"] = _engine_step_flips(
+            routes, marks[:n_teacher], t_routes, L)
+        agree_min = MOE_TEACHER_AGREE_MIN
+    else:
+        agreement = _teacher_agreement(params, config, device, pairs)
+        agree_min = TEACHER_AGREE_MIN
+    del routes
     new_tokens = sum(len(t) for t in done.values())
     emit(dict(
-        phase="engine", slots=slots, cache_len=cache_len, cache="int8",
+        phase=phase, slots=slots, cache_len=cache_len, cache="int8",
         requests_served=len(done), new_tokens=new_tokens, steps=steps,
         ragged_steps=ragged_steps, serve_s=serve_s,
         tok_per_s=new_tokens / serve_s, launches=counts,
         kv_cache_bytes=engine.kv_cache_bytes(), kv_cache_claim=exact,
         memory=memory, compile_watch=compile_watch,
         teacher_forced_agreement=agreement, teacher_requests=n_teacher,
+        teacher_agree_min=agree_min, route_drops=route_drops, **teacher,
     ))
-    if agreement < TEACHER_AGREE_MIN:
+    if agreement < agree_min:
         raise AssertionError(f"engine: teacher-forced agreement "
-                             f"{agreement:.3f} < {TEACHER_AGREE_MIN}")
+                             f"{agreement:.3f} < {agree_min}")
     return counts
 
 
@@ -2030,6 +2166,10 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
         else:
             os.environ["DLROVER_TPU_SERVE_PREFIX_BYTES"] = saved_env
     del a, inner
+    # A's closures (its gauges, its journal hook) hold it in reference
+    # cycles: only the cycle collector frees its engine, and until it
+    # runs A's weights, cache and prefixes stay on the card
+    gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
     emit(row)
@@ -2341,10 +2481,22 @@ TRAIN_LEAF_DIFF_REL_TOL = 5e-2
 
 
 def _matmul_params(c):
+    """The weights a token passes through in matmuls: for a MoE config the
+    active ones (the router and ``top_k`` experts a layer), so its MFU is
+    counted by active parameters."""
     q_dim, kv_dim = c.n_heads * c.head_dim, c.n_kv_heads * c.head_dim
-    per_layer = (c.dim * q_dim + 2 * c.dim * kv_dim + q_dim * c.dim
-                 + 3 * c.dim * c.ffn_dim)
+    ffn = 3 * c.dim * c.ffn_dim
+    if isinstance(c, moe.MoEConfig):
+        ffn = c.top_k * ffn + c.dim * c.n_experts
+    per_layer = c.dim * q_dim + 2 * c.dim * kv_dim + q_dim * c.dim + ffn
     return c.n_layers * per_layer + c.dim * c.vocab_size
+
+
+def _family(c):
+    """The model module of config ``c`` (llama or moe)."""
+    return moe if isinstance(c, moe.MoEConfig) else llama
+
+
 
 
 def _leaf_names(tree, prefix=""):
@@ -2358,19 +2510,27 @@ def _leaf_names(tree, prefix=""):
 def _loss_and_grads(params, tokens, config):
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
-    with torch.enable_grad():
-        loss = llama.next_token_loss(tree_unflatten(params, live), tokens,
-                                     config)
+    with torch.enable_grad(), record_routes(config) as routes:
+        loss = _family(config).next_token_loss(
+            tree_unflatten(params, live), tokens, config)
         grads = torch.autograd.grad(loss, live)
-    return float(loss.detach()), grads
+    # the forward's routing decisions (remat recomputes repeat them)
+    return float(loss.detach()), grads, routes[:config.n_layers]
 
 
-def kernel_vs_dense(params, tokens, config):
+def kernel_vs_dense(params, tokens, config, loss_tol=None,
+                    norm_tol=None, diff_tol=None, readings=None):
     """One micro step's loss and grads on the kernel path against the
-    dense path (``use_flash_attention=False``), at the TRAIN_* limits."""
-    loss_k, grads_k = _loss_and_grads(params, tokens, config)
+    dense path (``use_flash_attention=False``), at the TRAIN_* limits
+    unless given; for a MoE config with the routing decisions that differ
+    between the two paths. The readings are returned, and also written
+    into ``readings`` (a dict) before the limits are checked."""
+    loss_tol = TRAIN_LOSS_REL_TOL if loss_tol is None else loss_tol
+    norm_tol = TRAIN_LEAF_NORM_REL_TOL if norm_tol is None else norm_tol
+    diff_tol = TRAIN_LEAF_DIFF_REL_TOL if diff_tol is None else diff_tol
+    loss_k, grads_k, routes_k = _loss_and_grads(params, tokens, config)
     dense = dataclasses.replace(config, use_flash_attention=False)
-    loss_d, grads_d = _loss_and_grads(params, tokens, dense)
+    loss_d, grads_d, routes_d = _loss_and_grads(params, tokens, dense)
     leaves = {}
     for name, gk, gd in zip(_leaf_names(params), grads_k, grads_d):
         gk, gd = gk.float(), gd.float()
@@ -2382,15 +2542,18 @@ def kernel_vs_dense(params, tokens, config):
                loss_rel=abs(loss_k - loss_d) / abs(loss_d),
                grad_norm=[float(global_norm(grads_k)),
                           float(global_norm(grads_d))],
-               leaves=leaves)
+               leaves=leaves, limits=[loss_tol, norm_tol, diff_tol])
+    if routes_k:
+        out["route_flips"], out["route_decisions"] = route_flips(
+            routes_k, routes_d)
+    if readings is not None:
+        readings.update(out)
     bad = [n for n, v in leaves.items()
-           if not (v["norm_rel"] <= TRAIN_LEAF_NORM_REL_TOL
-                   and v["diff_rel"] <= TRAIN_LEAF_DIFF_REL_TOL)]
-    if bad or not out["loss_rel"] <= TRAIN_LOSS_REL_TOL:
+           if not (v["norm_rel"] <= norm_tol and v["diff_rel"] <= diff_tol)]
+    if bad or not out["loss_rel"] <= loss_tol:
         raise AssertionError(
-            f"train: kernel vs dense outside loss {TRAIN_LOSS_REL_TOL}, "
-            f"leaf norm {TRAIN_LEAF_NORM_REL_TOL}, leaf difference "
-            f"{TRAIN_LEAF_DIFF_REL_TOL} (leaves {bad}): {out}")
+            f"train: kernel vs dense outside loss {loss_tol}, leaf norm "
+            f"{norm_tol}, leaf difference {diff_tol} (leaves {bad}): {out}")
     return out
 
 
@@ -2534,6 +2697,492 @@ def train_phase(config, device, global_batch, micro_batch, seq, steps, lr):
     batch_shape = (accum, trainer.micro_batch_global, seq + 1)
     return counts, dict(config=c, state=state, trainer=trainer,
                         batch_shape=batch_shape, step_s=step_mean)
+
+
+# ---------------------------------------------------------------------------
+# the moe phase: Mixtral 8x7B widths, serving at 8 layers, training at 2
+# ---------------------------------------------------------------------------
+
+# The depth cuts: 32 layers (46.7B parameters, 93 GB in bf16) do not fit one
+# card; 8 layers are 11.87B parameters (23.7 GB), 2 layers with f32 moments
+# and accumulators a 44.3 GB train state.
+MOE_SERVE_LAYERS = 8
+MOE_TRAIN_LAYERS = 2
+# Kernel route against plain route on MoE logits. The two attention paths
+# round differently in bf16, and a token whose router choices are near a
+# tie (random weights put the router's logits at N(0, 1), their gaps at a
+# few tenths) can take another expert, or the same two in the other order,
+# on the other path: a route flip. A flipped token's FFN output changes
+# outright, so it flips again in most later layers, and through capacity
+# it may move another token of its group past or back under capacity. On
+# an H100 (700 W) 7404 of the 131,072 prefill decisions of 8 layers at
+# batch 8 x 1024 flipped (5.6%), and 5 and 12 of the 128 first-step
+# decisions (3.9%, 9.4%, bf16 and int8 cache). With K1's softmax scale
+# 1.1x too large (--control k1_scale=1.1) 34.5% of the prefill decisions
+# flipped, with K4's (k4_scale=1.1) 18.8-20.3% of the step's. So the flips
+# are held to MOE_FLIP_SHARE_MAX of the decisions, between those, and the
+# logits at LOGITS_REL_TOL on the rows whose token routed alike in every
+# layer on both paths (6 and 4-5 of 8 rows, errors 0.021-0.023; 0.174 on
+# the step with k4_scale=1.1; 0.26 over all rows); no such row at all also
+# fails (k1_scale leaves none); a greedy token may differ only where the
+# plain route's top-2 gap is within the row's largest logit error.
+MOE_FLIP_SHARE_MAX = 0.15
+# The MoE engine's tokens against its teacher (_moe_engine_teacher): the
+# same routing groups, the plain route's bf16 cache and dense attend (the
+# engine's prefill attends dense too, so this holds the decode kernel,
+# K4, and the batching; the routing itself is held by moe_route_check). A
+# dense forward over the whole sequence is no teacher here: it routes the
+# sequence as one group, and at capacity 1.25 the engine's prefills drop
+# choices it would keep (38,591 dropped on an H100, 700 W; such a teacher
+# agreed on 0.47 of the tokens). This one agreed on 0.817 with 84 of the
+# 1424 step decisions flipped (5.9%); with K4's softmax scale 1.1x too
+# large on 0.505 (389 flipped), 1.41x on 0.118. The step route flips are
+# printed beside the agreement.
+MOE_TEACHER_AGREE_MIN = 0.7
+# Kernel path against dense path of one MoE micro step (2 layers, 4 x
+# 2048 tokens): a flipped token moves its gradient to another expert and
+# sends another hidden state on through the layers, so every leaf differs
+# by more than the attention rounding alone gives the Llama step
+# (TRAIN_*). On an H100 (700 W) 419 of the 32,768 forward decisions
+# flipped (1.3%); the loss differed by 3.7e-5, the leaf norms by at most
+# 4.8e-3 (the router), the leaves themselves by 0.056-0.163 of their norm.
+# A fault in K2 or K3 (dk = 0) moves wq, wk, wv by their whole gradient.
+# Held with the flips printed beside them.
+MOE_TRAIN_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
+MOE_TRAIN_LEAF_NORM_REL_TOL = 1e-2
+MOE_TRAIN_LEAF_DIFF_REL_TOL = 0.3
+
+
+# The port's routing and expert FFN against the reference's one-hot form
+# (moe_route_check): the dispatch must be equal entry for entry; the
+# outputs may differ only where bf16 rounds (the port sums a token's two
+# choices in f32 and casts once, the one-hot combine is a bf16 product);
+# on an H100 (700 W) both layers read 0, bitwise equal.
+MOE_ROUTE_REL_TOL = 1e-2
+# The controls (``--moe --control NAME``): the moe phase's checks with one
+# kernel deliberately wrong, each of which must fail through the phase's
+# own assertion. ``k1_scale=F``: K1 computes the softmax with its scale
+# times F (the forward only; the backward keeps the right scale), which
+# the generate and train checks see (the engine's prefill attends dense).
+# ``k4_scale=F``: K4 likewise, which the generate and engine checks see.
+# ``dk0``: K3 returns dk = 0 (dv kept), so wk takes no gradient through
+# attention, which the train check sees.
+MOE_CONTROLS = ("k1_scale=F", "k4_scale=F", "dk0")
+
+
+def _moe_rows_alike(routes_k, routes_p, token):
+    """``(B,)`` bool: whether each row's ``token`` (an index into each
+    call's group axis) routed alike in every recorded layer on both paths
+    (one group a row: the prefill's and the decode step's layout)."""
+    alike = None
+    for (ek, kk), (ep, kp) in zip(routes_k, routes_p):
+        same = ((ek[:, token] == ep[:, token])
+                & (kk[:, token] == kp[:, token])).all(-1)
+        alike = same if alike is None else alike & same
+    return alike
+
+
+def _rows_rel_err(out, ref, rows):
+    """The largest error over the selected rows, relative to the
+    reference's largest logit there (the serving limit's scale)."""
+    if not bool(rows.any()):
+        return 0.0
+    return _rel_err(out[rows], ref[rows])
+
+
+def _greedy_misses(out, ref, rows):
+    """Rows where the argmax differs although the reference's top-2 gap
+    exceeds the row's largest logit error."""
+    top2 = torch.topk(ref, 2, dim=-1).values
+    gap = top2[:, 0] - top2[:, 1]
+    err = (out - ref).abs().amax(-1)
+    miss = (out.argmax(-1) != ref.argmax(-1)) & (gap > err) & rows
+    return int(miss.sum())
+
+
+def _moe_ffn_onehot(x, layer, c):
+    """The reference's routed-expert FFN written as it is there
+    (``dlrover_tpu/models/moe.py`` ``_route`` and ``_moe_ffn``), with no
+    code of the port's routing: top-k by repeated argmax (the lower index
+    first on ties, as ``lax.top_k``), positions as an f32 cumsum over the
+    choice-major one-hot masks, the (G, g, E, C) dispatch and combine
+    tensors and the four einsums. Returns ``(out, dispatch)``."""
+    B, S, D = x.shape
+    E, k = c.n_experts, c.top_k
+    C = moe.expert_capacity(c, B, S)
+    g = S if c.route_group_size is None else c.route_group_size
+    G = B * S // g
+    xg = x.reshape(G, g, D)
+    probs = torch.softmax(torch.matmul(xg.float(), layer["router"]), -1)
+    left, topv, topi = probs.clone(), [], []
+    for _ in range(k):
+        i = left.argmax(-1)
+        topi.append(i)
+        topv.append(probs.gather(-1, i[..., None])[..., 0])
+        left = left.scatter(-1, i[..., None], float("-inf"))
+    topv, topi = torch.stack(topv, -1), torch.stack(topi, -1)
+    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    masks = (topi[..., None] == torch.arange(E, device=x.device)).float()
+    cm = masks.permute(0, 2, 1, 3)                        # (G, k, g, E)
+    positions = (torch.cumsum(cm.reshape(G, k * g, E), 1)
+                 .reshape(G, k, g, E) - 1.0)
+    keep = (positions < C).float() * cm
+    pos_in_expert = (positions * cm).sum(-1).long()       # (G, k, g)
+    slot = (pos_in_expert[..., None]
+            == torch.arange(C, device=x.device)).float()
+    oh = keep[..., None] * slot[:, :, :, None, :]         # (G, k, g, E, C)
+    dispatch = oh.sum(1)
+    combine = (oh * gates.permute(0, 2, 1)[..., None, None]).sum(1)
+    expert_in = torch.einsum("gtec,gtd->gecd", dispatch.to(x.dtype), xg)
+    gate = torch.nn.functional.silu(
+        torch.einsum("gecd,edf->gecf", expert_in, layer["w1"]))
+    up = torch.einsum("gecd,edf->gecf", expert_in, layer["w3"])
+    expert_out = torch.einsum("gecf,efd->gecd", gate * up, layer["w2"])
+    out = torch.einsum("gtec,gecd->gtd", combine.to(x.dtype), expert_out)
+    return out.reshape(B, S, D), dispatch
+
+
+def moe_route_check(params, c, device, batch=2, seq=1024):
+    """The port's routing and expert FFN (``moe._route``, ``_moe_ffn``)
+    on the card against :func:`_moe_ffn_onehot`, on the first and the last
+    layer at Mixtral width: ``batch`` rows of ``seq`` random tokens'
+    embeddings, RMS-normed as the layer's FFN input. Held: the dispatch
+    (each kept choice's expert and slot) equal in every entry, the outputs
+    within MOE_ROUTE_REL_TOL of the reference's largest."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    tokens = torch.randint(0, c.vocab_size, (batch, seq), generator=gen,
+                           device=device)
+    C = moe.expert_capacity(c, batch, seq)
+    rows = []
+    for li in sorted({0, c.n_layers - 1}):
+        layer = llama.layer_params(params, li)
+        x = llama.rms_norm(params["tok_embed"][tokens], layer["ffn_norm"],
+                           c.norm_eps)
+        out, _ = moe._moe_ffn(x, layer, c)
+        expert, slot, kept, _, _ = moe._route(
+            x.reshape(batch, seq, -1), layer["router"], c, C)
+        port = torch.zeros((batch, seq, c.n_experts, C), device=device)
+        hit = kept.nonzero(as_tuple=True)
+        port[hit[0], hit[1], expert[hit], slot[hit]] = 1.0
+        ref, dispatch = _moe_ffn_onehot(x, layer, c)
+        rows.append(dict(layer=li,
+                         dispatch_entries_differ=int((port != dispatch)
+                                                     .sum()),
+                         kept=int(kept.sum()),
+                         dropped=int((~kept).sum()),
+                         rel_err=_rel_err(out.float(), ref.float())))
+    row = dict(phase="moe_route", batch=batch, seq=seq, capacity=C,
+               layers=rows, limit=MOE_ROUTE_REL_TOL)
+    emit(row)
+    if any(r["dispatch_entries_differ"] or r["rel_err"] > MOE_ROUTE_REL_TOL
+           for r in rows):
+        raise AssertionError(f"moe route: the port's routing against the "
+                             f"reference's one-hot form: {row}")
+
+
+def moe_generate(params, c, device, tag, batch, prompt_len, new, quantize,
+                 max_len):
+    """``decode.generate`` on the MoE model (the main path, counted: K1 a
+    layer for the prefill, K4 a layer a decode step), then the kernel
+    route's prefill and first step against the plain route's (dense
+    attend, no decode kernel) with the route flips between them, and both
+    routes' greedy tokens. Returns the counted launches."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7 + prompt_len)
+    prompt = torch.randint(0, c.vocab_size, (batch, prompt_len),
+                           generator=gen, device=device)
+    total = prompt_len + new
+    T, flash = decode.planned_cache_len(total, quantize, max_len,
+                                        device=device)
+    L = c.n_layers
+    fa.reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    out = decode.generate(params, prompt, c, None, new, temperature=0.0,
+                          max_len=max_len, quantize_cache=quantize)
+    _sync(device)
+    generate_s = time.perf_counter() - t0
+    counts = _launches()
+    k4 = "flash_decode_int8" if quantize else "flash_decode_bf16"
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_fwd"] = L
+    want[k4] = L * (new - 1)
+    if counts != want or not flash:
+        raise AssertionError(f"moe generate {tag}: launches {counts}, "
+                             f"expected {want} (decode kernel {flash})")
+    if (tuple(out.shape) != (batch, total)
+            or not torch.equal(out[:, :prompt_len].long(), prompt)
+            or int(out.min()) < 0 or int(out.max()) >= c.vocab_size):
+        raise AssertionError(f"moe generate {tag}: malformed output")
+
+    dense = dataclasses.replace(c, use_flash_attention=False)
+    _sync(device)
+    t0 = time.perf_counter()
+    with record_routes(c) as pre_k:
+        logits, cache = decode.prefill(params, prompt, c, T, quantize)
+    _sync(device)
+    ttft_s = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1)
+    with record_routes(c) as step_k:
+        step_logits, cache = decode.decode_step(params, tok, cache, c,
+                                                flash=flash)
+    # the decode rate on the kernel route, and where a step's time goes
+    state = {"tok": torch.argmax(step_logits, dim=-1), "cache": cache}
+
+    def step():
+        lg, state["cache"] = decode.decode_step(params, state["tok"],
+                                                state["cache"], c,
+                                                flash=flash)
+        state["tok"] = torch.argmax(lg, dim=-1)
+
+    step()
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(8):
+        step()
+    _sync(device)
+    decode_step_ms = (time.perf_counter() - t0) * 1e3 / 8
+    profile = device_profile(step, 4, device, top=8)
+    del cache, state
+    os.environ["DLROVER_TPU_FLASH_DECODE"] = "0"
+    try:
+        with record_routes(c) as pre_p:
+            ref_logits, ref_cache = decode.prefill(params, prompt, dense, T,
+                                                   quantize)
+        with record_routes(c) as step_p:
+            ref_step, _ = decode.decode_step(params, tok, ref_cache, dense)
+        del ref_cache
+        plain_out = decode.generate(params, prompt, dense, None, new,
+                                    temperature=0.0, max_len=max_len,
+                                    quantize_cache=quantize)
+    finally:
+        del os.environ["DLROVER_TPU_FLASH_DECODE"]
+    pre_flips, pre_total = route_flips(pre_k, pre_p)
+    step_flips, step_total = route_flips(step_k, step_p)
+    pre_rows = _moe_rows_alike(pre_k, pre_p, prompt_len - 1)
+    step_rows = pre_rows & _moe_rows_alike(step_k, step_p, 0)
+    new_k, new_p = out[:, prompt_len:], plain_out[:, prompt_len:]
+    diverge = [int((new_k[b] != new_p[b]).nonzero()[0]) if bool(
+        (new_k[b] != new_p[b]).any()) else new for b in range(batch)]
+    row = dict(
+        phase="moe_generate", run=tag, layers=L, batch=batch,
+        prompt_len=prompt_len, new_tokens=new,
+        cache=("int8" if quantize else "bf16"), cache_len=T,
+        decode_kernel=flash, generate_s=generate_s, ttft_s=ttft_s,
+        launches=counts,
+        decode_step_ms=decode_step_ms, decode_step_profile=profile,
+        route_flips_prefill=[pre_flips, pre_total],
+        route_flips_prefill_by_layer=[route_flips([a], [b])[0]
+                                      for a, b in zip(pre_k, pre_p)],
+        route_flips_step=[step_flips, step_total],
+        rows_routed_alike=[int(pre_rows.sum()), int(step_rows.sum())],
+        logits_rel_err_prefill=_rows_rel_err(logits, ref_logits, pre_rows),
+        logits_rel_err_step=_rows_rel_err(step_logits, ref_step, step_rows),
+        logits_rel_err_prefill_all_rows=_rel_err(logits, ref_logits),
+        greedy_misses=[_greedy_misses(logits, ref_logits, pre_rows),
+                       _greedy_misses(step_logits, ref_step, step_rows)],
+        greedy_tokens_equal_share=float((new_k == new_p).float().mean()),
+        greedy_first_divergence=diverge,
+        limits=dict(logits_rel=LOGITS_REL_TOL,
+                    flip_share=MOE_FLIP_SHARE_MAX))
+    emit(row)
+    finite = bool(torch.isfinite(logits).all()
+                  and torch.isfinite(step_logits).all())
+    if (not finite
+            or max(row["logits_rel_err_prefill"],
+                   row["logits_rel_err_step"]) > LOGITS_REL_TOL
+            or pre_flips > MOE_FLIP_SHARE_MAX * pre_total
+            or step_flips > MOE_FLIP_SHARE_MAX * step_total
+            or any(row["greedy_misses"])
+            or not bool(step_rows.any())):
+        raise AssertionError(f"moe generate {tag}: kernel vs plain route "
+                             f"outside its limits: {row}")
+    return counts
+
+
+def moe_train(c, device, global_batch, micro_batch, seq, steps, lr):
+    """``ElasticTrainer`` on the MoE loss of config ``c``: ``steps``
+    counted steps (K1 = 2·L·accum, K2 = K3 = L·accum a step under remat
+    "dots"), the kernel path against the dense path on one micro step with
+    the route flips between them, MFU by active parameters, the peak
+    memory. Returns the counted launches."""
+    L = c.n_layers
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = moe.init_params(
+        c, torch.Generator(device=device).manual_seed(SEED + 3), device)
+    opt = adamw(lr)
+    trainer = ElasticTrainer(lambda p, t: moe.next_token_loss(p, t, c), opt,
+                             global_batch, micro_batch, device=device)
+    accum = trainer.configure_for_world(plan_mesh(1))
+    state = make_train_state(params, opt)
+    rng = np.random.default_rng(SEED + 3)
+    batches = rng.integers(0, c.vocab_size, (steps + 1, accum,
+                                             trainer.micro_batch_global,
+                                             seq + 1), dtype=np.int32)
+    fa.reset_launch_counts()
+    losses, norms, step_s = [], [], []
+    for b in batches[:steps]:
+        _sync(device)
+        t0 = time.perf_counter()
+        state, res = trainer.train_step(state, b)
+        losses.append(float(res.loss))
+        norms.append(float(res.grad_norm))
+        step_s.append(time.perf_counter() - t0)
+    counts = _launches()
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want["flash_fwd"] = 2 * L * accum * steps
+    want["flash_bwd_dq"] = want["flash_bwd_dkv"] = L * accum * steps
+    if counts != want:
+        raise AssertionError(f"moe train: launches {counts}, expected "
+                             f"{want}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(norms))
+            and int(state["step"]) == steps):
+        raise AssertionError(f"moe train: losses {losses}, grad norms "
+                             f"{norms}")
+    peak_gb = (torch.cuda.max_memory_allocated(device) / 1e9
+               if device.type == "cuda" else None)
+    state_gb = _state_bytes(state) / 1e9
+
+    def one_step():
+        nonlocal state
+        state, _ = trainer.train_step(state, batches[0])
+
+    profile = device_profile(one_step, 1, device, top=12)
+    tokens = global_batch * seq
+    step_mean = float(np.mean(step_s[1:])) if steps > 1 else step_s[0]
+    flops = (6 * _matmul_params(c) * tokens
+             + 12 * c.head_dim * _visible_pairs(seq, seq, True)
+             * global_batch * c.n_heads * L)
+    row = dict(
+        phase="moe_train", layers=L, num_params=moe.num_params(c),
+        global_batch=global_batch, micro_batch=micro_batch,
+        grad_accum=accum, seq_len=seq, steps=steps, losses=losses,
+        grad_norms=norms, step_s=step_s, step_s_mean_after_first=step_mean,
+        tokens_per_s=tokens / step_mean, model_flops_per_step=flops,
+        mfu_active=flops / step_mean / BF16_FLOP_PER_S, launches=counts,
+        state_gb=state_gb, peak_memory_gb=peak_gb, step_profile=profile)
+    row["kernel_vs_dense"] = {}
+    try:
+        kernel_vs_dense(
+            params, torch.as_tensor(batches[steps][0]).to(device), c,
+            MOE_TRAIN_LOSS_REL_TOL, MOE_TRAIN_LEAF_NORM_REL_TOL,
+            MOE_TRAIN_LEAF_DIFF_REL_TOL, readings=row["kernel_vs_dense"])
+    finally:
+        emit(row)
+    del state, params, trainer
+    return counts
+
+
+def _install_control(name):
+    """Make one kernel wrong for a control run (see MOE_CONTROLS):
+    ``k1_scale=F`` or ``dk0``. The real wrapper still launches and counts
+    its kernel."""
+    kind, _, arg = name.partition("=")
+    if kind == "k1_scale":
+        factor = float(arg)
+        real_fwd = fa._flash_fwd_cuda
+
+        def fwd(q, k, v, causal, scale):
+            return real_fwd(q, k, v, causal, scale * factor)
+
+        fa._flash_fwd_cuda = fwd
+        return ("generate_bf16", "generate_int8", "train")
+    if kind == "k4_scale":
+        factor = float(arg)
+        real_dec = fa._flash_decode_cuda
+
+        def dec(q, k, v, pos, scale, k_scale, v_scale):
+            return real_dec(q, k, v, pos, scale * factor, k_scale, v_scale)
+
+        fa._flash_decode_cuda = dec
+        return ("generate_bf16", "generate_int8", "engine")
+    if kind == "dk0":
+        real_dkv = fa._flash_bwd_dkv_cuda
+
+        def dkv(*args):
+            dk, dv = real_dkv(*args)
+            return torch.zeros_like(dk), dv
+
+        fa._flash_bwd_dkv_cuda = dkv
+        return ("train",)
+    raise SystemExit(f"chip_smoke: unknown control {name!r} (one of "
+                     f"{', '.join(MOE_CONTROLS)})")
+
+
+def moe_phase(device, base=None, control=None):
+    """The Mixtral-class MoE path (module docstring): serving at
+    MOE_SERVE_LAYERS layers (the routing against the reference's one-hot
+    form, generate on the bf16 and the int8 cache, the engine on ragged
+    slots), then training at MOE_TRAIN_LAYERS layers, of ``base``
+    (default: Mixtral 8x7B). Returns the counted launches of each run.
+
+    With ``control`` (see MOE_CONTROLS) one kernel is made wrong first and
+    each check that runs it is run on its own: the phase then prints which
+    checks failed and returns the names of those that passed (a sound
+    control leaves none)."""
+    t0 = time.perf_counter()
+    checks = _install_control(control) if control else None
+    outcome = {}
+
+    def check(name, fn):
+        if checks is None:
+            return fn()
+        if name not in checks:
+            return None
+        try:
+            fn()
+            outcome[name] = "passed"
+        except AssertionError as e:
+            outcome[name] = "failed: " + str(e)[:240]
+        return None
+
+    base = base or moe.MoEConfig.mixtral8x7b()
+    c = dataclasses.replace(base, n_layers=MOE_SERVE_LAYERS)
+    # what earlier phases still hold on the card when this one starts
+    resident_gb = (torch.cuda.memory_allocated(device) / 1e9
+                   if device.type == "cuda" else None)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    params = moe.init_params(
+        c, torch.Generator(device=device).manual_seed(SEED + 2), device)
+    total, active = moe.num_params(c)
+    emit({"phase": "moe_params", "layers": c.n_layers, "num_params": total,
+          "active_params": active,
+          "bytes": sum(t.numel() * t.element_size()
+                       for t in tree_leaves(params))})
+    if checks is None:
+        moe_route_check(params, c, device)
+    counts = [
+        check("generate_bf16", lambda: moe_generate(
+            params, c, device, "bf16", batch=8, prompt_len=1024, new=32,
+            quantize=False, max_len=4096)),
+        check("generate_int8", lambda: moe_generate(
+            params, c, device, "int8", batch=8, prompt_len=1024, new=32,
+            quantize=True, max_len=None)),
+        check("engine", lambda: engine_phase(
+            params, c, device, slots=8, cache_len=4096, n_requests=8,
+            len_range=(100, 1500), new_range=(16, 32), n_teacher=4,
+            phase="moe_engine")),
+    ]
+    serve_peak = (torch.cuda.max_memory_allocated(device) / 1e9
+                  if device.type == "cuda" else None)
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    counts.append(check("train", lambda: moe_train(
+        dataclasses.replace(base, n_layers=MOE_TRAIN_LAYERS), device,
+        global_batch=8, micro_batch=4, seq=2048, steps=3, lr=3e-4)))
+    emit({"phase": "moe", "seconds": time.perf_counter() - t0,
+          "resident_at_start_gb": resident_gb,
+          "serve_peak_memory_gb": serve_peak,
+          "card": _card() if device.type == "cuda" else "not measured"})
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if checks is not None:
+        emit({"phase": "moe_control", "control": control,
+              "checks": outcome})
+        return [name for name, got in outcome.items() if got == "passed"]
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -3424,9 +4073,10 @@ def _attribution_checks(scraped, bundle_dir, ckpt_root, job, optel, text):
     return {"row": row, "problems": problems}
 
 
-# the straggler leg: steps of the drill, and the bf16 GEMMs a step at the
+# the straggler leg: steps of the drill (enough that the dump's 3 s profile
+# of rank 1 ends while it still steps), and the bf16 GEMMs a step at the
 # train step's MLP shape (16384 x 4096 . 4096 x 11008)
-STRAGGLER_STEPS = 24
+STRAGGLER_STEPS = 32
 STRAGGLER_MATMULS = 4
 STRAGGLER_MM_SHAPE = "16384,4096,11008"
 
@@ -3466,9 +4116,15 @@ def straggler_phase(device, timeout=240):
         problems.append(f"the verdict {s}")
     if not res["straggler_rank_alive"] or res["verdicts_before_delay"]:
         problems.append("a verdict before the delay, or rank 1 dead")
-    if not (res["stack_dump"]["source"] == "agent_1"
-            and res["stack_dump"]["holds_worker_stack"]):
-        problems.append(f"the stack dump {res['stack_dump']}")
+    dump = res["stack_dump"]
+    if not (dump["source"] == "agent_1" and dump["holds_worker_stack"]):
+        problems.append(f"the stack dump {dump}")
+    # rank 1's profile: taken by its main thread, holding the delayed
+    # steps' GEMMs
+    if not (dump["profile_ok"] and dump["profile_thread"] == "main"
+            and dump["profile_gemm_kernels"] >= STRAGGLER_MATMULS
+            and dump["profile_mm_ops"] >= STRAGGLER_MATMULS):
+        problems.append(f"rank 1's profile {dump}")
     if not res["skew_ratio_mid"] > 0:
         problems.append(f"the skew gauge {res['skew_ratio_mid']}")
     # every rank's compute class holds the hook's card-timed GEMMs
@@ -4189,6 +4845,23 @@ def main(argv) -> int:
             shutil.rmtree(root, ignore_errors=True)
         _print_card()
         return 0
+    if argv[1:] == ["--moe"]:
+        # the MoE phase alone; no result line
+        _build_report()
+        moe_phase(device)
+        _print_card()
+        return 0
+    if argv[1:3] == ["--moe", "--control"] and len(argv) == 4:
+        # the MoE phase with one kernel made wrong; exits 0 only when every
+        # check that runs that kernel failed; no result line
+        _build_report()
+        passed = moe_phase(device, control=argv[3])
+        _print_card()
+        if passed:
+            print(f"chip_smoke: control {argv[3]}: {passed} passed with a "
+                  f"wrong kernel", file=sys.stderr)
+            return 1
+        return 0
     if argv[1:] == ["--straggler"]:
         # the straggler leg alone; no result line
         _build_report()
@@ -4256,6 +4929,7 @@ def main(argv) -> int:
     del params  # the serving weights make room for the replicas and training
     torch.cuda.empty_cache()
     main_path.append(serve_elastic_phase(config, device))
+    main_path.extend(moe_phase(device))
     counts, trained = train_phase(
         dataclasses.replace(config, n_layers=8), device, global_batch=8,
         micro_batch=4, seq=2048, steps=3, lr=3e-4)

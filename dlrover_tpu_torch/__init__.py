@@ -29,6 +29,12 @@ trainer across ranks, and Flash Checkpoint (``ckpt/``) in the reference's
 frame format, so the JAX package's agent and engine read the port's frames
 and the reverse.
 
+Slices 4–9 are the serving replica, the agent and master, the elastic
+serving plane and device observability. Slice 10 is Mixtral-class MoE:
+``models/moe.py`` (routing, capacity, the aux loss, ``expert`` → ``ep``
+sharding), its FFN in ``models/decode.py`` and ``serving/engine.py``, and
+the MoE train step through ``ElasticTrainer``, on the same kernels.
+
 Entry points take an explicit ``device`` (default ``"cuda"``) and never
 fall back to the CPU on their own; the CPU tests pass ``device="cpu"``.
 """

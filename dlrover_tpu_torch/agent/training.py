@@ -46,11 +46,11 @@ master's skew monitor and fleet memory monitor, and a
 every ``resource_report_interval_s``. A ``STACK_DUMP`` action (the
 master's straggler rule naming one of this node's ranks) captures
 evidence from the named rank's worker on a thread of its own without
-touching the training: through the device timer's daemon (so with
-``--tpu-timer``), its Python stack; the agent reports
-``stack_dump_captured`` with the file's path to the master. Unlike the
-reference it requests no ``torch.profiler`` trace of the live worker: on
-the card such a capture took its worker down at exit (ROADMAP C16).
+touching the training: a ``torch.profiler`` trace, which the worker takes
+on its main thread between steps (``observability/profiler.py``), and,
+through the device timer's daemon (so with ``--tpu-timer``), its Python
+stack; the agent reports ``stack_dump_captured`` with both files' paths
+to the master.
 
 Tracing: a rendezvous round is one ``rdzv.client_round`` trace (the
 client's join and world-wait spans and the master's join and cut spans
@@ -122,6 +122,11 @@ from dlrover_tpu_torch.observability.flight_recorder import (
     FlightRecorder,
 )
 from dlrover_tpu_torch.observability.journal import JournalEvent
+from dlrover_tpu_torch.observability.profiler import (
+    PROFILE_DICT,
+    THREAD_MAIN,
+    await_profile,
+)
 from dlrover_tpu_torch.observability.registry import get_registry
 from dlrover_tpu_torch.observability.tpu_timer import (
     DAEMON_PORT,
@@ -131,6 +136,12 @@ from dlrover_tpu_torch.observability.tpu_timer import (
 # how long past the master's connection-drop grace an abort waits for the
 # word that a peer node left the world
 _PEER_NEWS_MARGIN_S = 2.0
+# the straggler dump's profile of the named worker (the reference's
+# duration), how long the dump waits for it, and how long a stopping
+# agent waits for a dump in flight
+STACK_DUMP_PROFILE_S = 3.0
+STACK_DUMP_PROFILE_WAIT_S = 45.0
+STACK_DUMP_JOIN_S = 15.0
 
 
 class MasterRendezvousHandler:
@@ -216,6 +227,7 @@ class ElasticTrainingAgent:
         self._stop_flag = threading.Event()
         self._action_lock = threading.Lock()
         self._pending_action: Optional[Tuple[str, Dict]] = None
+        self._dump_thread: Optional[threading.Thread] = None
         # this agent's shm incarnation: its workers' frame names carry it
         self._shm_incarnation = uuid.uuid4().hex[:8]
         self._rdzv_handler = MasterRendezvousHandler(
@@ -500,12 +512,16 @@ class ElasticTrainingAgent:
 
     def _capture_stack_dump(self, action_data: Dict) -> None:
         """Serve the straggler rule's ``STACK_DUMP`` for the named rank's
-        worker (every local worker when it is not this node's): its
-        Python stack through the device timer's daemon, on a thread of its
-        own (a stack capture can take seconds a worker); reports
-        ``stack_dump_captured`` with the file's path ('' when the daemon
-        gave none) to the master. The span joins the trace of the master's
-        verdict, whose context the action's data carries."""
+        worker (every local worker when it is not this node's), on a
+        thread of its own (a stack capture can take seconds a worker): a
+        ``torch.profiler`` trace of ``STACK_DUMP_PROFILE_S`` (requested
+        first, taken by the worker's main thread between steps) and its
+        Python stack through the device timer's daemon; then reports
+        ``stack_dump_captured`` to the master with the stack file's path
+        (``path``) and the trace's (``profile``, with ``profile_ok`` and
+        the capturing ``profile_thread``; '' when none came within
+        ``STACK_DUMP_PROFILE_WAIT_S``). The span joins the trace of the
+        master's verdict, whose context the action's data carries."""
         carried = tracing.extract_wire(action_data.get(tracing.WIRE_KEY))
         rank = action_data.get("rank", -1)
         named = [w for w in self._workers if w.global_rank == rank]
@@ -516,18 +532,36 @@ class ElasticTrainingAgent:
                         SpanName.AGENT_STACK_DUMP,
                         source=f"agent_{self._config.node_rank}",
                         rank=rank):
+                    # the worker is live: its main thread captures
+                    # between steps, however long a step takes
+                    reqs = self._diagnosis._request_worker_profiles(
+                        STACK_DUMP_PROFILE_S,
+                        [w.local_rank for w in named] if named else None,
+                        THREAD_MAIN)
                     path = self._diagnosis.capture_worker_stacks(
                         pid=named[0].proc.pid if named else None)
+                    done = {}
+                    for local_rank, req_id in reqs.items():
+                        done = await_profile(
+                            self._ipc_server.local_dict(PROFILE_DICT),
+                            local_rank, req_id,
+                            STACK_DUMP_PROFILE_WAIT_S) or {}
+                        break  # the named rank's (or the first worker's)
                 self._client.report_event(
                     JournalEvent.STACK_DUMP_CAPTURED,
                     {"rank": rank, "cause": action_data.get("cause", ""),
-                     "path": path})
+                     "path": path,
+                     "profile": done.get("path", "") if done.get("ok")
+                     else "",
+                     "profile_ok": bool(done.get("ok")),
+                     "profile_thread": done.get("thread", "")})
             except Exception:  # noqa: BLE001 — evidence is best-effort;
                 # the training plane stays untouched
                 logger.warning("stack-dump capture failed", exc_info=True)
 
-        threading.Thread(target=capture, name="stack-dump",
-                         daemon=True).start()
+        self._dump_thread = threading.Thread(target=capture,
+                                             name="stack-dump", daemon=True)
+        self._dump_thread.start()
 
     def _take_pending_action(self):
         """(action_type, action_data), or (None, {})."""
@@ -592,6 +626,10 @@ class ElasticTrainingAgent:
             self._training_monitor.stop()
             resource_monitor.stop()
             self._stop_workers()
+            if self._dump_thread is not None:
+                # a stopping worker answers its profile request: let the
+                # evidence reach the master
+                self._dump_thread.join(STACK_DUMP_JOIN_S)
             if timer_daemon is not None:
                 timer_daemon.kill()
                 timer_daemon.wait()

@@ -60,6 +60,14 @@ def connection_ctx() -> Dict[str, Any]:
 
 
 class _Handler(socketserver.BaseRequestHandler):
+    def setup(self) -> None:
+        with self.server.conns_lock:
+            self.server.conns.add(self.request)
+
+    def finish(self) -> None:
+        with self.server.conns_lock:
+            self.server.conns.discard(self.request)
+
     def handle(self) -> None:
         try:
             self._serve()
@@ -143,6 +151,9 @@ class RPCServer:
         self._server.dedup_lock = threading.Lock()
         self._server.on_disconnect = None
         self._server.on_contact = None
+        # the connections handler threads are serving
+        self._server.conns = set()
+        self._server.conns_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
 
     def set_on_disconnect(self, hook: Callable[[Dict[str, Any]], None]
@@ -175,8 +186,23 @@ class RPCServer:
         self._thread.start()
 
     def stop(self) -> None:
+        """Stop accepting, then close the connections still open: a
+        stopped server answers nothing more, and its handler threads end
+        (with them the last references to what the handlers serve, such
+        as a replica's engine and its weights). The hooks do not run for
+        these closes. Unlike the reference, whose handler threads go on
+        serving open connections after a stop (ROADMAP C21)."""
         self._server.shutdown()
         self._server.server_close()
+        self._server.on_disconnect = None
+        self._server.on_contact = None
+        with self._server.conns_lock:
+            conns = list(self._server.conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # the peer closed it already
 
 
 class RPCClient:

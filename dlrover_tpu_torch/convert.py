@@ -1,9 +1,10 @@
 """Carry a JAX params pytree, or a whole train state, over to the port.
 
 ``params_from_jax`` takes the nested dict of arrays that
-``dlrover_tpu.models.llama.init_params`` builds (after ``np.asarray`` on
-each leaf, or the jax arrays themselves) and returns the same nesting of
-torch tensors. The layout is kept as it is: stacked ``(L, in, out)``
+``dlrover_tpu.models.llama.init_params`` or ``moe.init_params`` builds
+(after ``np.asarray`` on each leaf, or the jax arrays themselves) and
+returns the same nesting of torch tensors, each leaf in its own dtype (the
+MoE router stays f32, the expert tensors keep their leading ``E`` axis). The layout is kept as it is: stacked ``(L, in, out)``
 layer weights, ``x @ W`` orientation, no transposes.
 
 bf16 leaves come out of ``np.asarray`` as ``ml_dtypes.bfloat16``, a type

@@ -234,10 +234,15 @@ class DiagnosisAgent:
             thread.join(timeout_s)
         return self.last_stack_path
 
-    def _request_worker_profiles(self, duration_s: float = 3.0) -> None:
-        """Post a profile request to every local worker."""
+    def _request_worker_profiles(self, duration_s: float = 3.0,
+                                 local_ranks=None,
+                                 thread: str = "listener") -> Dict[int, str]:
+        """Post a profile request to every local worker (or to
+        ``local_ranks``), captured by the worker's ``thread``
+        (``listener`` for the hang path's wedged workers, ``main`` for a
+        live one); returns ``{local rank: request id}``."""
         if self._ipc_server is None:
-            return
+            return {}
         try:
             from dlrover_tpu_torch.observability.profiler import (
                 PROFILE_DICT,
@@ -245,14 +250,17 @@ class DiagnosisAgent:
             )
 
             pdict = self._ipc_server.local_dict(PROFILE_DICT)
-            for lr in range(self._local_world_size):
-                request_profile(pdict, lr, duration_s)
+            ranks = (range(self._local_world_size) if local_ranks is None
+                     else local_ranks)
+            reqs = {lr: request_profile(pdict, lr, duration_s, thread)
+                    for lr in ranks}
             logger.warning(
-                "hang detected — requested %0.1fs torch.profiler traces "
-                "from %d workers", duration_s, self._local_world_size,
-            )
+                "requested %0.1fs torch.profiler traces from %d workers "
+                "(local ranks %s)", duration_s, len(reqs), sorted(reqs))
+            return reqs
         except Exception:  # noqa: BLE001 — diagnosis must not crash
             logger.warning("profile request failed", exc_info=True)
+            return {}
 
     def capture_worker_stacks(
         self,

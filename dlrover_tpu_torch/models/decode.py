@@ -22,15 +22,24 @@ dict that shares them with ``pos + 1``.
 :func:`decode_window` is the speculative verify leg: K tokens in one
 forward, with a causal mask inside the window. It and the serving engine's
 suffix prefill share :func:`forward_window`, the layer loop of a run of
-tokens against given keys. MoE configs are not ported yet and raise.
+tokens against given keys.
+
+Llama and MoE params both run here: :func:`ffn` dispatches each layer's
+FFN on the config, and a MoE config routes every token through its
+experts (``models/moe.py``), one routing group per sequence of the call
+(the prompt at prefill, the window in :func:`forward_window`, each token
+alone at a decode step, where capacity is at least ``top_k`` and nothing
+drops). Sequence-parallel configs raise.
 """
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from dlrover_tpu_torch.common.constants import ConfigKey, env_str
 from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.models import moe
 from dlrover_tpu_torch.models.llama import (
     check_supported,
     layer_params,
@@ -79,6 +88,19 @@ def flash_decode_wanted(T: int, quantized: bool,
         and T >= live_len * 2
         and T - live_len >= _DECODE_BLOCK_K
     )
+
+
+def ffn(xn, layer, config):
+    """Dense SwiGLU or routed-expert FFN, by config family. A MoE config
+    routes per sequence of the call: a training ``route_group_size``
+    cannot divide a decode step's single token, and grouping unrelated
+    batch rows would let one row's choices drop another's (the JAX
+    ``_ffn``'s rule); the aux term is unused here."""
+    if getattr(config, "n_experts", 0):
+        if config.route_group_size is not None:
+            config = dataclasses.replace(config, route_group_size=None)
+        return moe._moe_ffn(xn, layer, config)[0]
+    return mlp(xn, layer)
 
 
 def init_kv_cache(config, batch: int, max_len: Optional[int] = None,
@@ -218,7 +240,7 @@ def prefill(params: Dict, tokens, config,
         else:
             out = _attend(q, k, v, causal, scale)
         x = x + out @ layer["wo"]
-        x = x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+        x = x + ffn(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer, c)
         if quantize:
             for name, rows in (("k", k), ("v", v)):
                 vals, sc = _quantize(rows)
@@ -285,7 +307,7 @@ def decode_step(params: Dict, token, cache: Dict, config,
             out = _attend(q, kb, vb, mask, scale, pos=pos_rows,
                           flash=flash)
         x = x + out @ layer["wo"]
-        x = x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+        x = x + ffn(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer, c)
     x = rms_norm(x, params["final_norm"], c.norm_eps)
     logits = (x[:, 0] @ params["lm_head"]).float()
     return logits, {**cache, "pos": pos + 1}
@@ -314,7 +336,7 @@ def forward_window(params: Dict, tokens, config, qpos, n_keys: int,
         k, v = layer_kv(li, k_new, v_new)
         out = _attend(q, k, v, mask, scale)
         x = x + out @ layer["wo"]
-        x = x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+        x = x + ffn(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer, c)
     return rms_norm(x, params["final_norm"], c.norm_eps)
 
 

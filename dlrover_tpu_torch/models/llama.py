@@ -9,8 +9,12 @@ and f32 logits. So params carried over from JAX by
 Training goes through autograd: the flash kernel is a
 ``torch.autograd.Function`` and each layer may be rematerialised through
 ``torch.utils.checkpoint`` (``remat`` / ``remat_policy``, the reference's
-``jax.checkpoint`` per scanned layer). Sequence-parallel attention (ring /
-Ulysses) is not ported yet and raises.
+``jax.checkpoint`` per scanned layer). The attention block, ``rms_norm``,
+the attention params and the remat context are public for the model
+families that compose them (``models/moe.py``, as the JAX file's aliases).
+MoE configs (``n_experts`` > 0) run through ``models/moe.py``; this
+file's ``forward`` and ``init_params`` refuse them. Sequence-parallel
+attention (ring / Ulysses) is not ported yet and raises.
 """
 
 import functools
@@ -30,8 +34,23 @@ from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.ops.flash_attention import flash_attention, repeat_kv
 
 
+class AttentionConfigMixin:
+    """The attention-config surface shared by ``LlamaConfig`` and
+    ``moe.MoEConfig``: the sp-strategy legacy-alias fold and head_dim."""
+
+    @property
+    def sp_strategy(self) -> Optional[str]:
+        if self.sp_attention is not None:
+            return self.sp_attention
+        return "ring" if self.use_ring_attention else None
+
+    @property
+    def head_dim(self) -> int:
+        return self.dim // self.n_heads
+
+
 @dataclass(frozen=True)
-class LlamaConfig:
+class LlamaConfig(AttentionConfigMixin):
     vocab_size: int = 32000
     dim: int = 4096
     n_layers: int = 32
@@ -54,16 +73,6 @@ class LlamaConfig:
     # None = auto: the flash kernel on CUDA, dense math elsewhere
     use_flash_attention: Optional[bool] = None
 
-    @property
-    def sp_strategy(self) -> Optional[str]:
-        if self.sp_attention is not None:
-            return self.sp_attention
-        return "ring" if self.use_ring_attention else None
-
-    @property
-    def head_dim(self) -> int:
-        return self.dim // self.n_heads
-
     @staticmethod
     def llama7b() -> "LlamaConfig":
         """Llama-2-7B shapes (MHA: 32 kv heads) — 6.74B params."""
@@ -79,13 +88,23 @@ class LlamaConfig:
 
 
 def check_supported(config) -> None:
-    """Raise for the model features the port does not carry yet."""
-    if getattr(config, "n_experts", 0):
-        raise NotImplementedError("MoE configs are not ported yet")
+    """Raise for the model features the port does not carry yet: every
+    sequence-parallel strategy (MoE configs are carried)."""
     if config.sp_strategy is not None:
         raise NotImplementedError(
             f"sequence-parallel attention {config.sp_strategy!r} is not "
             "ported yet")
+
+
+def _check_dense(config) -> None:
+    """Raise for a MoE config in a dense-only entry point (``forward``,
+    ``init_params``): its expert weights would broadcast through ``mlp``
+    into logits of the wrong shape. MoE configs go through
+    ``models/moe.py`` (and ``models/decode.py``'s ``ffn``)."""
+    if getattr(config, "n_experts", 0):
+        raise NotImplementedError(
+            "a MoE config runs through models/moe.py, not the dense Llama "
+            "forward")
 
 
 def dense_init(shape, fan_in: int, dtype, generator, device):
@@ -95,17 +114,38 @@ def dense_init(shape, fan_in: int, dtype, generator, device):
     return (w * fan_in ** -0.5).to(dtype)
 
 
+def init_attention_params(config, generator: torch.Generator,
+                          device) -> Dict:
+    """Stacked ``(L, ...)`` attention-block params for any config with
+    n_layers / dim / n_heads / n_kv_heads / head_dim / dtype."""
+    c = config
+    dev = resolve_device(device)
+    L = c.n_layers
+    q_dim = c.n_heads * c.head_dim
+    kv_dim = c.n_kv_heads * c.head_dim
+
+    def init(shape, fan_in):
+        return dense_init(shape, fan_in, c.dtype, generator, dev)
+
+    return {
+        "attn_norm": torch.ones((L, c.dim), dtype=c.dtype, device=dev),
+        "wq": init((L, c.dim, q_dim), c.dim),
+        "wk": init((L, c.dim, kv_dim), c.dim),
+        "wv": init((L, c.dim, kv_dim), c.dim),
+        "wo": init((L, q_dim, c.dim), q_dim),
+    }
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 device="cuda") -> Dict:
     """He-style init in ``config.dtype``, drawn from ``generator`` (which
     must live on ``device``). Same shapes and distributions as the JAX
     ``init_params``; the values differ, since the generators do."""
     c = config
+    _check_dense(c)
     dev = resolve_device(device)
     dt = c.dtype
     L = c.n_layers
-    q_dim = c.n_heads * c.head_dim
-    kv_dim = c.n_kv_heads * c.head_dim
 
     def init(shape, fan_in):
         return dense_init(shape, fan_in, dt, generator, dev)
@@ -113,11 +153,7 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     return {
         "tok_embed": init((c.vocab_size, c.dim), c.dim),
         "layers": {
-            "attn_norm": torch.ones((L, c.dim), dtype=dt, device=dev),
-            "wq": init((L, c.dim, q_dim), c.dim),
-            "wk": init((L, c.dim, kv_dim), c.dim),
-            "wv": init((L, c.dim, kv_dim), c.dim),
-            "wo": init((L, q_dim, c.dim), q_dim),
+            **init_attention_params(c, generator, dev),
             "ffn_norm": torch.ones((L, c.dim), dtype=dt, device=dev),
             "w1": init((L, c.dim, c.ffn_dim), c.dim),
             "w3": init((L, c.dim, c.ffn_dim), c.dim),
@@ -128,17 +164,25 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     }
 
 
+def attention_param_axes() -> Dict:
+    """Per-layer attention-block logical axes, shared by every model family
+    that uses these blocks (``models/moe.py``)."""
+    return {
+        "attn_norm": ("layers", "norm"),
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+    }
+
+
 def param_logical_axes(config: LlamaConfig) -> Dict:
     """Logical sharding axes per param (the reference's names; the rules
     in parallel/sharding.py map them to mesh axes)."""
     return {
         "tok_embed": ("vocab", "embed"),
         "layers": {
-            "attn_norm": ("layers", "norm"),
-            "wq": ("layers", "embed", "heads"),
-            "wk": ("layers", "embed", "kv_heads"),
-            "wv": ("layers", "embed", "kv_heads"),
-            "wo": ("layers", "heads", "embed"),
+            **attention_param_axes(),
             "ffn_norm": ("layers", "norm"),
             "w1": ("layers", "embed", "mlp"),
             "w3": ("layers", "embed", "mlp"),
@@ -236,6 +280,12 @@ def _remat_context(config):
     raise ValueError(f"unknown remat_policy {name!r}")
 
 
+# public names for the model families that compose these blocks
+# (models/moe.py), as the JAX file's aliases
+attention_block = attention
+remat_context = _remat_context
+
+
 def _layer(x, layer, config: LlamaConfig, positions):
     c = config
     x = x + attention(rms_norm(x, layer["attn_norm"], c.norm_eps), layer, c,
@@ -249,6 +299,7 @@ def forward(params: Dict, tokens, config: LlamaConfig):
     with ``config.remat`` and grad enabled, each layer is rematerialised
     in backward under ``config.remat_policy``."""
     c = config
+    _check_dense(c)
     check_supported(c)
     B, S = tokens.shape
     x = params["tok_embed"][tokens]

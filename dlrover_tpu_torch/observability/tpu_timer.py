@@ -11,9 +11,17 @@ The port's copy of ``dlrover_tpu/observability/tpu_timer.py``:
   patch and ``find_libtpu`` have no counterpart here.
 - :meth:`TpuTimer.enable_gc_hook` / :meth:`TpuTimer.count_dataloader_batch`
   feed the ``XPU_TIMER_COMMON_{GC_COUNT,DATA_LOADER_COUNT}`` gauges.
-- ``faulthandler`` armed on SIGUSR1: the native hang watchdog (or the
-  daemon's ``/dump_stack``) raises the signal and every Python thread's
-  stack lands in ``/tmp/tpu_timer_pystack_<pid>.txt``.
+- SIGUSR1 armed for stacks: the native hang watchdog (or the daemon's
+  ``/dump_stack``) raises the signal and every Python thread's stack
+  lands in ``/tmp/tpu_timer_pystack_<pid>.txt``. Departure from the
+  reference (ROADMAP C22): the reference registers ``faulthandler``'s
+  all-threads dump on the signal, which reads the other threads' frames
+  from inside the handler while they run, and a worker whose other
+  threads ran Python at that moment died of a SIGSEGV. Here the signal
+  only wakes a watcher thread (``signal.set_wakeup_fd``), which writes
+  the same ``faulthandler`` text holding the GIL, so no thread's frames
+  change under it. A thread that holds the GIL through a wedge (a C call
+  that does not release it) delays the dump until it lets go.
 - :meth:`TpuTimer.op_telemetry`: the op-class telemetry the worker
   publishes for the master's skew monitor (``observability/
   op_telemetry.py``). With the library loaded the native engine keeps it
@@ -39,8 +47,9 @@ import gc
 import json
 import os
 import signal
+import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from dlrover_tpu_torch.common.constants import ConfigKey, env_int, env_str
 from dlrover_tpu_torch.common.log import logger
@@ -88,6 +97,59 @@ def _read_text(fn) -> str:
             return buf.value.decode()
 
 
+def arm_stack_dump(signum: int, out) -> Callable[[], None]:
+    """Make ``signum`` append every Python thread's stack to ``out`` (an
+    open text file), written by a watcher thread that holds the GIL
+    (module docstring, ROADMAP C22). Call from the main thread
+    (``signal.signal`` requires it). Returns the function that disarms
+    it: the handler and wakeup fd it replaced come back, the watcher
+    ends."""
+    read_fd, write_fd = os.pipe()
+    os.set_blocking(write_fd, False)
+    # a Python-level handler is what makes the interpreter's C handler
+    # write the signal's number into the wakeup fd
+    prev_handler = signal.signal(signum, lambda *_: None)
+    prev_fd = signal.set_wakeup_fd(write_fd, warn_on_full_buffer=False)
+
+    def watch():
+        while True:
+            try:
+                data = os.read(read_fd, 512)
+            except OSError:
+                return  # the pipe was closed: disarmed
+            if not data:
+                return
+            if prev_fd != -1:
+                # whoever watched the wakeup fd before still sees its bytes
+                try:
+                    os.write(prev_fd, data)
+                except OSError:
+                    pass
+            if signum in data:
+                try:
+                    faulthandler.dump_traceback(file=out, all_threads=True)
+                    out.flush()
+                except (OSError, ValueError):
+                    return  # the file was closed: disarmed
+
+    threading.Thread(target=watch, name="tpu-timer-pystack",
+                     daemon=True).start()
+
+    def disarm() -> None:
+        try:
+            signal.set_wakeup_fd(prev_fd)
+            signal.signal(signum, prev_handler)
+        except ValueError:
+            pass  # not the main thread: the process is ending anyway
+        for fd in (write_fd, read_fd):
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+
+    return disarm
+
+
 class TpuTimer:
     """One per worker process. Wraps the native engine; its recording
     methods are no-ops when the library is not loaded."""
@@ -118,7 +180,7 @@ class TpuTimer:
         self._gc_t0 = 0.0
         self._installed = False
         self._stack_file = None
-        self._stack_signal = 0
+        self._disarm_stacks = None
 
     @property
     def available(self) -> bool:
@@ -167,9 +229,8 @@ class TpuTimer:
         if stack_dump_signal:
             path = f"/tmp/tpu_timer_pystack_{os.getpid()}.txt"
             self._stack_file = open(path, "w")  # noqa: SIM115 — held open
-            faulthandler.register(
-                stack_dump_signal, file=self._stack_file, all_threads=True)
-            self._stack_signal = int(stack_dump_signal)
+            self._disarm_stacks = arm_stack_dump(int(stack_dump_signal),
+                                                 self._stack_file)
             self._lib.tt_set_hang_signal(int(stack_dump_signal))
         rc = self._lib.tt_init(int(rank), int(world_size), int(local_rank),
                                int(port))
@@ -184,12 +245,9 @@ class TpuTimer:
         return True
 
     def shutdown(self) -> None:
-        if self._stack_signal:
-            try:
-                faulthandler.unregister(self._stack_signal)
-            except (ValueError, OSError):
-                pass
-            self._stack_signal = 0
+        if self._disarm_stacks is not None:
+            self._disarm_stacks()
+            self._disarm_stacks = None
         if self._stack_file is not None:
             try:
                 self._stack_file.close()

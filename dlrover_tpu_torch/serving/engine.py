@@ -30,6 +30,13 @@ Inactive slots write garbage at their frozen position for the same reason.
 Greedy only, as in the JAX engine (a served request must be a pure
 function of its prompt, so a router can replay it elsewhere).
 
+MoE params run here too (``models/decode.py``'s ``ffn``), routed as the
+JAX engine routes them: the bucket-padded prompt is one routing group, so
+its pads claim expert capacity like real tokens and the bucket sets the
+capacity (a prompt's first token can depend on its bucket); the suffix
+prefill routes the suffix alone; a step routes each slot's token alone,
+where nothing drops.
+
 The prefix-cache surface (``serving/prefix_cache.py``):
 :meth:`BatchDecodeEngine.prefix_entry` hands the trie a prefill's k/v row
 stacks, and :meth:`BatchDecodeEngine.prefill_with_prefix` computes only a
@@ -73,6 +80,7 @@ from dlrover_tpu_torch.models.decode import (
     _dequantize,
     _qkv,
     _quantize,
+    ffn,
     flash_decode_wanted,
     forward_window,
 )
@@ -81,7 +89,6 @@ from dlrover_tpu_torch.models.llama import (
     check_supported,
     init_params,
     layer_params,
-    mlp,
     rms_norm,
 )
 from dlrover_tpu_torch.observability.compile_watch import get_watcher
@@ -303,7 +310,7 @@ class BatchDecodeEngine:
             q, k, v = _qkv(xn, layer, c, positions)    # k/v (1, KV, P, Dh)
             out = _attend(q, k, v, causal, scale)
             x = x + out @ layer["wo"]
-            x = x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+            x = x + ffn(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer, c)
             ks.append(k[0].to(c.dtype))
             vs.append(v[0].to(c.dtype))
         x = rms_norm(x, params["final_norm"], c.norm_eps)
@@ -466,7 +473,7 @@ class BatchDecodeEngine:
             else:
                 out = _attend(q, kb, vb, mask, scale)
             x = x + out @ layer["wo"]
-            x = x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+            x = x + ffn(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer, c)
         x = rms_norm(x, params["final_norm"], c.norm_eps)
         logits = (x[:, 0] @ params["lm_head"]).float()
         nxt = torch.argmax(logits, dim=-1)

@@ -29,6 +29,7 @@ and eviction.
 """
 
 import threading
+import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 from dlrover_tpu_torch.chaos import get_injector
@@ -217,9 +218,15 @@ class PrefixCachingEngine:
         self._m_dropped = reg.counter(
             "dlrover_serving_prefix_dropped_total",
             "reuse attempts abandoned (fault/corruption) → cold prefill")
+        # the process's registry outlives the engine: the gauge reads it
+        # through a weak reference, so that it does not hold the engine,
+        # its weights and its cached prefixes after the engine's owner
+        # lets go (ROADMAP C21)
+        this = weakref.ref(self)
         reg.gauge(
             "dlrover_serving_prefix_bytes", "resident cached prefix bytes",
-        ).set_function(lambda: float(self.cache.bytes))
+        ).set_function(lambda: float(this().cache.bytes)
+                       if this() is not None else 0.0)
         self._evicted_seen = 0
 
     def __getattr__(self, name):

@@ -20,7 +20,10 @@ journaled in the master's journal, and a breach writes a
 After the process group and the card are up, :func:`init` starts the
 on-demand profile listener when the agent's IPC socket exists
 (``observability/profiler.py``; ``DLROVER_TPU_PROFILE_LISTENER=0`` turns it
-off), and with ``TPU_TIMER_ENABLE`` set (the agent's ``--tpu-timer``) the
+off). A live worker's profile runs on its main thread between steps:
+:meth:`~WorkerContext.report_step` and :meth:`~WorkerContext.publish_step`
+are its step boundaries, and :func:`shutdown` ends a capture still open.
+With with ``TPU_TIMER_ENABLE`` set (the agent's ``--tpu-timer``) the
 device timer: the engine with this rank's metrics endpoint, the CUDA hook
 the agent preloaded, the GC hook and the ``DLROVER_TPU_TRACE_FUNCS``
 tracepoints (``observability/tpu_timer.py``).
@@ -51,6 +54,7 @@ from dlrover_tpu_torch.common.constants import (
 )
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.common.log import logger
+from dlrover_tpu_torch.observability import profiler
 
 HBM_PUBLISH_S = 15.0
 
@@ -91,6 +95,7 @@ class WorkerContext:
         return self.rank == 0
 
     def report_step(self, step: int) -> None:
+        profiler.step_boundary()
         if self.master is not None:
             try:
                 self.master.report_global_step(step, time.time())
@@ -117,6 +122,7 @@ class WorkerContext:
         step watermark; every ~15 s the card's memory and the ledger's
         wire snapshot ride along. Both snapshots are stamped with the
         global rank the master attributes against."""
+        profiler.step_boundary()
         if not self.ipc_socket:
             return
         from dlrover_tpu_torch.common.multi_process import SharedDict
@@ -258,11 +264,9 @@ def init(initialize_distributed: bool = True,
     ipc = env_str(ConfigKey.IPC_SOCKET)
     if ipc and os.path.exists(ipc) and env_str(
             "DLROVER_TPU_PROFILE_LISTENER", "1") != "0":
-        # on-demand torch.profiler capture: the agent's hang diagnosis
-        # asks workers for a trace over this channel
-        from dlrover_tpu_torch.observability.profiler import ProfileListener
-
-        ProfileListener(ipc, local_rank).start()
+        # on-demand torch.profiler capture: the agent's hang diagnosis and
+        # straggler dump ask workers for a trace over this channel
+        profiler.ProfileListener(ipc, local_rank).start()
     if env_str(ConfigKey.TPU_TIMER_ENABLE):
         # the agent opted this job into the device timer and preloaded its
         # hook: start the engine and serve this rank's metrics
@@ -292,8 +296,10 @@ def init(initialize_distributed: bool = True,
 
 
 def shutdown() -> None:
-    """Tear the process group down (and the host group with it)."""
+    """End the profile listener (and a capture it runs), then tear the
+    process group down (and the host group with it)."""
     global _host_group
+    profiler.stop_listener()
     if dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None

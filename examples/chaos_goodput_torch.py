@@ -13,8 +13,11 @@ port's (its master, its agents, its workers), none imports JAX.
    from the op-telemetry uplink while rank 1 is alive, with the
    ``dlrover_skew_ratio`` gauge live on a mid-drill ``/metrics`` scrape;
    the straggler rule's ``STACK_DUMP`` reaches agent 1, whose evidence
-   (with ``--tpu-timer``: every worker's Python stack through the device
-   timer's daemon) is journaled as ``stack_dump_captured``;
+   (a ``torch.profiler`` trace of the slow worker, taken by its main
+   thread between steps, and with ``--tpu-timer`` its Python stack
+   through the device timer's daemon) is journaled as
+   ``stack_dump_captured``; the drill's line reports what the trace
+   holds (``stack_dump.profile_*``);
 2. agent 1's process group is SIGKILLed mid-training; the master sees its
    heartbeat connection drop, fails the node after the grace and tells the
    survivor to restart; the survivor re-forms the world at 1 with twice
@@ -343,6 +346,8 @@ def main(argv=None) -> int:
             "PYTHONPATH": REPO,
             "OMP_NUM_THREADS": "1",
             "DLROVER_TPU_EVENT_DIR": event_dir,
+            # the workers' torch.profiler traces (the straggler dump's)
+            "DLROVER_TPU_PROFILE_DIR": os.path.join(workdir, "profiles"),
             "DLROVER_TPU_LOG_LEVEL": "WARNING",
             "DLROVER_TPU_HEARTBEAT_INTERVAL_S": "0.5",
             "DLROVER_TPU_HEARTBEAT_TIMEOUT_S": str(heartbeat_timeout_s),
@@ -411,7 +416,8 @@ def main(argv=None) -> int:
             if not args.keep_workdir:
                 os.remove(dump_path)
         stack_dump = {"source": dump["source"], "path": dump_path,
-                      "holds_worker_stack": "chaos_worker.py" in dump_text}
+                      "holds_worker_stack": "chaos_worker.py" in dump_text,
+                      **_profile_evidence(dump["data"])}
         rank1_alive = agents[1].poll() is None
 
         detect_s = shrink_s = step_at_shrink = hang_recover_s = None
@@ -523,6 +529,31 @@ def main(argv=None) -> int:
                 unlink_shared_memory(name)
         if not args.keep_workdir:
             shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _profile_evidence(data):
+    """What the dump's ``torch.profiler`` trace holds: whether it was
+    taken, on which of the worker's threads, its CUDA kernel events, the
+    GEMMs among them (cuBLAS kernel names) and the ``aten::mm`` CPU ops."""
+    path = data.get("profile", "")
+    out = {"profile_ok": bool(data.get("profile_ok")) and bool(path)
+           and os.path.exists(path),
+           "profile_thread": data.get("profile_thread", ""),
+           "profile_kernels": 0, "profile_gemm_kernels": 0,
+           "profile_mm_ops": 0}
+    if not out["profile_ok"]:
+        return out
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    for e in events:
+        name = str(e.get("name", "")).lower()
+        if e.get("cat") == "kernel":
+            out["profile_kernels"] += 1
+            out["profile_gemm_kernels"] += any(
+                s in name for s in ("gemm", "nvjet", "xmma", "cutlass"))
+        elif e.get("cat") == "cpu_op" and name == "aten::mm":
+            out["profile_mm_ops"] += 1
+    return out
 
 
 if __name__ == "__main__":

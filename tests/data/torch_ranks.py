@@ -4,8 +4,9 @@
         <mode> <plan json> <out dir>
 
 Each rank prints one ``RESULT <json>`` line. ``mode`` picks the checks:
-``shard`` (regions, DTensor locals, trainer steps against the plain step)
-or ``ckpt`` (``shard``, then the checkpoint engine across ranks).
+``shard`` (regions, DTensor locals, trainer steps against the plain step),
+``ckpt`` (``shard``, then the checkpoint engine across ranks) or ``moe``
+(``ckpt`` on the tiny MoE model, for an ``ep`` plan).
 """
 
 import dataclasses
@@ -30,7 +31,7 @@ from dlrover_tpu_torch.ckpt.shm_handler import (  # noqa: E402
     shm_name,
 )
 from dlrover_tpu_torch.convert import named_leaves  # noqa: E402
-from dlrover_tpu_torch.models import llama  # noqa: E402
+from dlrover_tpu_torch.models import llama, moe  # noqa: E402
 from dlrover_tpu_torch.parallel.mesh import build_mesh, plan_mesh  # noqa: E402
 from dlrover_tpu_torch.parallel.sharding import (  # noqa: E402
     global_batch_from_local,
@@ -45,9 +46,16 @@ from dlrover_tpu_torch.trainer.optim import adamw, tree_leaves  # noqa: E402
 GLOBAL_BATCH, SEQ, STEPS = 4, 16, 3
 
 
-def config():
-    return dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32,
+def config(mode="shard"):
+    family = moe.MoEConfig if mode == "moe" else llama.LlamaConfig
+    return dataclasses.replace(family.tiny(), dtype=torch.float32,
                                use_flash_attention=False)
+
+
+def model(c):
+    """The module of ``c``'s family (init_params, param_logical_axes,
+    next_token_loss)."""
+    return moe if isinstance(c, moe.MoEConfig) else llama
 
 
 def batches(c):
@@ -57,7 +65,7 @@ def batches(c):
 
 
 def trainer(c, plan):
-    t = ElasticTrainer(lambda p, x: llama.next_token_loss(p, x, c),
+    t = ElasticTrainer(lambda p, x: model(c).next_token_loss(p, x, c),
                        adamw(3e-4), GLOBAL_BATCH,
                        max(1, GLOBAL_BATCH // (2 * plan.dp_total)),
                        device="cpu")
@@ -67,11 +75,12 @@ def trainer(c, plan):
 
 def main(mode, plan_kw, out_dir):
     ctx = worker.init(device="cpu")
-    c = config()
+    c = config(mode)
+    m = model(c)
     plan = plan_mesh(ctx.world_size, **plan_kw)
     mesh = build_mesh(plan, "cpu")
-    full = llama.init_params(c, torch.Generator().manual_seed(0), "cpu")
-    params = shard_tree(mesh, full, llama.param_logical_axes(c))
+    full = m.init_params(c, torch.Generator().manual_seed(0), "cpu")
+    params = shard_tree(mesh, full, m.param_logical_axes(c))
     res = {"rank": ctx.rank}
     res["needs"] = {k: [list(map(list, r)) for r in v.regions]
                     for k, v in needs_from_state({"params": params}).items()}
@@ -96,7 +105,7 @@ def main(mode, plan_kw, out_dir):
         losses.append([float(r.loss), float(r.grad_norm)])
     ref_t = trainer(c, plan)
     ref = make_train_state(
-        llama.init_params(c, torch.Generator().manual_seed(0), "cpu"),
+        m.init_params(c, torch.Generator().manual_seed(0), "cpu"),
         ref_t._optimizer)
     ref_losses = []
     for b in batches(c):
@@ -112,7 +121,7 @@ def main(mode, plan_kw, out_dir):
         float((p.full_tensor() - q).abs().max())
         for p, q in zip(tree_leaves(state["opt_state"]["mu"]),
                         tree_leaves(ref["opt_state"]["mu"])))
-    if mode == "ckpt":
+    if mode in ("ckpt", "moe"):
         res.update(ckpt_checks(ctx, mesh, c, state, out_dir))
     print("RESULT " + json.dumps(res), flush=True)
     worker.shutdown()
@@ -142,10 +151,11 @@ def ckpt_checks(ctx, mesh, c, state, out_dir):
     assert engine.wait_drained(60)
     # shm restore on every rank (a rank without the replicated leaves
     # reads them from its local peer's frame), then storage
+    m = model(c)
     target = make_train_state(
-        shard_tree(mesh, llama.init_params(
+        shard_tree(mesh, m.init_params(
             c, torch.Generator().manual_seed(9), "cpu"),
-            llama.param_logical_axes(c)), adamw(3e-4))
+            m.param_logical_axes(c)), adamw(3e-4))
     restored, step = engine.load(target)
     res["shm_restore"] = [step, engine.last_restore["medium"], all(
         torch.equal(a.to_local() if hasattr(a, "to_local") else a,

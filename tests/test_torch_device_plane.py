@@ -35,6 +35,7 @@ import faulthandler
 import http.server
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -493,6 +494,62 @@ def test_stack_capture_keeps_reference_cooldown_and_retry(tmp_path, server,
                       len(list(out.iterdir())))
     assert runs["port"] == runs["ref"]
     assert runs["port"][0] == [1, 1, 2, 2, 3, 3]
+
+
+# ---------------------------------------------------------------------------
+# the stack-dump signal
+# ---------------------------------------------------------------------------
+
+STACK_CHILD = r'''
+import json, signal, sys, threading, time
+from dlrover_tpu_torch.observability.tpu_timer import arm_stack_dump
+arm_stack_dump(signal.SIGUSR1, open(sys.argv[1], "w"))
+
+def busy():
+    def rec(d):
+        return 0 if d == 0 else 1 + rec(d - 1)
+    while True:
+        rec(30)
+        json.dumps(list(range(50)))
+        time.sleep(0.0005)
+
+for _ in range(4):
+    threading.Thread(target=busy, daemon=True).start()
+
+def main_loop(d):
+    return 0 if d == 0 else 1 + main_loop(d - 1)
+
+print("ready", flush=True)
+t0 = time.time()
+while time.time() - t0 < 60:
+    main_loop(50)
+'''
+
+
+def test_stack_dump_signal_leaves_a_busy_worker_alive(tmp_path):
+    """ROADMAP C22: a worker whose threads run Python survives thousands
+    of stack-dump signals (``faulthandler``'s all-threads handler, which
+    the reference registers, read the running threads' frames and
+    crashed such a process within 300-1400 signals), and each dump holds
+    the main thread's frames."""
+    out = tmp_path / "pystack.txt"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.Popen([sys.executable, "-c", STACK_CHILD, str(out)],
+                            stdout=subprocess.PIPE, text=True, env=env)
+    try:
+        assert proc.stdout.readline().strip() == "ready"
+        sent = 0
+        while sent < 3000 and proc.poll() is None:
+            os.kill(proc.pid, signal.SIGUSR1)
+            sent += 1
+            time.sleep(0.002)
+        alive = proc.poll() is None
+    finally:
+        proc.kill()
+        proc.wait()
+    assert alive, f"the worker died ({proc.returncode}) after {sent} dumps"
+    text = out.read_text()
+    assert text.count("main_loop") >= 1000 and "in busy" in text
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,12 @@ clock, or a ``monotonic`` argument), so both sides see one timeline.
 Every comparison is exact: these are control-plane decisions.
 """
 
+import gc
 import math
 import threading
 import time
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -727,3 +729,71 @@ def test_a_stopped_master_leaves_no_collect_hook():
     master.stop()
     assert master._gauge_hook not in reg._hooks
     assert "dlrover_goodput_wall_seconds" in reg.render()
+
+
+def _handler_threads():
+    return [t for t in threading.enumerate()
+            if "process_request_thread" in t.name]
+
+
+def test_a_stopped_rpc_server_closes_its_open_connections():
+    """A stopped server answers nothing more on a connection a client
+    still holds, and its handler thread ends, dropping what the handlers
+    reach (ROADMAP C21: the reference's handler threads go on serving)."""
+    from dlrover_tpu_torch.common.rpc import RPCClient
+
+    class Service:
+        def rpc_ping(self, req):
+            return tcomm.BaseResponse()
+
+    service = Service()
+    gone = weakref.ref(service)
+    server = RPCServer("127.0.0.1", 0)
+    server.register_object(service)
+    server.start()
+    before = len(_handler_threads())
+    client = RPCClient(f"127.0.0.1:{server.port}", timeout_s=5.0)
+    client.call("ping", tcomm.BaseRequest())
+    assert len(_handler_threads()) == before + 1
+    server.stop()
+    del service, server
+    deadline = time.monotonic() + 5
+    while len(_handler_threads()) > before and time.monotonic() < deadline:
+        time.sleep(0.02)
+    gc.collect()
+    assert len(_handler_threads()) == before
+    assert gone() is None
+    with pytest.raises(OSError):
+        client.call("ping", tcomm.BaseRequest(), retries=1)
+
+
+def test_a_stopped_replica_lets_go_of_its_engine():
+    """A replica behind a prefix cache, called over a connection its
+    caller keeps: once stopped and dropped, nothing holds its engine (the
+    weights a card would keep through every later phase), neither its RPC
+    handler thread nor the process registry's prefix-bytes gauge."""
+    from dlrover_tpu_torch.common.rpc import RPCClient
+    from dlrover_tpu_torch.master.servicer import start_master
+
+    master_server, _ = start_master()
+    engine = build_tiny_engine(device="cpu")
+    gone = weakref.ref(engine)
+    replica = DecodeReplica(f"127.0.0.1:{master_server.port}", 1,
+                            tpc.PrefixCachingEngine(engine),
+                            buckets=(8, 16), heartbeat_interval_s=0.2,
+                            registry=treg.MetricsRegistry())
+    try:
+        replica.start()
+        client = RPCClient(replica.addr, timeout_s=5.0)
+        client.call("serve_ping", tcomm.BaseRequest())
+    finally:
+        replica.stop()
+        master_server.stop()
+    del engine, replica
+    deadline = time.monotonic() + 5
+    while gone() is not None and time.monotonic() < deadline:
+        gc.collect()
+        time.sleep(0.05)
+    assert gone() is None
+    # the gauge reads a dropped engine as empty
+    assert "dlrover_serving_prefix_bytes 0" in treg.get_registry().render()
