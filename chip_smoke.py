@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --decode   # the decode kernel (K4) alone
+    python3 chip_smoke.py --fold     # the ring fold (K1-K3 at sp = 4) alone
     python3 chip_smoke.py --serve    # the serving replica (phase 7) alone
     python3 chip_smoke.py --serve-elastic  # the elastic serving plane (9)
     python3 chip_smoke.py --elastic  # the agent's fault drill (phase 8)
@@ -13,6 +14,8 @@
     python3 chip_smoke.py --timer-ab # phase 6's step without and with it
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
+    python3 chip_smoke.py --parallel 4  # ring, Ulysses, GPipe on 4 cards
+    python3 chip_smoke.py --parallel 4 --control ring_drop  # ... broken
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and the
 device timer from ``dlrover_tpu_torch/tpu_timer`` and runs twelve phases,
@@ -39,7 +42,14 @@ phase 8 after phase 6, ``straggler`` last:
    is held where its 256-key splits and 64-key tiles end (positions 0,
    255, 256, 257, T - 1 and past the cache, T 4100, G 1 and 8, Dh 64, one
    row of T 32768), must give bitwise-equal results on two launches, and
-   is timed warm and with L2 flushed beside SDPA under a pinned backend;
+   is timed warm and with L2 flushed beside SDPA under a pinned backend.
+   The ring fold: what rank 3 of ring attention at sp = 4 computes (B1
+   H32 D128, 4 chunks of 4096), composed on one card from the ring's own
+   steps (K1 causal on its chunk, K1 non-causal with lse on each earlier
+   chunk, ``_merge_partials``), held with its backward (K2 and K3 with a
+   non-zero lse cotangent) against K1-K3 causal over the whole 16384 and,
+   at 4 x 1024, against the plain fold, at FOLD_SP launches of each
+   kernel, and timed beside the whole sequence;
 ``timer`` — the device timer (``dlrover_tpu_torch/tpu_timer``, built with
    the host C++ compiler, its hand-declared CUDA prototypes checked against
    the toolkit's headers) in a child of this script under ``LD_PRELOAD``
@@ -310,7 +320,17 @@ later-step limits, its agents with ``--tpu-timer`` so the beats carry the
 hooked NCCL all-reduces' entry markers: before the kill the skew monitor
 shows every rank at one collective count and no hang; no result line.
 ``--node-drill N`` runs the node drill alone, held against its own
-unkilled run across N cards. Any
+unkilled run across N cards. ``--parallel 4`` trains PARALLEL_LAYOUTS
+across 4 cards (ring and Ulysses at sp 4 on 1 x 32768 tokens, GPipe at
+pp 4 on 16 x 2048; ``LlamaConfig()`` widths, 3 ``ElasticTrainer`` steps
+each, NCCL) against one card's run of the same steps: each rank's K1-K3
+launches at its layout's formula, the ranks at one loss and grad norm,
+each step's loss and grad norm and every leaf's step-1 grad norm within
+the PARALLEL_* limits; it prints step time and tokens/s beside one
+card's; no result line. ``--parallel 4 --control NAME`` breaks one
+layout's communication (PARALLEL_CONTROLS) and exits 0 only when that
+layout's readings failed and its launches held. ``--fold`` runs the ring
+fold alone. Any
 mismatch, refused launch or fault exits non-zero. Without CUDA the script
 exits non-zero and prints no result.
 
@@ -339,7 +359,15 @@ from dlrover_tpu_torch import worker
 from dlrover_tpu_torch.models import decode, llama, moe
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as fa
-from dlrover_tpu_torch.parallel.mesh import plan_mesh
+from dlrover_tpu_torch.parallel import pipeline, ring_attention, ulysses
+from dlrover_tpu_torch.parallel.mesh import build_mesh, plan_mesh
+from dlrover_tpu_torch.parallel.sharding import (
+    dtensor_spec,
+    mesh_coords,
+    mesh_sizes,
+    replica_axes,
+    shard_tree,
+)
 from dlrover_tpu_torch.serving.engine import BatchDecodeEngine
 from dlrover_tpu_torch.trainer.data import (
     ElasticDataLoader,
@@ -511,14 +539,15 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def _check_close(name, out, ref):
+def _check_close(name, out, ref, row_atol=KERNEL_ROW_ATOL):
     """Hold a kernel's output against its plain version at the KERNEL_*
-    tolerance. Returns the largest |err|, ||err|| / ||ref||, and the
-    largest share of its element's limit that an error takes."""
+    tolerance (``row_atol`` in place of KERNEL_ROW_ATOL where given).
+    Returns the largest |err|, ||err|| / ||ref||, and the largest share of
+    its element's limit that an error takes."""
     out, ref = out.float(), ref.float()
     err = (out - ref).abs()
     row_rms = ref.square().mean(dim=-1, keepdim=True).sqrt()
-    lim = (KERNEL_RTOL * ref.abs() + KERNEL_ROW_ATOL * row_rms
+    lim = (KERNEL_RTOL * ref.abs() + row_atol * row_rms
            + KERNEL_FLOOR * float(ref.square().mean().sqrt()))
     bad = int((err > lim).sum())
     rel_l2 = float(torch.linalg.vector_norm(err)
@@ -527,7 +556,7 @@ def _check_close(name, out, ref):
     if bad or rel_l2 > KERNEL_REL_L2 or not torch.isfinite(out).all():
         raise AssertionError(
             f"{name}: {bad} elements outside |err| <= {KERNEL_RTOL}*|ref| + "
-            f"{KERNEL_ROW_ATOL}*rms(row) + {KERNEL_FLOOR}*rms(ref) (worst "
+            f"{row_atol}*rms(row) + {KERNEL_FLOOR}*rms(ref) (worst "
             f"{share:.3g} of its limit), ||err||/||ref|| {rel_l2:.3g} "
             f"(limit {KERNEL_REL_L2}), max err {float(err.max()):.4g}")
     return dict(max_abs_err=float(err.max()), rel_l2=rel_l2,
@@ -842,8 +871,130 @@ def decode_kernel_rows(gen, device, shape, iters):
     return rows
 
 
+# the ring fold: rank sp-1's work in ring attention at sp = 4, on one card
+FOLD_SP = 4
+# The fold against the whole sequence at the KERNEL_* limits but for the
+# row term, doubled: besides the roundings of one kernel call, the fold
+# rounds each partial's o to bf16 before the f32 merge and each partial's
+# cotangent (do times its merge weight) to bf16 before K2 and K3, which
+# doubles the bf16 noise a row's sum gathers (on an H100 at 4 x 1024, one
+# dk element of 16.7M reached 1.0 of the single limit, ||err||/||ref||
+# 0.0033; PERF.md §6)
+FOLD_ROW_ATOL = 2 * KERNEL_ROW_ATOL
+
+
+def _plain_diagonal(q, k, v, scale):
+    o, lse = fa.flash_attention_plain(q, k, v, True, scale)
+    return o.float(), lse
+
+
+def _plain_attend_past(o, lse, q, k, v, scale):
+    o_b, lse_b = fa.flash_attention_plain(q, k, v, False, scale)
+    return ring_attention._merge_partials(o, lse, o_b.float(), lse_b)
+
+
+def _ring_fold(q, k, v, do, dlse, sp, plain=False):
+    """What rank ``sp - 1`` of ring attention computes, on one card: its
+    chunk of q against the ``sp`` chunks of k and v, composed from the
+    ring's own steps (``_diagonal``: K1 causal on its own chunk;
+    ``_attend_past``: K1 non-causal with lse on each earlier chunk, in the
+    order the hops bring them, merged by ``_merge_partials``), or from
+    their plain twins. Returns the merged ``(o, lse)`` and, through
+    autograd of ``<o, do> + <lse, dlse>`` (so K2 and K3 take a non-zero
+    lse cotangent), dq of the chunk and dk, dv of the whole sequence."""
+    diagonal, past = ((_plain_diagonal, _plain_attend_past) if plain else
+                      (ring_attention._diagonal, ring_attention._attend_past))
+    scale = q.shape[-1] ** -0.5
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    kc, vc = ks.chunk(sp, dim=2), vs.chunk(sp, dim=2)
+    o, lse = diagonal(qs, kc[-1], vc[-1], scale)
+    for j in range(sp - 2, -1, -1):
+        o, lse = past(o, lse, qs, kc[j], vc[j], scale)
+    grads = torch.autograd.grad(
+        (o * do.float()).sum() + (lse * dlse).sum(), (qs, ks, vs))
+    return o.detach(), lse.detach(), grads
+
+
+def _whole_causal(q, k, v, do, dlse, rows):
+    """K1/K2/K3 causal over the whole sequence, with the cotangents on its
+    last ``rows`` query rows only."""
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    o, lse = fa.flash_attention(qs, ks, vs, causal=True, return_lse=True)
+    o, lse = o[:, :, -rows:], lse[:, :, -rows:]
+    grads = torch.autograd.grad(
+        (o.float() * do.float()).sum() + (lse * dlse).sum(), (qs, ks, vs))
+    return o.detach(), lse.detach(), grads
+
+
+def ring_fold_rows(gen, device, shape, plain_seq):
+    """The ring's per-step kernels composed over ``FOLD_SP`` chunks of one
+    sequence (:func:`_ring_fold`) at ``shape`` = (B, H, S total, D),
+    against K1-K3 causal over the whole sequence: o and lse of the last
+    chunk, its dq, and dk, dv of every chunk, at the KERNEL_* limits with
+    FOLD_ROW_ATOL (lse at LSE_ATOL). At ``plain_seq`` total also against
+    the plain fold.
+    Its K1-K3 launches are held to FOLD_SP each."""
+    t0 = time.perf_counter()
+    rows = {}
+    for S in (shape[2], plain_seq):
+        B, H, _, D = shape
+        q, k, v = (torch.randn((B, H, S, D), generator=gen, device=device)
+                   .to(torch.bfloat16) for _ in range(3))
+        n = S // FOLD_SP
+        do = torch.randn((B, H, n, D), generator=gen,
+                         device=device).to(torch.bfloat16)
+        dlse = torch.randn((B, H, n), generator=gen, device=device)
+        fa.reset_launch_counts()
+        o, lse, (dq, dk, dv) = _ring_fold(q[:, :, -n:], k, v, do, dlse,
+                                          FOLD_SP)
+        launches = _launches()
+        want = dict.fromkeys(fa.LAUNCHES, 0)
+        want.update(flash_fwd=FOLD_SP, flash_bwd_dq=FOLD_SP,
+                    flash_bwd_dkv=FOLD_SP)
+        if launches != want:
+            raise AssertionError(f"ring fold S{S}: launches {launches}, "
+                                 f"expected {want}")
+        tag = f"ring fold sp{FOLD_SP} B{B} H{H} S{S} D{D}"
+        refs = {"whole": _whole_causal(q, k, v, do, dlse, n)}
+        if S == plain_seq:
+            refs["plain fold"] = _ring_fold(q[:, :, -n:], k, v, do, dlse,
+                                            FOLD_SP, plain=True)
+        row = dict(launches=launches)
+        for name, (o_r, lse_r, (dq_r, dk_r, dv_r)) in refs.items():
+            checks = {
+                "o": _check_close(f"{tag} o vs {name}", o, o_r,
+                                  FOLD_ROW_ATOL),
+                "dq": _check_close(f"{tag} dq vs {name}", dq[:, :, -n:],
+                                   dq_r[:, :, -n:], FOLD_ROW_ATOL),
+                "dk": _check_close(f"{tag} dk vs {name}", dk, dk_r,
+                                   FOLD_ROW_ATOL),
+                "dv": _check_close(f"{tag} dv vs {name}", dv, dv_r,
+                                   FOLD_ROW_ATOL)}
+            lse_err = float((lse - lse_r).abs().max())
+            if not lse_err <= LSE_ATOL:
+                raise AssertionError(f"{tag} lse vs {name}: max err "
+                                     f"{lse_err:.4g} > {LSE_ATOL}")
+            row[f"vs {name}"] = dict(checks, lse_max_abs_err=lse_err)
+        if S == shape[2]:
+            # forward and backward of the fold (FOLD_SP launches of each
+            # kernel) beside the whole sequence's (one of each) on the
+            # same inputs, back to back: what the ring's chunking costs
+            # rank sp-1
+            row["fold_ms"] = time_ms(lambda: _ring_fold(
+                q[:, :, -n:], k, v, do, dlse, FOLD_SP), 3, device,
+                queue_ahead=False)
+            row["whole_ms"] = time_ms(lambda: _whole_causal(
+                q, k, v, do, dlse, n), 3, device, queue_ahead=False)
+        rows[f"S{S}"] = row
+        del q, k, v, o, lse, dq, dk, dv, refs
+    return dict(shape=f"B{shape[0]} H{shape[1]} S{shape[2]} D{shape[3]} "
+                f"as {FOLD_SP} chunks of {shape[2] // FOLD_SP}, rank "
+                f"{FOLD_SP - 1}'s work", sp=FOLD_SP, **rows,
+                seconds=time.perf_counter() - t0)
+
+
 def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
-                 fwd_timed=()):
+                 fwd_timed=(), fold_shape=None, fold_plain_seq=4096):
     """Hold every kernel against its plain version; returns the JSON rows
     of the kernel table (without launches). K1 is timed at ``fwd_shape``
     and at each causal ``(B, H, S)`` of ``fwd_timed`` (same head_dim)."""
@@ -902,6 +1053,9 @@ def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
     cases.update(bwd_kernel_rows(gen, device, bwd_shape, iters))
 
     cases.update(decode_kernel_rows(gen, device, decode_shape, iters))
+    if fold_shape is not None:
+        cases["ring_fold"] = ring_fold_rows(gen, device, fold_shape,
+                                            fold_plain_seq)
     emit({"phase": "kernels", **cases})
     return cases
 
@@ -4704,6 +4858,339 @@ def elastic_alone(config, device):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# --parallel: sequence and pipeline parallelism across the host's cards
+# ---------------------------------------------------------------------------
+
+# Each layout at LlamaConfig() widths (dim 4096, 32 heads, 8 KV heads,
+# head_dim 128, remat "dots"), 3 ElasticTrainer steps from one seed, one
+# micro step a step (accum 1)
+PARALLEL_LAYOUTS = {
+    # 32768 tokens, 8192 a rank; rank r runs 1 + r chunks of K1-K3
+    "ring": dict(axes=dict(sp=4), layers=2, sp_attention="ring",
+                 global_batch=1, seq=32768),
+    # the same shape; 8 q and 2 KV heads a rank after the scatter
+    "ulysses": dict(axes=dict(sp=4), layers=2, sp_attention="ulysses",
+                    global_batch=1, seq=32768),
+    # 2 layers a stage, 16 microbatches of one row (M = 16, T = 19 ticks)
+    "gpipe": dict(axes=dict(pp=4), layers=8, sp_attention=None,
+                  global_batch=16, seq=2048),
+}
+PARALLEL_STEPS = 3
+# one control a layout, each breaking its communication (and not the
+# launches): the ring's hops deliver nothing (each rank attends its own
+# chunk in place of every earlier one); Ulysses swaps the first two
+# sequence chunks it gathers; each pipeline hop delivers the tick
+# before's output
+PARALLEL_CONTROLS = {"ring_drop": "ring", "ulysses_swap": "ulysses",
+                     "gpipe_stale": "gpipe"}
+# The layouts against one card's run of the same steps (same params, same
+# batches; plain attention over the whole sequence there), relative
+# differences: each step's loss, each step's grad norm, and every leaf's
+# grad norm at step 1. Each sits between the sound layouts' largest
+# reading and every control's (PERF.md §6): loss 9.8e-6 against
+# 8.4e-4 at the least; grad norm 3.3e-4 against 0.088; leaf norm 2.1e-4
+# against 0.0108.
+PARALLEL_LOSS_REL_TOL = 1e-4
+PARALLEL_NORM_REL_TOL = 3e-3
+PARALLEL_LEAF_NORM_REL_TOL = 2e-3
+
+
+def _parallel_launch_want(spec, name, rank, world, steps):
+    """K1-K3 launches of one rank's steps (remat "dots": K1 twice a layer,
+    forward and recompute). The ring's rank r runs 1 + r chunks; a
+    pipeline stage runs its layers at every one of the M + pp - 1 ticks,
+    forward and backward."""
+    L = spec["layers"]
+    per = L
+    if world > 1 and name == "ring":
+        per = L * (1 + rank)
+    elif world > 1 and name == "gpipe":
+        pp = spec["axes"]["pp"]
+        per = L // pp * (spec["global_batch"] + pp - 1)
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    want.update(flash_fwd=2 * per * steps, flash_bwd_dq=per * steps,
+                flash_bwd_dkv=per * steps)
+    return want
+
+
+@contextlib.contextmanager
+def _parallel_control(name):
+    """Install control ``name`` (PARALLEL_CONTROLS) while inside."""
+    saved = []
+
+    def patch(module, attr, value):
+        saved.append((module, attr, getattr(module, attr)))
+        setattr(module, attr, value)
+
+    if name == "ring_drop":
+        patch(ring_attention, "shift", lambda tensors, group, **kw:
+              tuple(tensors))
+    elif name == "ulysses_swap":
+        real = ulysses.all_to_all
+
+        def swapped(x, group, scatter_dim, gather_dim):
+            out = real(x, group, scatter_dim, gather_dim)
+            if gather_dim != 2:
+                return out
+            n = out.shape[2] // torch.distributed.get_world_size(group)
+            order = torch.arange(out.shape[2], device=out.device)
+            order = torch.cat([order[n:2 * n], order[:n], order[2 * n:]])
+            return out.index_select(2, order)
+        patch(ulysses, "all_to_all", swapped)
+    elif name == "gpipe_stale":
+        real = pipeline.shift
+        last = []
+
+        def stale(tensors, group, **kw):
+            got = real(tensors, group, **kw)
+            out = last.pop() if last else tuple(torch.zeros_like(t)
+                                                for t in got)
+            last.append(got)
+            return out
+        patch(pipeline, "shift", stale)
+    elif name is not None:
+        raise ValueError(f"unknown control {name!r}; expected one of "
+                         f"{sorted(PARALLEL_CONTROLS)}")
+    try:
+        yield
+    finally:
+        for module, attr, value in reversed(saved):
+            setattr(module, attr, value)
+
+
+def _leaf_sq_norms(grads, params, mesh):
+    """Squared global norm of every leaf of ``grads`` (each rank's local
+    shard after the trainer's reduction), in tree_leaves order: each
+    region counted once (on the rank at coordinate 0 of its replica
+    axes), summed over the world."""
+    sq = torch.stack([g.float().square().sum() for g in tree_leaves(grads)])
+    if mesh is None:
+        return sq
+    sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
+    owner = torch.tensor(
+        [all(coords[a] == 0 for a in replica_axes(dtensor_spec(p), sizes))
+         for p in tree_leaves(params)], dtype=sq.dtype, device=sq.device)
+    sq = sq * owner
+    torch.distributed.all_reduce(sq)
+    return sq
+
+
+def _count_plain_launches():
+    """On the CPU (a rehearsal) count the plain versions that stand in for
+    K1-K3 as their launches, so the launch formulas can be checked there."""
+    def counted(fn, names):
+        def call(*a, **kw):
+            for n in names:
+                fa.LAUNCHES[n] += 1
+            return fn(*a, **kw)
+        return call
+    fa.flash_attention_plain = counted(fa.flash_attention_plain,
+                                       ["flash_fwd"])
+    fa.flash_attention_bwd_plain = counted(
+        fa.flash_attention_bwd_plain, ["flash_bwd_dq", "flash_bwd_dkv"])
+
+
+def parallel_child(args) -> int:
+    """One rank of ``--parallel`` (or, at world 1, the one-card
+    reference): each layout's steps, then one ``PARALLEL {json}`` line.
+    ``args["shrink"]`` (a CPU rehearsal) overrides the config's and the
+    layouts' sizes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = worker.init(device=args.get("device", "cuda"))
+    device = ctx.device
+    shrink = args.get("shrink") or {}
+    if device.type == "cpu":
+        _count_plain_launches()
+    out = {}
+    for name in args["layouts"]:
+        spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
+        c = dataclasses.replace(llama.LlamaConfig(), n_layers=spec["layers"],
+                                sp_attention=spec["sp_attention"],
+                                **shrink.get("config", {}))
+        gb, seq = spec["global_batch"], spec["seq"]
+        params = llama.init_params(
+            c, torch.Generator(device=device).manual_seed(SEED + 2), device)
+        mesh = None
+        plan = plan_mesh(1)
+        if ctx.world_size > 1:
+            plan = plan_mesh(ctx.world_size, **spec["axes"])
+            mesh = build_mesh(plan, device.type)
+            params = shard_tree(mesh, params, llama.param_logical_axes(c))
+        if mesh is not None and "pp" in spec["axes"]:
+            def loss_fn(p, t, c=c, mesh=mesh):
+                return llama.next_token_loss_pp(p, t, c, mesh)
+        else:
+            def loss_fn(p, t, c=c, mesh=mesh):
+                return llama.next_token_loss(p, t, c, mesh)
+        opt = adamw(3e-4)
+        first = []
+
+        def update(grads, opt_state, ps, opt=opt, first=first,
+                   params=params, mesh=mesh):
+            if not first:
+                first.append(_leaf_sq_norms(grads, params, mesh).sqrt())
+            return opt.update(grads, opt_state, ps)
+
+        trainer = ElasticTrainer(
+            loss_fn, opt._replace(update=update), gb, gb // plan.dp_total,
+            device=device)
+        trainer.configure_for_world(plan)
+        state = make_train_state(params, opt)
+        batches = np.random.default_rng(SEED).integers(
+            0, c.vocab_size, (PARALLEL_STEPS, 1, gb, seq + 1),
+            dtype=np.int32)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        fa.reset_launch_counts()
+        losses, norms, step_s = [], [], []
+        with _parallel_control(args.get("control")):
+            for b in batches:
+                _sync(device)
+                t0 = time.perf_counter()
+                state, res = trainer.train_step(state, b)
+                losses.append(float(res.loss))
+                norms.append(float(res.grad_norm))
+                step_s.append(time.perf_counter() - t0)
+        out[name] = dict(
+            losses=losses, grad_norms=norms, step_s=step_s,
+            leaf_norms=dict(zip(_leaf_names(params),
+                                first[0].tolist())),
+            launches=_launches(),
+            peak_memory_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                            if device.type == "cuda" else None))
+        del params, state, trainer, first
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    print("PARALLEL " + json.dumps(out), flush=True)
+    worker.shutdown()
+    return 0
+
+
+def _parallel_runs(layouts, ranks, control=None, device="cuda",
+                   shrink=None, timeout=900):
+    """``parallel_child`` in ``ranks`` processes, one card each; their
+    PARALLEL results by rank."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("DLROVER_TPU_")}
+    env.update(DLROVER_TPU_WORLD_SIZE=str(ranks),
+               DLROVER_TPU_LOCAL_WORLD_SIZE=str(ranks),
+               DLROVER_TPU_COORDINATOR_ADDR=f"127.0.0.1:{port}")
+    args = json.dumps(dict(layouts=layouts, control=control,
+                           device=str(device), shrink=shrink))
+    procs, logs = [], []
+    try:
+        for r in range(ranks):
+            env.update(DLROVER_TPU_RANK=str(r), DLROVER_TPU_LOCAL_RANK=str(r))
+            logs.append(tempfile.TemporaryFile("w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--parallel-child", args], env=dict(env), stdout=logs[-1],
+                stderr=subprocess.STDOUT, text=True, cwd=REPO))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        lines = [ln for ln in text.splitlines() if ln.startswith("PARALLEL ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"parallel: rank {r} of {ranks} failed "
+                                 f"({p.returncode}):\n{text[-6000:]}")
+        results.append(json.loads(lines[-1][len("PARALLEL "):]))
+    return results
+
+
+def _rel(x, y):
+    return abs(x - y) / abs(y)
+
+
+def parallel_phase(ranks, control=None, device="cuda", shrink=None):
+    """``--parallel N``: each layout of PARALLEL_LAYOUTS (or, with
+    ``control``, only the one it breaks) across ``ranks`` cards, against
+    one card's run of the same steps. Held: every rank's K1-K3 launches
+    at its layout's formula, all ranks at one loss and grad norm, each
+    step's loss and grad norm and every leaf's step-1 grad norm within
+    the PARALLEL_* limits. Prints each layout's readings, step time and
+    tokens/s. Returns the names of the checks that failed (a sound run
+    raises instead). Rehearse on the CPU with ``device="cpu"`` and a
+    ``shrink`` of tiny sizes (``{"config": {...}, <layout>: {...}}``;
+    gloo ranks, the plain versions counted as the kernels' launches)."""
+    layouts = ([PARALLEL_CONTROLS[control]] if control
+               else list(PARALLEL_LAYOUTS))
+    shrink = shrink or {}
+    t0 = time.perf_counter()
+    one = _parallel_runs(layouts, 1, None, device, shrink)[0]
+    spread = _parallel_runs(layouts, ranks, control, device, shrink)
+    failed = []
+    for name in layouts:
+        spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
+        ref, runs = one[name], [res[name] for res in spread]
+        got = runs[0]
+        checks = {}
+        checks["launches"] = (
+            ref["launches"] == _parallel_launch_want(spec, name, 0, 1,
+                                                     PARALLEL_STEPS)
+            and all(res["launches"] == _parallel_launch_want(
+                spec, name, r, ranks, PARALLEL_STEPS)
+                for r, res in enumerate(runs)))
+        checks["ranks_agree"] = all(
+            res["losses"] == got["losses"]
+            and res["grad_norms"] == got["grad_norms"] for res in runs)
+        loss_rel = [_rel(a, b) for a, b in zip(got["losses"], ref["losses"])]
+        norm_rel = [_rel(a, b) for a, b in zip(got["grad_norms"],
+                                                ref["grad_norms"])]
+        leaf_rel = {n: _rel(got["leaf_norms"][n], v)
+                    for n, v in ref["leaf_norms"].items()}
+        checks["losses"] = max(loss_rel) <= PARALLEL_LOSS_REL_TOL
+        checks["grad_norms"] = max(norm_rel) <= PARALLEL_NORM_REL_TOL
+        checks["leaf_norms"] = (max(leaf_rel.values())
+                                <= PARALLEL_LEAF_NORM_REL_TOL)
+        tokens = spec["global_batch"] * spec["seq"]
+        step = float(np.mean(got["step_s"][1:]))
+        one_step = float(np.mean(ref["step_s"][1:]))
+        emit(dict(
+            phase="parallel", layout=name, control=control, ranks=ranks,
+            axes=spec["axes"], n_layers=spec["layers"],
+            global_batch=spec["global_batch"], seq_len=spec["seq"],
+            losses=got["losses"], one_card_losses=ref["losses"],
+            grad_norms=got["grad_norms"],
+            one_card_grad_norms=ref["grad_norms"],
+            loss_rel=loss_rel, grad_norm_rel=norm_rel,
+            leaf_norm_rel_max=max(leaf_rel.values()),
+            leaf_norm_rel_worst=max(leaf_rel, key=leaf_rel.get),
+            limits=[PARALLEL_LOSS_REL_TOL, PARALLEL_NORM_REL_TOL,
+                    PARALLEL_LEAF_NORM_REL_TOL],
+            launches=[res["launches"] for res in runs],
+            one_card_launches=ref["launches"],
+            step_s=got["step_s"], step_s_mean_after_first=step,
+            tokens_per_s=tokens / step, one_card_step_s=ref["step_s"],
+            one_card_tokens_per_s=tokens / one_step,
+            peak_memory_gb=[res["peak_memory_gb"] for res in runs],
+            one_card_peak_memory_gb=ref["peak_memory_gb"],
+            checks=checks,
+            card=_card() if device == "cuda" else str(device),
+            seconds=time.perf_counter() - t0))
+        failed += [f"{name}:{k}" for k, ok in checks.items() if not ok]
+    if failed and control is None:
+        raise AssertionError(f"parallel: checks failed: {failed}")
+    return failed
+
+
 def _build_report(names=None):
     """Build the named kernels (default: all, and then the device timer
     beside them with the host compiler) and report, per library, what
@@ -4779,6 +5266,8 @@ def main(argv) -> int:
         return node_child(json.loads(argv[2]))
     if argv[1:2] == ["--timer-child"]:
         return timer_child(json.loads(argv[2]))
+    if argv[1:2] == ["--parallel-child"]:
+        return parallel_child(json.loads(argv[2]))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; it needs one NVIDIA GPU",
               file=sys.stderr)
@@ -4813,6 +5302,33 @@ def main(argv) -> int:
         finally:
             shutil.rmtree(root, ignore_errors=True)
         _print_card()
+        return 0
+    if argv[1:2] == ["--parallel"]:
+        # ring, Ulysses and GPipe across the host's cards against one
+        # card; with --control NAME, that control's layout alone, exiting
+        # 0 only when its readings failed and its launches held; no result
+        # line
+        control = argv[4] if argv[3:4] == ["--control"] else None
+        ranks = int(argv[2]) if argv[2:] else torch.cuda.device_count()
+        if (ranks != 4 or torch.cuda.device_count() < ranks
+                or len(argv) not in (3, 5)
+                or (len(argv) == 5 and control is None)):
+            print(f"chip_smoke --parallel: takes 4 [--control NAME] and "
+                  f"needs 4 cards, has {torch.cuda.device_count()}",
+                  file=sys.stderr)
+            return 2
+        _build_report(["flash_fwd", "flash_bwd"])
+        failed = parallel_phase(ranks, control)
+        _print_card()
+        if control is not None:
+            readings = [f for f in failed
+                        if f.split(":")[1] in ("losses", "grad_norms",
+                                               "leaf_norms")]
+            if not readings or len(readings) != len(failed):
+                print(f"chip_smoke: control {control}: failed {failed}; "
+                      "it must fail the readings against one card and "
+                      "nothing else", file=sys.stderr)
+                return 1
         return 0
     if argv[1:2] == ["--node-drill"]:
         # the node drill alone across the host's cards; no result line
@@ -4887,6 +5403,14 @@ def main(argv) -> int:
         serve_elastic_phase(config, device)
         _print_card()
         return 0
+    if argv[1:] == ["--fold"]:
+        # the ring fold alone (see ring_fold_rows), no result line
+        _build_report(["flash_fwd", "flash_bwd"])
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        emit({"phase": "kernels", "ring_fold": ring_fold_rows(
+            gen, device, (1, 32, 4 * 4096, 128), 4096)})
+        _print_card()
+        return 0
     if argv[1:] == ["--decode"]:
         # K4 alone: its checks and times, no result line
         _build_report(["flash_decode"])
@@ -4901,7 +5425,8 @@ def main(argv) -> int:
                            fwd_timed=((8, 32, 1024), (8, 32, 2048),
                                       (4, 32, 2048)),
                            bwd_shape=(4, 32, 2048, 128),
-                           decode_shape=decode_shape)
+                           decode_shape=decode_shape,
+                           fold_shape=(1, 32, 4 * 4096, 128))
     torch.cuda.empty_cache()
     timer_phase(device)
 

@@ -13,8 +13,16 @@ Training goes through autograd: the flash kernel is a
 the attention params and the remat context are public for the model
 families that compose them (``models/moe.py``, as the JAX file's aliases).
 MoE configs (``n_experts`` > 0) run through ``models/moe.py``; this
-file's ``forward`` and ``init_params`` refuse them. Sequence-parallel
-attention (ring / Ulysses) is not ported yet and raises.
+file's ``forward`` and ``init_params`` refuse them.
+
+Sequence parallelism (``sp_attention`` "ring" or "ulysses" on a mesh whose
+``sp`` axis is > 1): ``forward`` and ``next_token_loss`` take the mesh, as
+the reference's do, and each rank computes its contiguous chunk of the
+sequence, with RoPE at the chunk's global positions, through
+``parallel/ring_attention.py`` or ``parallel/ulysses.py``. Without such a
+mesh an sp config computes plain attention. Pipeline parallelism:
+:func:`forward_pp` and :func:`next_token_loss_pp` run the layers as GPipe
+stages over the mesh's ``pp`` axis (``parallel/pipeline.py``).
 """
 
 import functools
@@ -28,10 +36,12 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
     noop_context_fn,
+    set_checkpoint_early_stop,
 )
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.ops.flash_attention import flash_attention, repeat_kv
+from dlrover_tpu_torch.parallel import sharding
 
 
 class AttentionConfigMixin:
@@ -66,8 +76,9 @@ class LlamaConfig(AttentionConfigMixin):
     # dims (the x @ W projections) and recomputes the rest in backward,
     # attention included; None = save nothing but the layer input
     remat_policy: Optional[str] = "dots"
-    # sequence-parallel attention strategy, as in the JAX config; any value
-    # but None raises until ring/Ulysses are ported
+    # long-context strategy when the mesh's sp axis is > 1, as in the JAX
+    # config: None, "ring" (K/V hops around the sp ring) or "ulysses"
+    # (head-scatter all-to-all; K/V cross unrepeated)
     sp_attention: Optional[str] = None
     use_ring_attention: bool = False
     # None = auto: the flash kernel on CUDA, dense math elsewhere
@@ -88,12 +99,13 @@ class LlamaConfig(AttentionConfigMixin):
 
 
 def check_supported(config) -> None:
-    """Raise for the model features the port does not carry yet: every
-    sequence-parallel strategy (MoE configs are carried)."""
-    if config.sp_strategy is not None:
+    """Raise for the model features the port does not carry yet: a MoE
+    config with a sequence-parallel strategy (its routing groups would
+    have to span the sp chunks). Llama sp configs are carried."""
+    if getattr(config, "n_experts", 0) and config.sp_strategy is not None:
         raise NotImplementedError(
             f"sequence-parallel attention {config.sp_strategy!r} is not "
-            "ported yet")
+            "ported for MoE configs yet")
 
 
 def _check_dense(config) -> None:
@@ -239,7 +251,21 @@ def full_causal_attention(q, k, v, scale: Optional[float] = None):
     return torch.matmul(probs.to(v.dtype), v).to(q.dtype)
 
 
-def attention(x, layer, config: LlamaConfig, positions):
+def _sp_chunk(config, mesh):
+    """``(sp, rank)`` when ``config`` attends sequence-parallel on
+    ``mesh`` (a strategy and an sp axis > 1), else ``(1, 0)``."""
+    if config.sp_strategy is None or mesh is None:
+        return 1, 0
+    sp = sharding.mesh_sizes(mesh).get("sp", 1)
+    if sp <= 1:
+        return 1, 0
+    return sp, sharding.mesh_coords(mesh)["sp"]
+
+
+def attention(x, layer, config: LlamaConfig, positions, mesh=None):
+    """The attention block on ``x`` ``(B, S, dim)``; under sequence
+    parallelism ``x`` is this rank's chunk and ``positions`` its global
+    positions."""
     c = config
     B, S, _ = x.shape
     q = (x @ layer["wq"]).reshape(B, S, c.n_heads, c.head_dim)
@@ -248,11 +274,28 @@ def attention(x, layer, config: LlamaConfig, positions):
     q = rope(q, positions, c.rope_theta)
     k = rope(k, positions, c.rope_theta)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
+    strategy = c.sp_strategy
+    if strategy not in (None, "ring", "ulysses"):
+        raise ValueError(
+            f"unknown sp_attention {strategy!r}; expected None, 'ring' or "
+            "'ulysses'")
     use_flash = c.use_flash_attention
     if use_flash is None:
         use_flash = x.is_cuda
-    k, v = repeat_kv(k, v, c.n_heads // c.n_kv_heads)
-    if use_flash:
+    use_sp = _sp_chunk(c, mesh)[0] > 1
+    # GQA: repeat kv heads to match q heads, except on the Ulysses path,
+    # which scatters unrepeated K/V and repeats them after
+    if not (use_sp and strategy == "ulysses"):
+        k, v = repeat_kv(k, v, c.n_heads // c.n_kv_heads)
+    if use_sp and strategy == "ulysses":
+        from dlrover_tpu_torch.parallel.ulysses import ulysses_attention
+
+        out = ulysses_attention(q, k, v, mesh, use_flash=use_flash)
+    elif use_sp:
+        from dlrover_tpu_torch.parallel.ring_attention import ring_attention
+
+        out = ring_attention(q, k, v, mesh, use_flash=use_flash)
+    elif use_flash:
         out = flash_attention(q, k, v, causal=True)
     else:
         out = full_causal_attention(q, k, v)
@@ -286,40 +329,65 @@ attention_block = attention
 remat_context = _remat_context
 
 
-def _layer(x, layer, config: LlamaConfig, positions):
+def _layer(x, layer, config: LlamaConfig, positions, mesh=None):
     c = config
     x = x + attention(rms_norm(x, layer["attn_norm"], c.norm_eps), layer, c,
-                      positions)
+                      positions, mesh)
     return x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
 
 
-def forward(params: Dict, tokens, config: LlamaConfig):
-    """tokens ``(B, S)`` int → logits ``(B, S, vocab)`` f32 (accumulated in
-    f32, as the JAX forward's ``preferred_element_type``). Differentiable;
-    with ``config.remat`` and grad enabled, each layer is rematerialised
-    in backward under ``config.remat_policy``."""
+def _layers(x, stacked: Dict, config: LlamaConfig, positions, mesh=None):
+    """``x`` through the stacked layers ``stacked`` (``(L', ...)`` each),
+    each rematerialised in backward under ``config.remat`` when grad is
+    on. Under sequence parallelism a layer's recompute re-runs its
+    collectives: every rank recomputes the same layers in the same order,
+    and the recompute never stops early, so they stay paired."""
     c = config
-    _check_dense(c)
-    check_supported(c)
-    B, S = tokens.shape
-    x = params["tok_embed"][tokens]
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     # one unbind per stacked weight: its backward stacks the L layer grads
     # once, where indexing w[li] would build an (L, ...) grad per layer
-    names = list(params["layers"])
-    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    names = list(stacked)
+    per_layer = zip(*(stacked[n].unbind(0) for n in names))
     remat = c.remat and torch.is_grad_enabled()
     context_fn = _remat_context(c) if remat else None
     for weights in per_layer:
         layer = dict(zip(names, weights))
         if remat:
-            x = checkpoint(_layer, x, layer, c, positions,
-                           use_reentrant=False, context_fn=context_fn,
-                           preserve_rng_state=False)
+            with set_checkpoint_early_stop(False):
+                x = checkpoint(_layer, x, layer, c, positions, mesh,
+                               use_reentrant=False, context_fn=context_fn,
+                               preserve_rng_state=False)
         else:
-            x = _layer(x, layer, c, positions)
-    x = rms_norm(x, params["final_norm"], c.norm_eps)
+            x = _layer(x, layer, c, positions, mesh)
+    return x
+
+
+def _logits(params: Dict, x, config: LlamaConfig):
+    x = rms_norm(x, params["final_norm"], config.norm_eps)
     return torch.matmul(x.float(), params["lm_head"].float())
+
+
+def forward(params: Dict, tokens, config: LlamaConfig, mesh=None):
+    """tokens ``(B, S)`` int → logits ``(B, S, vocab)`` f32 (accumulated in
+    f32, as the JAX forward's ``preferred_element_type``). Differentiable;
+    with ``config.remat`` and grad enabled, each layer is rematerialised
+    in backward under ``config.remat_policy``.
+
+    Under sequence parallelism (an sp config and a mesh whose ``sp`` axis
+    is > 1) S must divide by sp, and the rank computes and returns its
+    contiguous chunk ``(B, S/sp, vocab)`` of the logits."""
+    c = config
+    _check_dense(c)
+    check_supported(c)
+    B, S = tokens.shape
+    sp, r = _sp_chunk(c, mesh)
+    if S % sp:
+        raise ValueError(f"sequence length {S} does not divide by sp {sp}")
+    s = S // sp
+    tokens = tokens[:, r * s:(r + 1) * s]
+    positions = (r * s + torch.arange(s, device=tokens.device))[None, :]
+    x = params["tok_embed"][tokens]
+    x = _layers(x, params["layers"], c, positions.expand(B, s), mesh)
+    return _logits(params, x, c)
 
 
 def cross_entropy(logits, targets):
@@ -330,9 +398,63 @@ def cross_entropy(logits, targets):
     return (lse - tgt).mean()
 
 
-def next_token_loss(params, tokens, config: LlamaConfig):
-    """Causal LM loss: predict tokens[1:] from tokens[:-1]."""
-    logits = forward(params, tokens[:, :-1], config)
+def next_token_loss(params, tokens, config: LlamaConfig, mesh=None):
+    """Causal LM loss: predict tokens[1:] from tokens[:-1]. Under sequence
+    parallelism, the mean over this rank's chunk of the targets (the
+    trainer averages the chunks' losses and gradients over sp)."""
+    logits = forward(params, tokens[:, :-1], config, mesh)
+    targets = tokens[:, 1:]
+    s = logits.shape[1]
+    r = _sp_chunk(config, mesh)[1]
+    return cross_entropy(logits, targets[:, r * s:(r + 1) * s])
+
+
+def forward_pp(params: Dict, tokens, config: LlamaConfig, mesh,
+               n_microbatches: int = 0):
+    """Pipeline-parallel forward over the mesh's ``pp`` axis
+    (``parallel/pipeline.py``, the GPipe schedule). The embedding runs
+    before the pipeline and the final norm and ``lm_head`` after it, on
+    every pp rank, as in the reference; this rank's stage runs its
+    contiguous range of the stacked layers. The last stage's activations
+    reach every rank, and every rank returns the whole logits. The ends'
+    gradients come out on every rank (the embedding's only on stage 0),
+    and the trainer's mean over pp counts each once. Default M: the
+    largest divisor of B not above 4·pp. With pp = 1 it is
+    :func:`forward`."""
+    from dlrover_tpu_torch.parallel.pipeline import (
+        microbatch,
+        pipeline_apply,
+        stack_stages,
+        unmicrobatch,
+    )
+
+    c = config
+    S_pp = sharding.mesh_sizes(mesh).get("pp", 1)
+    if S_pp <= 1:
+        return forward(params, tokens, config, mesh)
+    _check_dense(c)
+    check_supported(c)
+    B, S = tokens.shape
+    M = n_microbatches
+    if not M:
+        M = next(d for d in range(min(B, 4 * S_pp), 0, -1) if B % d == 0)
+    x = params["tok_embed"][tokens]
+
+    def stage_fn(layer_group, h):
+        positions = torch.arange(h.shape[1], device=h.device)[None, :]
+        return _layers(h, layer_group, c, positions.expand(h.shape[:2]))
+
+    ym = pipeline_apply(stage_fn, stack_stages(params["layers"], S_pp),
+                        microbatch(x, M), mesh, axis="pp",
+                        checkpoint_ticks=not c.remat)
+    return _logits(params, unmicrobatch(ym), c)
+
+
+def next_token_loss_pp(params, tokens, config: LlamaConfig, mesh,
+                       n_microbatches: int = 0):
+    """Causal LM loss through the pipeline-parallel forward."""
+    logits = forward_pp(params, tokens[:, :-1], config, mesh,
+                        n_microbatches)
     return cross_entropy(logits, tokens[:, 1:])
 
 

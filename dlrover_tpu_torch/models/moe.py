@@ -35,7 +35,8 @@ Sharded over ``ep`` (``parallel/sharding.py``'s ``expert`` rule), a rank
 holds its experts' block of each expert tensor; the trainer computes on
 full tensors (``trainer/elastic.py``). Not ported: the token all-to-all
 that GSPMD inserts for the JAX package, and sequence-parallel attention
-(it raises, as for Llama).
+for MoE configs (it raises: the routing groups would have to span the sp
+chunks).
 """
 
 import contextlib

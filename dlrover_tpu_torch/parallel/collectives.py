@@ -1,0 +1,165 @@
+"""Differentiable collectives over one mesh axis's process group.
+
+The reference gets these from JAX: ``lax.ppermute`` and ``lax.all_to_all``
+inside ``shard_map`` transpose to their mirror images, and the whole SPMD
+program is differentiated at once. Torch differentiates each rank's graph
+alone, so each collective here is a ``torch.autograd.Function`` whose
+backward runs the adjoint collective, and two rules keep the ranks paired:
+
+- every rank must run the backward of every collective it ran forward, in
+  the same order as its peers. A rank whose result does not depend on a
+  received tensor (the ring's future chunks, pipeline stage 0's hop) would
+  prune that node from its graph and never post the receive its
+  neighbour's backward sends: :func:`tie` (the ring) and ``torch.where``
+  (the pipeline) keep such tensors in the graph;
+- two collectives that autograd could run in either order must not share
+  a pair of ranks: the ring moves K and V in one :func:`shift`.
+
+Point-to-point ops take global ranks (``dist.get_global_rank``). A failed
+send, receive or all-to-all raises; nothing is caught.
+"""
+
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def _peer(r: int, offset: int, n: int, wrap: bool) -> Optional[int]:
+    p = r + offset
+    if wrap:
+        return p % n
+    return p if 0 <= p < n else None
+
+
+def _shift(tensors: Sequence[torch.Tensor], group, offset: int,
+           wrap: bool):
+    """Send ``tensors`` to group rank ``r + offset`` and receive the same
+    shapes from ``r - offset`` (modulo the group size when ``wrap``; a
+    rank with no such peer sends nothing or receives zeros)."""
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    to = _peer(r, offset, n, wrap)
+    frm = _peer(r, -offset, n, wrap)
+    ops, out = [], []
+    for t in tensors:
+        if to is not None:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  dist.get_global_rank(group, to), group))
+        if frm is None:
+            out.append(torch.zeros_like(t))
+        else:
+            out.append(torch.empty_like(
+                t, memory_format=torch.contiguous_format))
+            ops.append(dist.P2POp(dist.irecv, out[-1],
+                                  dist.get_global_rank(group, frm), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, offset, wrap, *tensors):
+        ctx.group, ctx.offset, ctx.wrap = group, offset, wrap
+        return tuple(_shift([t.detach() for t in tensors], group, offset,
+                            wrap))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        back = _shift(grads, ctx.group, -ctx.offset, ctx.wrap)
+        return (None, None, None, *back)
+
+
+def shift(tensors: Sequence[torch.Tensor], group, offset: int = 1,
+          wrap: bool = True):
+    """One hop of ``tensors`` along ``group``: rank ``r`` sends to
+    ``r + offset`` and receives from ``r - offset``, all tensors in one
+    ``batch_isend_irecv``. ``wrap`` closes the ring (the reference's
+    ``[(j, (j + 1) % n)]`` permutation); without it the last rank sends
+    nothing and the first receives zeros (``[(i, i + 1) for i < n - 1]``).
+    Its backward is the reverse hop."""
+    return _Shift.apply(group, offset, wrap, *tensors)
+
+
+class _All2All(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, scatter_dim, gather_dim):
+        ctx.group, ctx.dims = group, (scatter_dim, gather_dim)
+        return _all_to_all(x, group, scatter_dim, gather_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        scatter_dim, gather_dim = ctx.dims
+        return _all_to_all(g, ctx.group, gather_dim, scatter_dim), None, \
+            None, None
+
+
+def _all_to_all(x, group, scatter_dim: int, gather_dim: int):
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=scatter_dim))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=gather_dim)
+
+
+def all_to_all(x, group, scatter_dim: int, gather_dim: int):
+    """``lax.all_to_all(tiled=True)`` over ``group``: ``x`` split in
+    ``n`` equal blocks along ``scatter_dim``, block ``j`` sent to group
+    rank ``j``, and the ``n`` blocks received concatenated along
+    ``gather_dim`` in group-rank order. Its backward is the mirror
+    all-to-all (``gather_dim`` scattered, ``scatter_dim`` gathered)."""
+    if x.shape[scatter_dim] % dist.get_world_size(group):
+        raise ValueError(
+            f"dim {scatter_dim} of {tuple(x.shape)} does not split over "
+            f"{dist.get_world_size(group)} ranks")
+    return _All2All.apply(x, group, scatter_dim, gather_dim)
+
+
+class _FromRank(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, src):
+        ctx.group, ctx.src = group, src
+        out = x.detach().contiguous().clone()
+        dist.broadcast(out, dist.get_global_rank(group, src), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # the sum of the group's cotangents lands on src; the others' input
+        # was not read. Summed in f32, so pp equal bf16 cotangents add
+        # exactly
+        total = g.float().contiguous()
+        dist.reduce(total, dist.get_global_rank(ctx.group, ctx.src),
+                    group=ctx.group)
+        if dist.get_rank(ctx.group) != ctx.src:
+            return torch.zeros_like(g), None, None
+        return total.to(g.dtype), None, None
+
+
+def from_rank(x, group, src: int):
+    """Group rank ``src``'s ``x`` on every rank of ``group`` (a
+    broadcast); every rank passes a tensor of the same shape. Its backward
+    is the adjoint: the cotangents of all ranks summed onto ``src``, and
+    zeros elsewhere."""
+    return _FromRank.apply(x, group, src)
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, *others):
+        ctx.others = [(t.shape, t.dtype, t.device) for t in others]
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g, *(torch.zeros(s, dtype=d, device=dev)
+                     for s, d, dev in ctx.others))
+
+
+def tie(out, *others):
+    """``out`` itself, with ``others`` made inputs of it that get zero
+    gradients: each rank's backward then reaches the collectives that
+    produced ``others`` even where its result does not read them."""
+    return _Tie.apply(out, *others)

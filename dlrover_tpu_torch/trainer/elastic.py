@@ -16,11 +16,12 @@ Across ranks the params are DTensors (``parallel.sharding.shard_tree``).
 The kernels take plain tensors through ``ctypes``, so a step gathers each
 param whole (``full_tensor``), runs the micro steps on this rank's rows of
 the global batch, reduces the f32 accumulators to each leaf's placement as
-the mean over the batch ranks (``reduce_scatter_tensor`` along a dim the
-data axes shard, ``all_reduce`` over the data axes that replicate it),
-takes the global norm with one ``all_reduce`` and runs AdamW on the local
-shards. On one rank, or with plain tensors, no collective runs and the
-step is the single-card step bit for bit.
+the mean over the ranks of the data axes, ``sp`` and ``pp``
+(``reduce_scatter_tensor`` along a dim those axes shard, ``all_reduce``
+over those that replicate it), takes the global norm with one
+``all_reduce`` and runs AdamW on the local shards. On one rank, or with
+plain tensors, no collective runs and the step is the single-card step bit
+for bit.
 
 Before it writes the state in place the step waits for the registered
 readers of it (``common.state_fence``: a checkpoint snapshot still
@@ -242,7 +243,8 @@ class ElasticTrainer:
     @staticmethod
     def _rows_of_this_rank(mesh, batch):
         """This rank's rows of every micro batch: the micro batch split
-        over the data axes (dcn, dp, fsdp) in mesh order."""
+        over the data axes (dcn, dp, fsdp) in mesh order. Under sequence
+        parallelism the model takes the rank's chunk of each row."""
         sizes = sharding.mesh_sizes(mesh)
         coords = sharding.mesh_coords(mesh)
         n, idx = 1, 0
@@ -259,16 +261,32 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+# the axes whose ranks compute different parts of the gradient: the data
+# axes (their own rows), sp (its own chunk of the sequence) and pp (its
+# stage's part of the pipeline, with the ends on every stage)
+MEAN_AXES = sharding.BATCH_AXES + ("pp", "sp")
+
+
 def _reduce_to_placements(mesh, leaves, acc, loss):
     """Per-rank f32 grads of the whole params → each leaf's local shard of
-    the mean over the data ranks, the global grad norm, and the mean
-    loss. Ranks that differ only in model axes (tp, pp, ...) ran the same
-    rows, so their grads already agree: they just keep their region."""
+    their mean over the ranks of :data:`MEAN_AXES`, the global grad norm,
+    and the mean loss.
+
+    Each rank's loss is the mean over its rows and, under sequence
+    parallelism, over its chunk of the sequence, so the step's loss is the
+    mean of the ranks' losses over the data axes and sp. Under pipeline
+    parallelism every pp rank returns the same loss, and its gradients are
+    its part of the gradient of the sum of the pp ranks' losses (the
+    schedule's collectives carry their adjoints, ``parallel/pipeline.py``):
+    its stage's layers, the ends on every rank, the embedding on stage 0.
+    So the mean over pp counts every contribution once. Ranks that differ
+    only in tp or ep ran the same rows through the same full-tensor compute
+    and already agree: they keep their region with no collective."""
     sizes = sharding.mesh_sizes(mesh)
     coords = sharding.mesh_coords(mesh)
-    n_data = 1
-    for axis in sharding.BATCH_AXES:
-        n_data *= sizes[axis]
+    n_mean = 1
+    for axis in MEAN_AXES:
+        n_mean *= sizes[axis]
     out = []
     sq = torch.zeros((), dtype=torch.float32, device=loss.device)
     for p, g in zip(leaves, acc):
@@ -276,41 +294,39 @@ def _reduce_to_placements(mesh, leaves, acc, loss):
                 else (None,) * g.ndim)
         model_spec = tuple(
             tuple(a for a in sharding.entry_axes(e)
-                  if a not in sharding.BATCH_AXES) or None
+                  if a not in MEAN_AXES) or None
             for e in spec)
         start, shape = sharding.region_for(g.shape, model_spec, sizes, coords)
         g = sharding.local_region(g, start, shape)
         used = {a for e in spec for a in sharding.entry_axes(e)}
         group = sharding.axis_group(
-            mesh, [a for a in sharding.BATCH_AXES if a not in used])
+            mesh, [a for a in MEAN_AXES if a not in used])
         if group is not None:
             g = g.contiguous()
             dist.all_reduce(g, group=group)
         for d, e in enumerate(spec):
-            data_axes = [a for a in sharding.entry_axes(e)
-                         if a in sharding.BATCH_AXES]
-            group = sharding.axis_group(mesh, data_axes)
+            mean_axes = [a for a in sharding.entry_axes(e) if a in MEAN_AXES]
+            group = sharding.axis_group(mesh, mean_axes)
             if group is None:
                 continue
-            if len(data_axes) != len(sharding.entry_axes(e)):
+            if len(mean_axes) != len(sharding.entry_axes(e)):
                 raise NotImplementedError(
-                    f"dim {d} mixes data and model axes: {e}")
+                    f"dim {d} mixes averaged and model axes: {e}")
             k = dist.get_world_size(group)
             chunks = torch.stack(g.chunk(k, dim=d))
             piece = torch.empty_like(chunks[0])
             dist.reduce_scatter_tensor(
                 piece, chunks.reshape(-1, *piece.shape[1:]), group=group)
             g = piece
-        g = g / n_data if n_data > 1 else g.contiguous()
+        g = g / n_mean if n_mean > 1 else g.contiguous()
         owner = all(coords[a] == 0
                     for a in sharding.replica_axes(spec, sizes))
         if owner:
             sq = sq + torch.sum(torch.square(g))
         out.append(g)
     dist.all_reduce(sq)
-    if n_data > 1:
+    if n_mean > 1:
         loss = loss.clone()
-        dist.all_reduce(loss, group=sharding.axis_group(
-            mesh, sharding.BATCH_AXES))
-        loss = loss / n_data
+        dist.all_reduce(loss, group=sharding.axis_group(mesh, MEAN_AXES))
+        loss = loss / n_mean
     return out, torch.sqrt(sq), loss

@@ -5,8 +5,15 @@
 
 Each rank prints one ``RESULT <json>`` line. ``mode`` picks the checks:
 ``shard`` (regions, DTensor locals, trainer steps against the plain step),
-``ckpt`` (``shard``, then the checkpoint engine across ranks) or ``moe``
-(``ckpt`` on the tiny MoE model, for an ``ep`` plan).
+``ckpt`` (``shard``, then the checkpoint engine across ranks), ``moe``
+(``ckpt`` on the tiny MoE model, for an ``ep`` plan), ``sp`` (ring and
+Ulysses attention, the sequence-parallel loss and trainer steps, for an
+``sp`` plan) or ``pp`` (``pipeline_apply``, ``next_token_loss_pp`` and
+trainer steps, for a ``pp`` plan with or without ``dp``). ``sp`` and
+``pp`` may run in one launch, each on its own mesh: mode ``sp,pp`` with
+the plan ``{"sp": <plan>, "pp": <plan>}``. Each reads its inputs from
+``<out dir>/<mode>_inputs.npz`` and writes its tensors to ``<out
+dir>/<mode><world>_<rank>.npz``.
 """
 
 import dataclasses
@@ -73,8 +80,172 @@ def trainer(c, plan):
     return t
 
 
+def flat(tree, prefix=""):
+    """A nested dict → ``{"a/b": leaf}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def unflat(named, prefix):
+    """The nested dict of tensors under ``prefix`` in ``named`` arrays."""
+    tree = {}
+    for name, a in named.items():
+        if not name.startswith(prefix):
+            continue
+        *path, leaf = name[len(prefix):].split("/")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = torch.from_numpy(np.array(a))
+    return tree
+
+
+# the tiny model of the sp and pp modes (f32; the test builds the JAX twin)
+PARALLEL_MODEL = dict(vocab_size=64, dim=32, n_heads=4, n_kv_heads=2,
+                      ffn_dim=64, max_seq_len=64)
+
+
+def parallel_config(**kw):
+    return dataclasses.replace(llama.LlamaConfig.tiny(), dtype=torch.float32,
+                               **{**PARALLEL_MODEL, **kw})
+
+
+def _grads(loss, tree, prefix, arrays):
+    names, leaves = zip(*flat(tree).items())
+    for name, g in zip(names, torch.autograd.grad(loss, leaves)):
+        arrays[f"{prefix}{name}"] = g.numpy()
+
+
+def _steps(mesh, plan, c, loss_fn, inp, params, res, arrays, key):
+    """3 trainer steps on every rank's copy of the global batches; the
+    losses and norms into ``res[key]``, the final params into arrays."""
+    tt = ElasticTrainer(loss_fn, adamw(3e-4), GLOBAL_BATCH,
+                        max(1, GLOBAL_BATCH // (2 * plan.dp_total)),
+                        device="cpu")
+    tt.configure_for_world(plan)
+    state = make_train_state(
+        shard_tree(mesh, params, llama.param_logical_axes(c)), tt._optimizer)
+    res[key] = []
+    for b in inp["batches"]:
+        state, r = tt.train_step(state, b.reshape(
+            tt.grad_accum_steps, tt.micro_batch_global, -1))
+        res[key].append([float(r.loss), float(r.grad_norm)])
+    for name, p in flat(state["params"]).items():
+        arrays[f"{key}/{name}"] = p.full_tensor().numpy()
+
+
+def sp_checks(ctx, n, mesh, plan, inp, res, arrays):
+    """Ring (both bodies) and Ulysses on this rank's chunks, the sp loss
+    and its grads, and 3 trainer steps per strategy."""
+    from dlrover_tpu_torch.parallel.ring_attention import ring_attention
+    from dlrover_tpu_torch.parallel.ulysses import ulysses_attention
+
+    r = ctx.rank
+
+    def chunk(name):
+        a = inp[name]
+        s = a.shape[2] // n
+        return torch.from_numpy(np.array(a[:, :, r * s:(r + 1) * s]))
+
+    q, k, v, kv_k, kv_v, w = (chunk(x) for x in
+                              ("q", "k", "v", "kv_k", "kv_v", "w"))
+    cases = [("ring_flash", ring_attention, True, k, v),
+             ("ring_dense", ring_attention, False, k, v)]
+    if n == 2:
+        cases += [("ulysses_flash", ulysses_attention, True, kv_k, kv_v),
+                  ("ulysses_dense", ulysses_attention, False, kv_k, kv_v)]
+    else:
+        try:
+            ulysses_attention(q, kv_k, kv_v, mesh)
+        except ValueError as e:
+            res["ulysses_error"] = str(e)
+    for name, fn, use_flash, kk, vv in cases:
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, kk, vv))
+        out = fn(qs, ks, vs, mesh, use_flash=use_flash)
+        arrays[f"{name}/out"] = out.detach().numpy()
+        for g_name, g in zip(("dq", "dk", "dv"), torch.autograd.grad(
+                (out * w).sum(), (qs, ks, vs))):
+            arrays[f"{name}/{g_name}"] = g.numpy()
+    tokens = torch.from_numpy(np.array(inp["tokens"]))
+    for strategy in (("ring", "ulysses") if n == 2 else ("ring",)):
+        c = parallel_config(n_layers=2, sp_attention=strategy,
+                            use_flash_attention=True, remat=True)
+        params = unflat(inp, "params/")
+        for t in flat(params).values():
+            t.requires_grad_(True)
+        loss = llama.next_token_loss(params, tokens, c, mesh)
+        arrays[f"loss_{strategy}"] = loss.detach().numpy()
+        _grads(loss, params, f"grad_{strategy}/", arrays)
+        _steps(mesh, plan, c,
+               lambda p, x, c=c: llama.next_token_loss(p, x, c, mesh),
+               inp, unflat(inp, "params/"), res, arrays, f"train_{strategy}")
+
+
+def pp_checks(mesh, plan, inp, res, arrays):
+    """``pipeline_apply`` on the linear toy stage, ``next_token_loss_pp``
+    and its grads on this rank's rows, and 3 trainer steps."""
+    from dlrover_tpu_torch.parallel.pipeline import pipeline_apply
+    from dlrover_tpu_torch.parallel.sharding import mesh_coords
+
+    n_data = plan.dp_total
+    d = mesh_coords(mesh)["dp"]
+
+    def rows(a, axis):
+        s = a.shape[axis] // n_data
+        return torch.from_numpy(np.array(
+            np.take(a, range(d * s, (d + 1) * s), axis=axis)))
+
+    def stage_fn(w, h):
+        for wi in w:
+            h = torch.tanh(h @ wi)
+        return h
+
+    ws = torch.from_numpy(np.array(inp["ws"])).requires_grad_()
+    x = rows(inp["x"], 1).requires_grad_()
+    y = pipeline_apply(stage_fn, ws, x, mesh)
+    arrays["toy/y"] = y.detach().numpy()
+    gw, gx = torch.autograd.grad((y ** 2).mean(), (ws, x))
+    arrays["toy/gw"], arrays["toy/gx"] = gw.numpy(), gx.numpy()
+
+    c = parallel_config(n_layers=4, remat=False)
+    params = unflat(inp, "params/")
+    for t in flat(params).values():
+        t.requires_grad_(True)
+    loss = llama.next_token_loss_pp(params, rows(inp["tokens"], 0), c, mesh)
+    arrays["loss_pp"] = loss.detach().numpy()
+    _grads(loss, params, "grad_pp/", arrays)
+    c = parallel_config(n_layers=4, remat=True)
+    _steps(mesh, plan, c,
+           lambda p, t: llama.next_token_loss_pp(p, t, c, mesh),
+           inp, unflat(inp, "params/"), res, arrays, "train_pp")
+
+
+def parallel_main(ctx, modes, plans, out_dir):
+    res = {"rank": ctx.rank}
+    for mode in modes:
+        plan = plan_mesh(ctx.world_size, **plans[mode])
+        mesh = build_mesh(plan, "cpu")
+        inp = dict(np.load(os.path.join(out_dir, f"{mode}_inputs.npz")))
+        res[mode], arrays = {}, {}
+        if mode == "sp":
+            sp_checks(ctx, ctx.world_size, mesh, plan, inp, res[mode], arrays)
+        else:
+            pp_checks(mesh, plan, inp, res[mode], arrays)
+        np.savez(os.path.join(
+            out_dir, f"{mode}{ctx.world_size}_{ctx.rank}.npz"), **arrays)
+    print("RESULT " + json.dumps(res), flush=True)
+    worker.shutdown()
+
+
 def main(mode, plan_kw, out_dir):
     ctx = worker.init(device="cpu")
+    modes = mode.split(",")
+    if set(modes) <= {"sp", "pp"}:
+        return parallel_main(ctx, modes, plan_kw, out_dir)
     c = config(mode)
     m = model(c)
     plan = plan_mesh(ctx.world_size, **plan_kw)

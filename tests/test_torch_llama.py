@@ -93,15 +93,6 @@ def test_init_params_shapes_and_count_match_jax():
     assert tl.num_params(tl.LlamaConfig()) == jl.num_params(jl.LlamaConfig())
 
 
-@pytest.mark.parametrize("sp", [dict(sp_attention="ulysses"),
-                                dict(use_ring_attention=True)])
-def test_sequence_parallel_configs_raise(sp):
-    _, tc = _configs(**sp)
-    params = tl.init_params(tc, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        tl.forward(params, torch.zeros((1, 4), dtype=torch.long), tc)
-
-
 def _loss_and_grads(jc, tc, seed=0):
     params = jl.init_params(jc, jax.random.PRNGKey(seed))
     tokens = np.random.default_rng(seed + 1).integers(
