@@ -14,7 +14,7 @@
     python3 chip_smoke.py --timer-ab # phase 6's step without and with it
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
-    python3 chip_smoke.py --parallel 4  # ring, Ulysses, GPipe on 4 cards
+    python3 chip_smoke.py --parallel 4  # ring, Ulysses, GPipe, MoE ep/sp
     python3 chip_smoke.py --parallel 4 --control ring_drop  # ... broken
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and the
@@ -254,6 +254,9 @@ phase 8 after phase 6, ``straggler`` last:
    and expert FFN (``moe._route``, ``_moe_ffn``) of the first and last
    layer against the reference's one-hot dispatch/combine form written
    out here (``moe_route_check``: the dispatch equal entry for entry);
+   the sequence-parallel routing fold (``moe_sp_fold``): one 4 x 2048
+   token sequence routed whole and as 4 sp chunks through the
+   gathered-ids path, experts, slots and kept flags equal exactly;
    ``decode.generate``,
    batch 8, prompt 1024, 32 new tokens, on the bf16 cache (4096 slots)
    and on the int8 cache, each with K1 = L launches for the prefill and K4
@@ -322,11 +325,16 @@ shows every rank at one collective count and no hang; no result line.
 ``--node-drill N`` runs the node drill alone, held against its own
 unkilled run across N cards. ``--parallel 4`` trains PARALLEL_LAYOUTS
 across 4 cards (ring and Ulysses at sp 4 on 1 x 32768 tokens, GPipe at
-pp 4 on 16 x 2048; ``LlamaConfig()`` widths, 3 ``ElasticTrainer`` steps
-each, NCCL) against one card's run of the same steps: each rank's K1-K3
-launches at its layout's formula, the ranks at one loss and grad norm,
-each step's loss and grad norm and every leaf's step-1 grad norm within
-the PARALLEL_* limits; it prints step time and tokens/s beside one
+pp 4 on 16 x 2048 with each stage on its own layers, ``LlamaConfig()``
+widths; the MoE at ``MoEConfig()`` widths and 2 layers at ep 4 on 8 x
+2048, each card on its own 2 experts, and at ep 2 x sp 2 with the ring
+on 1 x 16384, its routing groups spanning both chunks; 3
+``ElasticTrainer`` steps each, NCCL) against one card's run of the same
+steps: each rank's K1-K3 launches at its layout's formula, the ranks at
+one loss and grad norm, each step's loss and grad norm and every leaf's
+step-1 grad norm within the PARALLEL_* limits (MOE_PARALLEL_* with the
+share of step 1's routing decisions that flipped for the MoE layouts);
+it prints step time, tokens/s and peak memory a card beside one
 card's; no result line. ``--parallel 4 --control NAME`` breaks one
 layout's communication (PARALLEL_CONTROLS) and exits 0 only when that
 layout's readings failed and its launches held. ``--fold`` runs the ring
@@ -1551,27 +1559,33 @@ def _launches():
 
 @contextlib.contextmanager
 def record_routes(config):
-    """Collect each ``moe._route`` call's decisions while inside, for a
-    MoE ``config`` (an empty list for any other): a list of ``(expert
-    (G, g, k) int, kept (G, g, k) bool)`` pairs, detached, in call order,
-    for comparing two routes of the same inputs. The model's ``_route``
-    is wrapped for the duration and restored after."""
+    """Collect each ``moe._route`` (and, under sequence parallelism,
+    ``moe._route_sp``) call's decisions while inside, for a MoE ``config``
+    (an empty list for any other): a list of ``(expert (G, g, k) int,
+    kept (G, g, k) bool)`` pairs (``(B, s, k)``, the rank's chunk, for
+    ``_route_sp``), detached, in call order, for comparing two routes of
+    the same inputs. The model's functions are wrapped for the duration
+    and restored after."""
     routes = []
     if not isinstance(config, moe.MoEConfig):
         yield routes
         return
-    real = moe._route
+    reals = {name: getattr(moe, name) for name in ("_route", "_route_sp")}
 
-    def recording(*args, **kwargs):
-        out = real(*args, **kwargs)
-        routes.append((out[0].detach(), out[2].detach()))
-        return out
+    def recording(real):
+        def call(*args, **kwargs):
+            out = real(*args, **kwargs)
+            routes.append((out[0].detach(), out[2].detach()))
+            return out
+        return call
 
-    moe._route = recording
+    for name, real in reals.items():
+        setattr(moe, name, recording(real))
     try:
         yield routes
     finally:
-        moe._route = real
+        for name, real in reals.items():
+            setattr(moe, name, real)
 
 
 def route_flips(a, b):
@@ -2913,6 +2927,10 @@ MOE_TRAIN_LEAF_DIFF_REL_TOL = 0.3
 # choices in f32 and casts once, the one-hot combine is a bf16 product);
 # on an H100 (700 W) both layers read 0, bitwise equal.
 MOE_ROUTE_REL_TOL = 1e-2
+# The sp routing fold (moe_sp_fold): the chunks' aux term sums the router
+# probabilities per chunk and adds the sums, the whole sequence's takes
+# their mean: f32 rounding apart.
+MOE_FOLD_AUX_REL_TOL = 1e-5
 # The controls (``--moe --control NAME``): the moe phase's checks with one
 # kernel deliberately wrong, each of which must fail through the phase's
 # own assertion. ``k1_scale=F``: K1 computes the softmax with its scale
@@ -3032,6 +3050,49 @@ def moe_route_check(params, c, device, batch=2, seq=1024):
            for r in rows):
         raise AssertionError(f"moe route: the port's routing against the "
                              f"reference's one-hot form: {row}")
+
+
+def moe_sp_fold(params, c, device, chunks=4, seq=2048):
+    """The sequence-parallel routing fold on the card: one sequence of
+    ``chunks`` × ``seq`` tokens (random tokens' embeddings, RMS-normed as
+    the first layer's FFN input, one routing group) routed whole
+    (``moe._route``) and as ``chunks`` sp chunks through the gathered-ids
+    path (``moe.fold_routes`` of each chunk's share of the same choices,
+    as the sp ranks gather them). Held: every chunk's experts, slots and
+    kept flags equal to the whole sequence's exactly, its aux term within
+    MOE_FOLD_AUX_REL_TOL. The capacity factor is 1.0, so that choices
+    drop (at 1.25 none did on the card). Prints its seconds and the
+    choices dropped."""
+    t0 = time.perf_counter()
+    c = dataclasses.replace(c, capacity_factor=1.0)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    S = chunks * seq
+    tokens = torch.randint(0, c.vocab_size, (1, S), generator=gen,
+                           device=device)
+    layer = llama.layer_params(params, 0)
+    x = llama.rms_norm(params["tok_embed"][tokens], layer["ffn_norm"],
+                       c.norm_eps)
+    C, g = moe.expert_capacity(c, 1, S), moe._group_size(c, 1, S)
+    expert, slot, kept, _, aux = moe._route(x, layer["router"], c, C)
+    probs, ex, gates = moe._choices(x, layer["router"], c)
+    folded = moe.fold_routes(
+        [tuple(t[:, r * seq:(r + 1) * seq] for t in (probs, ex, gates))
+         for r in range(chunks)], c, C, g)
+    differ = {}
+    for i, (name, whole) in enumerate((("expert", expert), ("slot", slot),
+                                       ("kept", kept))):
+        got = torch.cat([out[i] for out in folded], dim=1)
+        differ[name] = int((got != whole.reshape(got.shape)).sum())
+    aux_rel = max(_rel(float(out[4]), float(aux)) for out in folded)
+    _sync(device)
+    row = dict(phase="moe_sp_fold", chunks=chunks, chunk_len=seq,
+               capacity=C, group=g, differ=differ, aux_rel=aux_rel,
+               aux_limit=MOE_FOLD_AUX_REL_TOL, dropped=int((~kept).sum()),
+               decisions=kept.numel(), seconds=time.perf_counter() - t0)
+    emit(row)
+    if any(differ.values()) or aux_rel > MOE_FOLD_AUX_REL_TOL:
+        raise AssertionError(f"moe sp fold: the chunks' routing against "
+                             f"the whole sequence's: {row}")
 
 
 def moe_generate(params, c, device, tag, batch, prompt_len, new, quantize,
@@ -3306,6 +3367,7 @@ def moe_phase(device, base=None, control=None):
                        for t in tree_leaves(params))})
     if checks is None:
         moe_route_check(params, c, device)
+        moe_sp_fold(params, c, device)
     counts = [
         check("generate_bf16", lambda: moe_generate(
             params, c, device, "bf16", batch=8, prompt_len=1024, new=32,
@@ -4862,9 +4924,11 @@ def elastic_alone(config, device):
 # --parallel: sequence and pipeline parallelism across the host's cards
 # ---------------------------------------------------------------------------
 
-# Each layout at LlamaConfig() widths (dim 4096, 32 heads, 8 KV heads,
-# head_dim 128, remat "dots"), 3 ElasticTrainer steps from one seed, one
-# micro step a step (accum 1)
+# The Llama layouts at LlamaConfig() widths (dim 4096, 32 heads, 8 KV
+# heads, head_dim 128, remat "dots"), the MoE layouts at MoEConfig() widths
+# (Mixtral 8x7B: the same attention, 8 experts, top 2, ffn 14336), 3
+# ElasticTrainer steps from one seed each, one micro step a step unless
+# "micro_batch" says otherwise
 PARALLEL_LAYOUTS = {
     # 32768 tokens, 8192 a rank; rank r runs 1 + r chunks of K1-K3
     "ring": dict(axes=dict(sp=4), layers=2, sp_attention="ring",
@@ -4872,18 +4936,36 @@ PARALLEL_LAYOUTS = {
     # the same shape; 8 q and 2 KV heads a rank after the scatter
     "ulysses": dict(axes=dict(sp=4), layers=2, sp_attention="ulysses",
                     global_batch=1, seq=32768),
-    # 2 layers a stage, 16 microbatches of one row (M = 16, T = 19 ticks)
+    # 2 layers a stage, 16 microbatches of one row (M = 16, T = 19 ticks);
+    # each stage holds, gathers and accumulates its own 2 layers
     "gpipe": dict(axes=dict(pp=4), layers=8, sp_attention=None,
                   global_batch=16, seq=2048),
+    # the moe phase's train step (8 x 2048 as 2 micro batches of 4) on 4
+    # cards, 2 experts a card: every card routes all rows (ep takes no
+    # rows) and runs its own experts
+    "moe_ep": dict(model="moe", axes=dict(ep=4), layers=2,
+                   sp_attention=None, global_batch=8, micro_batch=4,
+                   seq=2048),
+    # the reference test's layout (tests/test_moe.py, ep 2 x sp 2, ring)
+    # at full width: 1 x 16384 tokens, 8192 a card; the routing group is
+    # the whole sequence, so capacity is claimed across both sp ranks
+    "moe_sp": dict(model="moe", axes=dict(ep=2, sp=2), layers=2,
+                   sp_attention="ring", global_batch=1, seq=16384),
 }
 PARALLEL_STEPS = 3
 # one control a layout, each breaking its communication (and not the
 # launches): the ring's hops deliver nothing (each rank attends its own
 # chunk in place of every earlier one); Ulysses swaps the first two
 # sequence chunks it gathers; each pipeline hop delivers the tick
-# before's output
+# before's output; from_ep keeps the rank's partial combine (its experts'
+# share of every token's output); each sp rank routes its chunk as its
+# own groups
 PARALLEL_CONTROLS = {"ring_drop": "ring", "ulysses_swap": "ulysses",
-                     "gpipe_stale": "gpipe"}
+                     "gpipe_stale": "gpipe", "moe_ep_partial": "moe_ep",
+                     "moe_sp_local_groups": "moe_sp"}
+# the checks besides the readings a control may fail: with partial
+# combines the ranks hold different outputs, and so different losses
+PARALLEL_CONTROL_ALSO_FAILS = {"moe_ep_partial": ("ranks_agree",)}
 # The layouts against one card's run of the same steps (same params, same
 # batches; plain attention over the whole sequence there), relative
 # differences: each step's loss, each step's grad norm, and every leaf's
@@ -4894,17 +4976,40 @@ PARALLEL_CONTROLS = {"ring_drop": "ring", "ulysses_swap": "ulysses",
 PARALLEL_LOSS_REL_TOL = 1e-4
 PARALLEL_NORM_REL_TOL = 3e-3
 PARALLEL_LEAF_NORM_REL_TOL = 2e-3
+# The MoE layouts' limits, and the share of step 1's routing decisions
+# that differ from one card's (route flips, as in the moe phase): a
+# token whose choices sit near a tie takes another expert under another
+# attention path's bf16 rounding, and its FFN output changes outright
+# (5.6% of the moe phase's decisions between two attention paths), so
+# the MoE layouts get limits of their own. On 4 H100s (700 W) moe_ep
+# equalled one card (0 flips, loss and norms bitwise, leaf norms 9.0e-8);
+# moe_sp flipped 0.49% of step 1's decisions, and the flips compound over
+# the steps: loss 8.9e-4 and grad norm 0.0267 at step 3, leaf norms
+# 5.1e-3.
+# moe_ep_partial read loss 1.43e-3, grad norm 0.122, leaf norms 0.334,
+# flips 0.382; moe_sp_local_groups loss 8.0e-4 and grad norm 0.0158 (no
+# limit can part those from the sound run's), leaf norms 0.099 (the
+# router) and flips 0.156. Each limit sits between the sound readings
+# and a control's (PERF.md §6), and each control fails at least two.
+MOE_PARALLEL_LOSS_REL_TOL = 1.2e-3
+MOE_PARALLEL_NORM_REL_TOL = 6e-2
+MOE_PARALLEL_LEAF_NORM_REL_TOL = 2e-2
+MOE_PARALLEL_FLIP_SHARE_MAX = 0.05
 
 
 def _parallel_launch_want(spec, name, rank, world, steps):
-    """K1-K3 launches of one rank's steps (remat "dots": K1 twice a layer,
-    forward and recompute). The ring's rank r runs 1 + r chunks; a
+    """K1-K3 launches of one rank's steps (remat "dots": K1 twice a layer
+    a micro step, forward and recompute). On the ring, the rank at sp
+    coordinate c (the innermost axis but tp) runs 1 + c chunks; a
     pipeline stage runs its layers at every one of the M + pp - 1 ticks,
-    forward and backward."""
+    forward and backward; an ep rank runs every layer's attention on
+    every row."""
     L = spec["layers"]
-    per = L
-    if world > 1 and name == "ring":
-        per = L * (1 + rank)
+    accum = spec["global_batch"] // spec.get("micro_batch",
+                                             spec["global_batch"])
+    per = L * accum
+    if world > 1 and spec["sp_attention"] == "ring":
+        per *= 1 + rank % spec["axes"]["sp"]
     elif world > 1 and name == "gpipe":
         pp = spec["axes"]["pp"]
         per = L // pp * (spec["global_batch"] + pp - 1)
@@ -4949,6 +5054,15 @@ def _parallel_control(name):
             last.append(got)
             return out
         patch(pipeline, "shift", stale)
+    elif name == "moe_ep_partial":
+        patch(moe, "from_ep", lambda x, group: x.clone())
+    elif name == "moe_sp_local_groups":
+        route = moe._route
+
+        def local_groups(x, router, c, capacity, g, group, r):
+            # the chunk of each row its own group, at the same capacity
+            return route(x, router, c, capacity)
+        patch(moe, "_route_sp", local_groups)
     elif name is not None:
         raise ValueError(f"unknown control {name!r}; expected one of "
                          f"{sorted(PARALLEL_CONTROLS)}")
@@ -4994,8 +5108,10 @@ def _count_plain_launches():
 def parallel_child(args) -> int:
     """One rank of ``--parallel`` (or, at world 1, the one-card
     reference): each layout's steps, then one ``PARALLEL {json}`` line.
-    ``args["shrink"]`` (a CPU rehearsal) overrides the config's and the
-    layouts' sizes."""
+    A MoE layout's step-1 routing decisions go to ``args["route_dir"]``
+    (``<layout>_<rank>.pt``). ``args["shrink"]`` (a CPU rehearsal)
+    overrides the configs' (``config``, ``moe_config``) and the layouts'
+    sizes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     ctx = worker.init(device=args.get("device", "cuda"))
@@ -5006,24 +5122,33 @@ def parallel_child(args) -> int:
     out = {}
     for name in args["layouts"]:
         spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
-        c = dataclasses.replace(llama.LlamaConfig(), n_layers=spec["layers"],
-                                sp_attention=spec["sp_attention"],
-                                **shrink.get("config", {}))
+        is_moe = spec.get("model") == "moe"
+        family = moe if is_moe else llama
+        c = dataclasses.replace(
+            moe.MoEConfig() if is_moe else llama.LlamaConfig(),
+            n_layers=spec["layers"], sp_attention=spec["sp_attention"],
+            **shrink.get("moe_config" if is_moe else "config", {}))
         gb, seq = spec["global_batch"], spec["seq"]
-        params = llama.init_params(
+        params = family.init_params(
             c, torch.Generator(device=device).manual_seed(SEED + 2), device)
         mesh = None
         plan = plan_mesh(1)
         if ctx.world_size > 1:
             plan = plan_mesh(ctx.world_size, **spec["axes"])
             mesh = build_mesh(plan, device.type)
-            params = shard_tree(mesh, params, llama.param_logical_axes(c))
+            params = shard_tree(mesh, params, family.param_logical_axes(c))
+        local_axes = ()
         if mesh is not None and "pp" in spec["axes"]:
+            local_axes = ("pp",)
+
             def loss_fn(p, t, c=c, mesh=mesh):
                 return llama.next_token_loss_pp(p, t, c, mesh)
         else:
-            def loss_fn(p, t, c=c, mesh=mesh):
-                return llama.next_token_loss(p, t, c, mesh)
+            if mesh is not None and is_moe:
+                local_axes = ("ep",)
+
+            def loss_fn(p, t, c=c, mesh=mesh, family=family):
+                return family.next_token_loss(p, t, c, mesh)
         opt = adamw(3e-4)
         first = []
 
@@ -5034,25 +5159,33 @@ def parallel_child(args) -> int:
             return opt.update(grads, opt_state, ps)
 
         trainer = ElasticTrainer(
-            loss_fn, opt._replace(update=update), gb, gb // plan.dp_total,
-            device=device)
-        trainer.configure_for_world(plan)
+            loss_fn, opt._replace(update=update), gb,
+            spec.get("micro_batch", gb) // plan.dp_total, device=device,
+            local_axes=local_axes)
+        accum = trainer.configure_for_world(plan)
         state = make_train_state(params, opt)
         batches = np.random.default_rng(SEED).integers(
-            0, c.vocab_size, (PARALLEL_STEPS, 1, gb, seq + 1),
-            dtype=np.int32)
+            0, c.vocab_size, (PARALLEL_STEPS, gb, seq + 1),
+            dtype=np.int32).reshape(PARALLEL_STEPS, accum, gb // accum,
+                                    seq + 1)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         fa.reset_launch_counts()
         losses, norms, step_s = [], [], []
         with _parallel_control(args.get("control")):
-            for b in batches:
+            for i, b in enumerate(batches):
                 _sync(device)
                 t0 = time.perf_counter()
-                state, res = trainer.train_step(state, b)
+                with record_routes(c if i == 0 else None) as routes:
+                    state, res = trainer.train_step(state, b)
                 losses.append(float(res.loss))
                 norms.append(float(res.grad_norm))
                 step_s.append(time.perf_counter() - t0)
+                if routes and args.get("route_dir"):
+                    torch.save([(e.to("cpu", torch.uint8), k.cpu())
+                                for e, k in routes],
+                               os.path.join(args["route_dir"],
+                                            f"{name}_{ctx.rank}.pt"))
         out[name] = dict(
             losses=losses, grad_norms=norms, step_s=step_s,
             leaf_norms=dict(zip(_leaf_names(params),
@@ -5070,7 +5203,7 @@ def parallel_child(args) -> int:
 
 
 def _parallel_runs(layouts, ranks, control=None, device="cuda",
-                   shrink=None, timeout=900):
+                   shrink=None, route_dir=None, timeout=900):
     """``parallel_child`` in ``ranks`` processes, one card each; their
     PARALLEL results by rank."""
     import socket
@@ -5084,7 +5217,8 @@ def _parallel_runs(layouts, ranks, control=None, device="cuda",
                DLROVER_TPU_LOCAL_WORLD_SIZE=str(ranks),
                DLROVER_TPU_COORDINATOR_ADDR=f"127.0.0.1:{port}")
     args = json.dumps(dict(layouts=layouts, control=control,
-                           device=str(device), shrink=shrink))
+                           device=str(device), shrink=shrink,
+                           route_dir=route_dir))
     procs, logs = [], []
     try:
         for r in range(ranks):
@@ -5119,26 +5253,66 @@ def _rel(x, y):
     return abs(x - y) / abs(y)
 
 
+def _parallel_flips_between(one_dir, spread_dir, name, spec, ranks):
+    """(decisions that differ, decisions) between one card's step-1
+    routing of a MoE layout and the ranks': the ranks at ep coordinate 0
+    hold the sp chunks in order (the mesh puts sp inside ep)."""
+    one = torch.load(os.path.join(one_dir, f"{name}_0.pt"))
+    chunks = [torch.load(os.path.join(spread_dir, f"{name}_{r}.pt"))
+              for r in range(spec["axes"].get("sp", 1))]
+    if any(len(c) != len(one) for c in chunks):
+        raise AssertionError(f"parallel {name}: {len(one)} routing calls "
+                             f"on one card, {[len(c) for c in chunks]} on "
+                             f"{ranks}")
+    joined = [tuple(torch.cat([c[i][j] for c in chunks], dim=1)
+                    for j in range(2)) for i in range(len(one))]
+    return route_flips(joined, [tuple(t.reshape(j[0].shape) for t in call)
+                                for call, j in zip(one, joined)])
+
+
 def parallel_phase(ranks, control=None, device="cuda", shrink=None):
     """``--parallel N``: each layout of PARALLEL_LAYOUTS (or, with
     ``control``, only the one it breaks) across ``ranks`` cards, against
     one card's run of the same steps. Held: every rank's K1-K3 launches
     at its layout's formula, all ranks at one loss and grad norm, each
     step's loss and grad norm and every leaf's step-1 grad norm within
-    the PARALLEL_* limits. Prints each layout's readings, step time and
-    tokens/s. Returns the names of the checks that failed (a sound run
-    raises instead). Rehearse on the CPU with ``device="cpu"`` and a
-    ``shrink`` of tiny sizes (``{"config": {...}, <layout>: {...}}``;
-    gloo ranks, the plain versions counted as the kernels' launches)."""
+    the PARALLEL_* limits (the MOE_PARALLEL_* ones for a MoE layout,
+    with the share of step 1's routing decisions that differ from one
+    card's). Prints each layout's readings, step time, tokens/s and peak
+    memory a card. Returns the names of the checks that failed (a sound
+    run raises instead). Rehearse on the CPU with ``device="cpu"`` and a
+    ``shrink`` of tiny sizes (``{"config": {...}, "moe_config": {...},
+    <layout>: {...}}``; gloo ranks, the plain versions counted as the
+    kernels' launches)."""
     layouts = ([PARALLEL_CONTROLS[control]] if control
                else list(PARALLEL_LAYOUTS))
     shrink = shrink or {}
     t0 = time.perf_counter()
-    one = _parallel_runs(layouts, 1, None, device, shrink)[0]
-    spread = _parallel_runs(layouts, ranks, control, device, shrink)
+    route_dir = tempfile.mkdtemp(prefix="chip_smoke_routes_")
+    try:
+        one_dir, spread_dir = (os.path.join(route_dir, d)
+                               for d in ("one", "spread"))
+        os.makedirs(one_dir)
+        os.makedirs(spread_dir)
+        one = _parallel_runs(layouts, 1, None, device, shrink, one_dir)[0]
+        spread = _parallel_runs(layouts, ranks, control, device, shrink,
+                                spread_dir)
+        flips = {}
+        for name in layouts:
+            spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
+            if spec.get("model") == "moe":
+                flips[name] = _parallel_flips_between(
+                    one_dir, spread_dir, name, spec, ranks)
+    finally:
+        shutil.rmtree(route_dir, ignore_errors=True)
     failed = []
     for name in layouts:
         spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
+        is_moe = spec.get("model") == "moe"
+        limits = ([MOE_PARALLEL_LOSS_REL_TOL, MOE_PARALLEL_NORM_REL_TOL,
+                   MOE_PARALLEL_LEAF_NORM_REL_TOL] if is_moe else
+                  [PARALLEL_LOSS_REL_TOL, PARALLEL_NORM_REL_TOL,
+                   PARALLEL_LEAF_NORM_REL_TOL])
         ref, runs = one[name], [res[name] for res in spread]
         got = runs[0]
         checks = {}
@@ -5156,25 +5330,34 @@ def parallel_phase(ranks, control=None, device="cuda", shrink=None):
                                                 ref["grad_norms"])]
         leaf_rel = {n: _rel(got["leaf_norms"][n], v)
                     for n, v in ref["leaf_norms"].items()}
-        checks["losses"] = max(loss_rel) <= PARALLEL_LOSS_REL_TOL
-        checks["grad_norms"] = max(norm_rel) <= PARALLEL_NORM_REL_TOL
-        checks["leaf_norms"] = (max(leaf_rel.values())
-                                <= PARALLEL_LEAF_NORM_REL_TOL)
+        checks["losses"] = max(loss_rel) <= limits[0]
+        checks["grad_norms"] = max(norm_rel) <= limits[1]
+        checks["leaf_norms"] = max(leaf_rel.values()) <= limits[2]
+        row_flips = {}
+        if is_moe:
+            n_flips, n_decisions = flips[name]
+            checks["route_flips"] = (n_flips
+                                     <= MOE_PARALLEL_FLIP_SHARE_MAX
+                                     * n_decisions)
+            row_flips = dict(route_flips=n_flips, route_decisions=n_decisions,
+                             route_flip_share=n_flips / n_decisions,
+                             flip_share_limit=MOE_PARALLEL_FLIP_SHARE_MAX)
         tokens = spec["global_batch"] * spec["seq"]
         step = float(np.mean(got["step_s"][1:]))
         one_step = float(np.mean(ref["step_s"][1:]))
         emit(dict(
             phase="parallel", layout=name, control=control, ranks=ranks,
             axes=spec["axes"], n_layers=spec["layers"],
-            global_batch=spec["global_batch"], seq_len=spec["seq"],
+            global_batch=spec["global_batch"],
+            micro_batch=spec.get("micro_batch", spec["global_batch"]),
+            seq_len=spec["seq"],
             losses=got["losses"], one_card_losses=ref["losses"],
             grad_norms=got["grad_norms"],
             one_card_grad_norms=ref["grad_norms"],
             loss_rel=loss_rel, grad_norm_rel=norm_rel,
             leaf_norm_rel_max=max(leaf_rel.values()),
             leaf_norm_rel_worst=max(leaf_rel, key=leaf_rel.get),
-            limits=[PARALLEL_LOSS_REL_TOL, PARALLEL_NORM_REL_TOL,
-                    PARALLEL_LEAF_NORM_REL_TOL],
+            limits=limits, **row_flips,
             launches=[res["launches"] for res in runs],
             one_card_launches=ref["launches"],
             step_s=got["step_s"], step_s_mean_after_first=step,
@@ -5321,13 +5504,14 @@ def main(argv) -> int:
         failed = parallel_phase(ranks, control)
         _print_card()
         if control is not None:
-            readings = [f for f in failed
-                        if f.split(":")[1] in ("losses", "grad_norms",
-                                               "leaf_norms")]
-            if not readings or len(readings) != len(failed):
+            readings = ("losses", "grad_norms", "leaf_norms", "route_flips")
+            allowed = readings + PARALLEL_CONTROL_ALSO_FAILS.get(control, ())
+            kinds = [f.split(":")[1] for f in failed]
+            if (not set(kinds) & set(readings)
+                    or not set(kinds) <= set(allowed)):
                 print(f"chip_smoke: control {control}: failed {failed}; "
                       "it must fail the readings against one card and "
-                      "nothing else", file=sys.stderr)
+                      f"nothing but {allowed}", file=sys.stderr)
                 return 1
         return 0
     if argv[1:2] == ["--node-drill"]:

@@ -29,7 +29,8 @@ FFN on the config, and a MoE config routes every token through its
 experts (``models/moe.py``), one routing group per sequence of the call
 (the prompt at prefill, the window in :func:`forward_window`, each token
 alone at a decode step, where capacity is at least ``top_k`` and nothing
-drops). Sequence-parallel configs raise.
+drops). A config's ``sp_attention`` plays no part here: decode takes no
+mesh.
 """
 
 import dataclasses
@@ -41,7 +42,6 @@ from dlrover_tpu_torch.common.constants import ConfigKey, env_str
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import moe
 from dlrover_tpu_torch.models.llama import (
-    check_supported,
     layer_params,
     mlp,
     rms_norm,
@@ -212,7 +212,6 @@ def prefill(params: Dict, tokens, config,
     tokens' device. Returns (logits for the next token ``(B, V)`` f32,
     cache)."""
     c = config
-    check_supported(c)
     B, P = tokens.shape
     T = max_len
     if P > T:
@@ -266,7 +265,6 @@ def decode_step(params: Dict, token, cache: Dict, config,
     ``flash`` routes the attend through the decode kernel (None = the
     :func:`flash_decode_wanted` policy)."""
     c = config
-    check_supported(c)
     B = token.shape[0]
     T = cache["k"][0].shape[2]
     pos = int(cache["pos"])
@@ -355,7 +353,6 @@ def decode_window(params: Dict, tokens, cache: Dict,
     is quantized and written, then dequantized for the dense attend, as
     the reference does; the decode kernel is single-token and not used."""
     c = config
-    check_supported(c)
     B, K = tokens.shape
     T = cache["k"][0].shape[2]
     if K > T:

@@ -98,16 +98,6 @@ class LlamaConfig(AttentionConfigMixin):
         )
 
 
-def check_supported(config) -> None:
-    """Raise for the model features the port does not carry yet: a MoE
-    config with a sequence-parallel strategy (its routing groups would
-    have to span the sp chunks). Llama sp configs are carried."""
-    if getattr(config, "n_experts", 0) and config.sp_strategy is not None:
-        raise NotImplementedError(
-            f"sequence-parallel attention {config.sp_strategy!r} is not "
-            "ported for MoE configs yet")
-
-
 def _check_dense(config) -> None:
     """Raise for a MoE config in a dense-only entry point (``forward``,
     ``init_params``): its expert weights would broadcast through ``mlp``
@@ -377,7 +367,6 @@ def forward(params: Dict, tokens, config: LlamaConfig, mesh=None):
     contiguous chunk ``(B, S/sp, vocab)`` of the logits."""
     c = config
     _check_dense(c)
-    check_supported(c)
     B, S = tokens.shape
     sp, r = _sp_chunk(c, mesh)
     if S % sp:
@@ -415,11 +404,14 @@ def forward_pp(params: Dict, tokens, config: LlamaConfig, mesh,
     (``parallel/pipeline.py``, the GPipe schedule). The embedding runs
     before the pipeline and the final norm and ``lm_head`` after it, on
     every pp rank, as in the reference; this rank's stage runs its
-    contiguous range of the stacked layers. The last stage's activations
-    reach every rank, and every rank returns the whole logits. The ends'
-    gradients come out on every rank (the embedding's only on stage 0),
-    and the trainer's mean over pp counts each once. Default M: the
-    largest divisor of B not above 4·pp. With pp = 1 it is
+    contiguous range of the stacked layers. ``params["layers"]`` holds
+    either that range alone (``L/pp`` layers: the stage's block, as the
+    trainer hands it over with ``local_axes=("pp",)``) or the whole stack
+    (``L`` layers, of which the stage takes its range). The last stage's
+    activations reach every rank, and every rank returns the whole
+    logits. The ends' gradients come out on every rank (the embedding's
+    only on stage 0), and the trainer's mean over pp counts each once.
+    Default M: the largest divisor of B not above 4·pp. With pp = 1 it is
     :func:`forward`."""
     from dlrover_tpu_torch.parallel.pipeline import (
         microbatch,
@@ -433,19 +425,25 @@ def forward_pp(params: Dict, tokens, config: LlamaConfig, mesh,
     if S_pp <= 1:
         return forward(params, tokens, config, mesh)
     _check_dense(c)
-    check_supported(c)
     B, S = tokens.shape
     M = n_microbatches
     if not M:
         M = next(d for d in range(min(B, 4 * S_pp), 0, -1) if B % d == 0)
     x = params["tok_embed"][tokens]
+    depth = next(iter(params["layers"].values())).shape[0]
+    if depth * S_pp == c.n_layers:
+        stages = stack_stages(params["layers"], 1)   # (1, L/pp, ...)
+    elif depth == c.n_layers:
+        stages = stack_stages(params["layers"], S_pp)
+    else:
+        raise ValueError(f"{depth} stacked layers are neither the model's "
+                         f"{c.n_layers} nor a stage's {c.n_layers // S_pp}")
 
     def stage_fn(layer_group, h):
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
         return _layers(h, layer_group, c, positions.expand(h.shape[:2]))
 
-    ym = pipeline_apply(stage_fn, stack_stages(params["layers"], S_pp),
-                        microbatch(x, M), mesh, axis="pp",
+    ym = pipeline_apply(stage_fn, stages, microbatch(x, M), mesh, axis="pp",
                         checkpoint_ticks=not c.remat)
     return _logits(params, unmicrobatch(ym), c)
 

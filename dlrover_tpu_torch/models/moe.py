@@ -31,12 +31,29 @@ activation dtype first, as the reference casts ``combine``) in f32. The
 kept and dropped tokens and every sum are the same; the one-hot tensor
 (671 MB at batch 8 × 2048 on Mixtral widths) never exists.
 
-Sharded over ``ep`` (``parallel/sharding.py``'s ``expert`` rule), a rank
-holds its experts' block of each expert tensor; the trainer computes on
-full tensors (``trainer/elastic.py``). Not ported: the token all-to-all
-that GSPMD inserts for the JAX package, and sequence-parallel attention
-for MoE configs (it raises: the routing groups would have to span the sp
-chunks).
+Sharded over ``ep`` (``parallel/sharding.py``'s ``expert`` rule), rank r
+holds experts ``[r·E/ep, (r+1)·E/ep)``. Given the mesh, ``forward`` runs
+only those: routing stays whole and replicated (every ``ep`` rank routes
+the same tokens), the dispatch gathers the kept choices of the rank's own
+experts into an ``(E/ep, G·C, D)`` batch, the combine sums those choices
+in f32, and ``collectives.from_ep`` sums the ranks' partials before the
+cast. The normed tokens and the gates enter through ``collectives.to_ep``,
+whose backward sums the ranks' shares of their gradients. The expert
+weights may be the rank's block or the whole stack (the rank takes its
+block). This is what the reference's sharded einsums compute: its batch
+shards over the data axes only, so the ranks of an ``ep`` group hold the
+same tokens and no token all-to-all is needed.
+
+Under sequence parallelism (``sp_attention`` and a mesh whose ``sp`` axis
+is > 1) each rank computes its contiguous chunk of the sequence: the
+attention is the Llama block's ring or Ulysses, and a routing group is
+still ``g`` consecutive tokens of the global ``(B, S)``, so it may span
+the chunks. Capacity is claimed choice-major across the whole group, so
+each rank gathers every rank's top-k experts (integers, no gradient), runs
+the slot arithmetic on whole groups and keeps its chunk's slots. The aux
+term's mean router probability is a differentiable sum over ``sp``
+(``collectives.psum``), its choice fractions come from the gathered ids;
+every rank's loss holds the same aux value.
 """
 
 import contextlib
@@ -44,11 +61,19 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama as _llama
+from dlrover_tpu_torch.parallel import sharding
+from dlrover_tpu_torch.parallel.collectives import (
+    from_ep,
+    gather,
+    psum,
+    to_ep,
+)
 
 
 @dataclass(frozen=True)
@@ -72,7 +97,7 @@ class MoEConfig(_llama.AttentionConfigMixin):
     remat: bool = True
     # same semantics as LlamaConfig: "dots" | None
     remat_policy: Optional[str] = "dots"
-    # same semantics as LlamaConfig; any value but None raises
+    # same semantics as LlamaConfig: None | "ring" | "ulysses"
     sp_attention: Optional[str] = None
     use_ring_attention: bool = False
     use_flash_attention: Optional[bool] = None
@@ -188,92 +213,220 @@ def _full_f32():
         torch.set_float32_matmul_precision(prec)
 
 
+def _choices(x, router, config: MoEConfig):
+    """Each token's f32 router probabilities ``(..., E)``, its top-k
+    experts ``(..., k)`` (the lower index first on ties, as lax.top_k) and
+    their renormalised gates, over ``x``'s leading dims."""
+    with _full_f32():
+        logits = torch.matmul(x.float(), router)
+    probs = torch.softmax(logits, dim=-1)
+    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = topv[..., :config.top_k], topi[..., :config.top_k]
+    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    return probs, topi, gates
+
+
+def _slots(expert, n_experts: int, capacity: int):
+    """``expert`` ``(G, g, k)``: the choices of G whole groups → each
+    choice's slot in its expert's capacity and whether it was kept
+    ``(G, g, k)``, and each group's choice fraction per expert ``(G, E)``.
+    Capacity is claimed choice-major, positions counted in integers."""
+    G, g, k = expert.shape
+    masks = F.one_hot(expert, n_experts)                     # (G, g, k, E)
+    cm = masks.transpose(1, 2).reshape(G, k * g, n_experts)
+    positions = (torch.cumsum(cm, dim=1) - 1).reshape(G, k, g, n_experts)
+    slot = (positions * cm.reshape(G, k, g, n_experts)).sum(-1)  # (G, k, g)
+    slot = slot.transpose(1, 2)                              # (G, g, k)
+    # load balancing over ALL k choices
+    return slot, slot < capacity, masks.float().mean(dim=(1, 2))
+
+
+def _aux(frac, prob_mean, n_experts: int):
+    """E · Σ_e (choice fraction · mean router probability), averaged over
+    groups."""
+    return n_experts * torch.mean(torch.sum(frac * prob_mean, dim=-1))
+
+
 def _route(x_grouped, router, config: MoEConfig, capacity: int):
     """Top-k routing with capacity. ``x_grouped`` ``(G, g, D)``: G groups of
     g tokens. Returns ``(expert, slot, kept, gates, aux)``: for each token
     and choice ``(G, g, k)`` its expert, its slot in that expert's
     capacity, whether it was kept, and its f32 gate; the f32 aux scalar."""
+    probs, expert, gates = _choices(x_grouped, router, config)
+    slot, kept, frac = _slots(expert, config.n_experts, capacity)
+    return (expert, slot, kept, gates,
+            _aux(frac, probs.mean(dim=1), config.n_experts))
+
+
+def _chunk_slots(chunks, r: int, g: int, n_experts: int, capacity: int):
+    """``chunks`` ``(sp, B, s, k)``: every sp rank's top-k experts for its
+    chunk of ``(B, S = sp·s)``. Runs the slot arithmetic on the whole
+    groups of ``g`` consecutive tokens of the flattened ``(B, S)`` and
+    returns chunk ``r``'s slots and kept flags ``(B, s, k)`` and every
+    group's choice fractions ``(G, E)``."""
+    sp, B, s, k = chunks.shape
+    whole = chunks.permute(1, 0, 2, 3).reshape(B * sp * s // g, g, k)
+    slot, kept, frac = _slots(whole, n_experts, capacity)
+    return (slot.reshape(B, sp, s, k)[:, r], kept.reshape(B, sp, s, k)[:, r],
+            frac)
+
+
+def _chunk_groups(B: int, s: int, sp: int, r: int, g: int, device):
+    """``(B, s)``: the routing group of each token of chunk ``r``."""
+    pos = (torch.arange(B, device=device)[:, None] * (s * sp) + r * s
+           + torch.arange(s, device=device)[None, :])
+    return pos // g
+
+
+def _chunk_prob_sums(probs, groups, n_groups: int):
+    """The sum of chunk tokens' router probabilities ``(B, s, E)`` per
+    routing group: ``(G, E)``, differentiable."""
+    return probs.new_zeros(n_groups, probs.shape[-1]).index_add(
+        0, groups.reshape(-1), probs.reshape(-1, probs.shape[-1]))
+
+
+def _route_sp(x, router, config: MoEConfig, capacity: int, g: int,
+              group, r: int):
+    """:func:`_route` for this rank's chunk ``x`` ``(B, s, D)`` of the
+    sequence, its groups spanning the ``sp`` ranks of ``group``: returns
+    ``(expert, slot, kept, gates, aux)``, the first four ``(B, s, k)``, the
+    aux term the whole groups' (the same on every rank)."""
+    B, s, _ = x.shape
+    sp = dist.get_world_size(group)
+    probs, expert, gates = _choices(x, router, config)
+    slot, kept, frac = _chunk_slots(gather(expert, group), r, g,
+                                    config.n_experts, capacity)
+    G = B * s * sp // g
+    sums = psum(_chunk_prob_sums(
+        probs, _chunk_groups(B, s, sp, r, g, x.device), G), group)
+    return expert, slot, kept, gates, _aux(frac, sums / g, config.n_experts)
+
+
+def fold_routes(choices, config: MoEConfig, capacity: int, g: int):
+    """Mesh-free :func:`_route_sp`: ``choices`` each sp chunk's ``(probs,
+    expert, gates)`` (:func:`_choices` of its ``(B, s, D)`` tokens) of one
+    ``(B, S)`` batch, combined as the sp ranks combine them (the experts
+    gathered, the probability sums added). Returns each chunk's
+    ``(expert, slot, kept, gates, aux)``."""
+    sp = len(choices)
+    B, s, _ = choices[0][0].shape
+    G = B * s * sp // g
+    ids = torch.stack([expert for _, expert, _ in choices])
+    sums = sum(_chunk_prob_sums(
+        probs, _chunk_groups(B, s, sp, r, g, probs.device), G)
+        for r, (probs, _, _) in enumerate(choices))
+    out = []
+    for r, (_, expert, gates) in enumerate(choices):
+        slot, kept, frac = _chunk_slots(ids, r, g, config.n_experts,
+                                        capacity)
+        out.append((expert, slot, kept, gates,
+                    _aux(frac, sums / g, config.n_experts)))
+    return out
+
+
+def _ep_block(mesh, n_experts: int):
+    """``(group, first expert, experts)`` of this rank's ``ep`` block, or
+    ``(None, 0, E)`` with no mesh or ``ep`` = 1."""
+    group = None if mesh is None else sharding.axis_group(mesh, ["ep"])
+    if group is None:
+        return None, 0, n_experts
+    n = sharding.mesh_sizes(mesh)["ep"]
+    if n_experts % n:
+        raise ValueError(f"{n_experts} experts do not split over ep {n}")
+    local = n_experts // n
+    return group, sharding.mesh_coords(mesh)["ep"] * local, local
+
+
+def _moe_ffn(x, layer, config: MoEConfig, mesh=None):
+    """Sparse expert FFN. x ``(B, s, D)`` → ``(B, s, D)``, aux scalar. With
+    ``mesh``: under sequence parallelism ``x`` is this rank's chunk of the
+    sequence, and under ``ep`` the rank runs only its block of experts
+    (module docstring)."""
     c = config
-    G, g = x_grouped.shape[0], x_grouped.shape[1]
+    B, s, D = x.shape
     E, k = c.n_experts, c.top_k
-    with _full_f32():
-        logits = torch.matmul(x_grouped.float(), router)     # (G, g, E)
-    probs = torch.softmax(logits, dim=-1)
-    # top-k with the lower index first on ties, as lax.top_k
-    topv, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topv, topi = topv[..., :k], topi[..., :k]                # (G, g, k)
-    gates = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
-
-    masks = F.one_hot(topi, E)                               # (G, g, k, E)
-    # choice-major priority: position = running count over (k, g) order
-    cm = masks.transpose(1, 2).reshape(G, k * g, E)
-    positions = (torch.cumsum(cm, dim=1) - 1).reshape(G, k, g, E)
-    slot = (positions * cm.reshape(G, k, g, E)).sum(-1)      # (G, k, g)
-    slot = slot.transpose(1, 2)                              # (G, g, k)
-    kept = slot < capacity
-
-    # load balancing over ALL k choices
-    frac = masks.float().mean(dim=(1, 2))                    # (G, E)
-    aux = E * torch.mean(torch.sum(frac * probs.mean(dim=1), dim=-1))
-    return topi, slot, kept, gates, aux
-
-
-def _moe_ffn(x, layer, config: MoEConfig):
-    """Sparse expert FFN. x ``(B, S, D)`` → ``(B, S, D)``, aux scalar."""
-    c = config
-    B, S, D = x.shape
-    E, k = c.n_experts, c.top_k
+    sp, r = _llama._sp_chunk(c, mesh)
+    S = s * sp
     capacity = expert_capacity(c, B, S)
     g = _group_size(c, B, S)
     G = B * S // g
-    xg = x.reshape(G, g, D)
-    expert, slot, kept, gates, aux = _route(xg, layer["router"], c,
-                                            capacity)
-    # dispatch: the token of each kept (expert, slot), or the zero row g
-    cell = torch.where(kept, expert * capacity + slot, E * capacity)
-    src = torch.full((G, E * capacity + 1), g, dtype=torch.long,
-                     device=x.device)
-    tok = torch.arange(g, device=x.device)[None, :, None].expand(G, g, k)
-    src.scatter_(1, cell.reshape(G, -1), tok.reshape(G, -1))
-    src = src[:, :E * capacity]
-    x_pad = torch.cat([xg, xg.new_zeros(G, 1, D)], dim=1)   # (G, g+1, D)
-    expert_in = x_pad[torch.arange(G, device=x.device)[:, None], src]
-    # (G, E·C, D) → (E, G·C, D): the experts as products batched over E
-    expert_in = (expert_in.reshape(G, E, capacity, D).transpose(0, 1)
-                 .reshape(E, G * capacity, D))
-    gate = F.silu(torch.bmm(expert_in, layer["w1"]))
-    up = torch.bmm(expert_in, layer["w3"])
-    expert_out = torch.bmm(gate * up, layer["w2"])           # (E, G·C, D)
-    expert_out = (expert_out.reshape(E, G, capacity, D).transpose(0, 1)
-                  .reshape(G, E * capacity, D))
+    N = B * s
+    if sp > 1:
+        expert, slot, kept, gates, aux = _route_sp(
+            x, layer["router"], c, capacity, g,
+            sharding.axis_group(mesh, ["sp"]), r)
+        groups = _chunk_groups(B, s, sp, r, g, x.device).reshape(N, 1)
+    else:
+        expert, slot, kept, gates, aux = _route(
+            x.reshape(G, g, D), layer["router"], c, capacity)
+        groups = torch.arange(N, device=x.device).reshape(N, 1) // g
+    expert, slot, kept, gates = (t.reshape(N, k)
+                                 for t in (expert, slot, kept, gates))
+    ep_group, lo, El = _ep_block(mesh, E)
+    w1, w3, w2 = (w if w.shape[0] == El else w[lo:lo + El]
+                  for w in (layer["w1"], layer["w3"], layer["w2"]))
+    xf = x.reshape(N, D)
+    own = kept
+    if ep_group is not None:
+        own = kept & (expert >= lo) & (expert < lo + El)
+        xf, gates = to_ep((xf, gates), ep_group)
+    # dispatch: the token of each kept (group, expert, slot) of this rank,
+    # or the zero row N
+    n_cells = G * El * capacity
+    cell = torch.where(own, (groups * El + expert - lo) * capacity + slot,
+                       n_cells)
+    src = torch.full((n_cells + 1,), N, dtype=torch.long, device=x.device)
+    tok = torch.arange(N, device=x.device)[:, None].expand(N, k)
+    src.scatter_(0, cell.reshape(-1), tok.reshape(-1))
+    x_pad = torch.cat([xf, xf.new_zeros(1, D)])               # (N + 1, D)
+    # (G·El·C, D) → (El, G·C, D): the experts as products batched over El
+    expert_in = (x_pad[src[:n_cells]].reshape(G, El, capacity, D)
+                 .transpose(0, 1).reshape(El, G * capacity, D))
+    gate = F.silu(torch.bmm(expert_in, w1))
+    up = torch.bmm(expert_in, w3)
+    expert_out = torch.bmm(gate * up, w2)                    # (El, G·C, D)
+    expert_out = (expert_out.reshape(El, G, capacity, D).transpose(0, 1)
+                  .reshape(n_cells, D))
     # combine: each token's kept choices times their gates, summed in f32
-    picked = expert_out[torch.arange(G, device=x.device)[:, None, None],
-                        torch.where(kept, expert * capacity + slot, 0)]
-    w = (gates * kept).to(x.dtype).float()                   # (G, g, k)
-    out = (picked.float() * w[..., None]).sum(2).to(x.dtype)
-    return out.reshape(B, S, D), aux
+    picked = expert_out[torch.where(own, cell, 0)]           # (N, k, D)
+    w = (gates * own).to(x.dtype).float()                    # (N, k)
+    out = (picked.float() * w[..., None]).sum(1)
+    if ep_group is not None:
+        out = from_ep(out, ep_group)
+    return out.to(x.dtype).reshape(B, s, D), aux
 
 
-def _layer(x, layer, config: MoEConfig, positions):
+def _layer(x, layer, config: MoEConfig, positions, mesh=None):
     c = config
     x = x + _llama.attention_block(
         _llama.rms_norm(x, layer["attn_norm"], c.norm_eps), layer, c,
-        positions)
+        positions, mesh)
     out, aux = _moe_ffn(_llama.rms_norm(x, layer["ffn_norm"], c.norm_eps),
-                        layer, c)
+                        layer, c, mesh)
     return x + out, aux
 
 
-def forward(params: Dict, tokens, config: MoEConfig):
+def forward(params: Dict, tokens, config: MoEConfig, mesh=None):
     """tokens ``(B, S)`` → (logits ``(B, S, vocab)`` f32, aux loss scalar,
     the mean of the layers' aux terms). Differentiable; with
     ``config.remat`` and grad enabled, each layer is rematerialised in
-    backward under ``config.remat_policy``."""
+    backward under ``config.remat_policy`` (the whole layer: a recompute
+    that stopped early could leave out a collective).
+
+    With ``mesh`` (module docstring): under sequence parallelism S must
+    divide by sp, and the rank returns its chunk ``(B, S/sp, vocab)`` of
+    the logits; under ``ep`` the rank runs its block of experts, the
+    weights given as that block or whole."""
     c = config
-    _llama.check_supported(c)
     B, S = tokens.shape
+    sp, r = _llama._sp_chunk(c, mesh)
+    if S % sp:
+        raise ValueError(f"sequence length {S} does not divide by sp {sp}")
+    s = S // sp
+    tokens = tokens[:, r * s:(r + 1) * s]
     x = params["tok_embed"][tokens]
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    positions = (r * s + torch.arange(s, device=tokens.device))[None, :]
+    positions = positions.expand(B, s)
     names = list(params["layers"])
     per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
     remat = c.remat and torch.is_grad_enabled()
@@ -282,21 +435,28 @@ def forward(params: Dict, tokens, config: MoEConfig):
     for weights in per_layer:
         layer = dict(zip(names, weights))
         if remat:
-            x, aux = checkpoint(_layer, x, layer, c, positions,
-                                use_reentrant=False, context_fn=context_fn,
-                                preserve_rng_state=False)
+            with set_checkpoint_early_stop(False):
+                x, aux = checkpoint(_layer, x, layer, c, positions, mesh,
+                                    use_reentrant=False,
+                                    context_fn=context_fn,
+                                    preserve_rng_state=False)
         else:
-            x, aux = _layer(x, layer, c, positions)
+            x, aux = _layer(x, layer, c, positions, mesh)
         aux_sum = aux_sum + aux
     x = _llama.rms_norm(x, params["final_norm"], c.norm_eps)
     logits = torch.matmul(x.float(), params["lm_head"].float())
     return logits, aux_sum / c.n_layers
 
 
-def next_token_loss(params, tokens, config: MoEConfig):
-    """Causal LM loss plus the router's load-balancing aux term."""
-    logits, aux = forward(params, tokens[:, :-1], config)
-    return (_llama.cross_entropy(logits, tokens[:, 1:])
+def next_token_loss(params, tokens, config: MoEConfig, mesh=None):
+    """Causal LM loss plus the router's load-balancing aux term. Under
+    sequence parallelism, the cross entropy over this rank's chunk of the
+    targets plus the whole batch's aux term (the trainer averages the
+    ranks' losses and gradients over sp)."""
+    logits, aux = forward(params, tokens[:, :-1], config, mesh)
+    s = logits.shape[1]
+    r = _llama._sp_chunk(config, mesh)[1]
+    return (_llama.cross_entropy(logits, tokens[:, 1:][:, r * s:(r + 1) * s])
             + config.router_aux_weight * aux)
 
 

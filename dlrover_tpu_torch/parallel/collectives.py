@@ -15,8 +15,14 @@ backward runs the adjoint collective, and two rules keep the ranks paired:
 - two collectives that autograd could run in either order must not share
   a pair of ranks: the ring moves K and V in one :func:`shift`.
 
+The ``ep`` region of the MoE FFN (``models/moe.py``) takes a conjugate
+pair: :func:`to_ep` enters it (identity forward, all-reduce backward) and
+:func:`from_ep` leaves it (all-reduce forward, identity backward), the
+adjoint of the reference's expert-sharded einsums. :func:`psum` sums over
+a group both ways, for a value every rank's loss reads.
+
 Point-to-point ops take global ranks (``dist.get_global_rank``). A failed
-send, receive or all-to-all raises; nothing is caught.
+send, receive, all-to-all or all-reduce raises; nothing is caught.
 """
 
 from typing import Optional, Sequence
@@ -163,3 +169,79 @@ def tie(out, *others):
     gradients: each rank's backward then reaches the collectives that
     produced ``others`` even where its result does not read them."""
     return _Tie.apply(out, *others)
+
+
+def _sum_f32(t, group):
+    """The sum of ``t`` over ``group``, taken in f32 and cast back to
+    ``t``'s dtype."""
+    total = t.float().contiguous()
+    if total.data_ptr() == t.data_ptr():
+        total = total.clone()
+    dist.all_reduce(total, group=group)
+    return total.to(t.dtype)
+
+
+class _ToEP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(_sum_f32(g, ctx.group) for g in grads))
+
+
+def to_ep(tensors: Sequence[torch.Tensor], group):
+    """Enter the ``ep`` region: ``tensors`` (replicated over ``group``)
+    unchanged. Each rank's cotangents then hold only its own experts'
+    share, so the backward sums them over ``group`` (in f32, one
+    all-reduce a tensor in the given order), and every rank leaves with
+    the whole gradient."""
+    return _ToEP.apply(group, *tensors)
+
+
+class _FromEP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x.detach(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def from_ep(x, group):
+    """Leave the ``ep`` region: the sum over ``group`` of the ranks'
+    partial results ``x`` (each rank's experts' share). Every rank's loss
+    reads the same sum, so a rank's partial takes that loss's cotangent as
+    it is: the backward is the identity."""
+    return _FromEP.apply(x, group)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum_f32(x.detach(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+def psum(x, group):
+    """The sum of ``x`` over ``group`` on every rank. Its backward is the
+    adjoint for the sum of the ranks' losses (the trainer averages the
+    ranks' gradients over the data axes and ``sp``): every rank's input
+    takes the sum of the group's cotangents."""
+    return _PSum.apply(x, group)
+
+
+def gather(x, group) -> torch.Tensor:
+    """``(n, *x.shape)``: every rank's ``x`` of ``group`` in group-rank
+    order (an all-gather; no gradient)."""
+    x = x.detach().contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    return torch.stack(parts)

@@ -96,8 +96,11 @@ def pipeline_apply(
     """Run ``M`` microbatches through ``S`` = the mesh's ``axis`` size
     stages; this rank runs stage ``i`` = its ``axis`` coordinate.
 
-    ``stage_params``: a tree whose leaves have leading dim ``S`` (see
-    :func:`stack_stages`); the rank takes slice ``i``. ``microbatches``:
+    ``stage_params``: a tree whose leaves have leading dim ``S``, every
+    stage's params (see :func:`stack_stages`), of which the rank takes
+    slice ``i``; or leading dim 1, this stage's own params alone (the
+    reference's ``shard_map`` hands each device its ``(1, ...)`` slice),
+    taken as they are. ``microbatches``:
     ``(M, b, ...)`` activations, this rank's rows (the trainer has already
     split the batch over the data axes, which the reference does with its
     ``batch_axes``). Returns the last stage's ``(M, b, ...)`` outputs on
@@ -112,7 +115,14 @@ def pipeline_apply(
     idx = sharding.mesh_coords(mesh)[axis]
     M = microbatches.shape[0]
     T = M + S - 1
-    params = _tree_map(lambda p: p[idx], stage_params)
+
+    def take(p):
+        if p.shape[0] not in (1, S):
+            raise ValueError(f"stage params of leading dim {p.shape[0]}: "
+                             f"expected {S} stages or this stage's 1")
+        return p[idx if p.shape[0] == S else 0]
+
+    params = _tree_map(take, stage_params)
     if checkpoint_ticks and torch.is_grad_enabled():
         def fn(p, h):
             return checkpoint(stage_fn, p, h, use_reentrant=False)

@@ -86,7 +86,6 @@ from dlrover_tpu_torch.models.decode import (
 )
 from dlrover_tpu_torch.models.llama import (
     LlamaConfig,
-    check_supported,
     init_params,
     layer_params,
     rms_norm,
@@ -229,7 +228,6 @@ class BatchDecodeEngine:
                  cache_len: int = 64, quantize: bool = False,
                  device="cuda"):
         c = config
-        check_supported(c)
         dev = resolve_device(device)
         self.slots = slots
         self.cache_len = cache_len

@@ -14,14 +14,21 @@ place (the reference donates the state to the same end).
 
 Across ranks the params are DTensors (``parallel.sharding.shard_tree``).
 The kernels take plain tensors through ``ctypes``, so a step gathers each
-param whole (``full_tensor``), runs the micro steps on this rank's rows of
-the global batch, reduces the f32 accumulators to each leaf's placement as
-the mean over the ranks of the data axes, ``sp`` and ``pp``
-(``reduce_scatter_tensor`` along a dim those axes shard, ``all_reduce``
-over those that replicate it), takes the global norm with one
-``all_reduce`` and runs AdamW on the local shards. On one rank, or with
-plain tensors, no collective runs and the step is the single-card step bit
-for bit.
+param over every mesh axis but the ``local_axes`` the loss handles itself:
+``pp`` for a pipeline loss (``llama.next_token_loss_pp``: a stage takes
+its block of the stacked layers) and ``ep`` for the MoE loss given the
+mesh (``moe.next_token_loss``: a rank runs its block of experts). The
+caller names them (``ElasticTrainer(local_axes=...)``); along them a leaf
+stays this rank's block, its f32 accumulator takes that block's shape,
+and no collective runs. Along the other axes (``fsdp``, ``tp``) the step
+computes on the whole tensor. It runs the micro steps on this rank's
+rows of the global batch, reduces the f32 accumulators to each leaf's
+placement as the mean over the ranks of the data axes, ``sp`` and ``pp``
+(``reduce_scatter_tensor`` along a gathered dim those axes shard,
+``all_reduce`` over those that replicate it), takes the global norm with
+one ``all_reduce`` and runs AdamW on the local shards. On one rank, or
+with plain tensors, no collective runs and the step is the single-card
+step bit for bit.
 
 Before it writes the state in place the step waits for the registered
 readers of it (``common.state_fence``: a checkpoint snapshot still
@@ -31,18 +38,19 @@ The first step after the world is (re)configured claims the training
 state in the memory ledger (``observability/memory.py``): the params and
 the optimizer state at the exact bytes of this rank's tensors (a
 DTensor's local shard, not its global size) and the f32 grad
-accumulators, which a step allocates at each param's full shape, as
-``activations``. Every step notes its ``(accum, rows, seq)`` signature
-in the compile watch (``observability/compile_watch.py``,
-``trainer.train_step``); the first step at a new signature is timed as
-its miss.
+accumulators, which a step allocates at each param's gathered shape (its
+block along the local axes), as ``activations``. Every step notes its
+``(accum, rows, seq)`` signature in the compile watch
+(``observability/compile_watch.py``, ``trainer.train_step``); the first
+step at a new signature is timed as its miss.
 """
 
-from typing import Any, Callable, Dict, NamedTuple, Optional
+import math
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from dlrover_tpu_torch.common import state_fence
 from dlrover_tpu_torch.common.constants import MetricLabel
@@ -84,7 +92,14 @@ class ElasticTrainer:
         micro_batch_per_replica: int,
         mesh_manager=None,  # anything with apply_plan(MeshPlan)
         device="cuda",
+        # mesh axes along which loss_fn takes this rank's block (LOCAL_AXES)
+        local_axes: Sequence[str] = (),
     ):
+        unknown = set(local_axes) - set(LOCAL_AXES)
+        if unknown:
+            raise ValueError(f"local_axes {sorted(unknown)}: a loss computes "
+                             f"on its own block only along {LOCAL_AXES}")
+        self.local_axes = tuple(local_axes)
         self._loss_fn = loss_fn
         self._optimizer = optimizer
         self.global_batch_size = global_batch_size
@@ -152,7 +167,7 @@ class ElasticTrainer:
     def claim_state(self, state) -> None:
         """Claim the training state in the memory ledger: params and
         optimizer state at this rank's exact bytes, and the f32 grad
-        accumulators (full-shape, as a step allocates them) as
+        accumulators (at the shapes a step allocates them) as
         activations."""
         params = tree_leaves(state["params"])
         params_b = sum(_local(p).numel() * _local(p).element_size()
@@ -160,7 +175,8 @@ class ElasticTrainer:
         opt_b = sum(_local(t).numel() * _local(t).element_size()
                     for t in tree_leaves(state["opt_state"])
                     if isinstance(t, torch.Tensor))
-        accum_b = sum(4 * p.numel() for p in params)
+        accum_b = sum(4 * math.prod(_compute_shape(p, self.local_axes))
+                      for p in params)
         acc = get_accountant()
         acc.register(MetricLabel.MEM_PARAMS, "trainer/params", params_b)
         acc.register(MetricLabel.MEM_OPT_STATE, "trainer/opt_state", opt_b)
@@ -195,8 +211,7 @@ class ElasticTrainer:
                      if isinstance(p, DTensor)), None)
         spread = mesh is not None and mesh.size() > 1
         if spread:
-            full = [p.full_tensor() if isinstance(p, DTensor) else p
-                    for p in leaves]
+            full = [_compute_view(p, self.local_axes) for p in leaves]
             batch = self._rows_of_this_rank(mesh, batch)
         else:
             full = [_local(p) for p in leaves]
@@ -218,7 +233,7 @@ class ElasticTrainer:
         loss = loss_sum / accum
         if spread:
             acc, grad_norm, loss = _reduce_to_placements(
-                mesh, leaves, acc, loss)
+                mesh, leaves, acc, loss, self.local_axes)
         else:
             grad_norm = global_norm(acc)
         local_params = tree_unflatten(params, [_local(p) for p in leaves])
@@ -261,16 +276,57 @@ def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+# the mesh axes along which a loss may compute on this rank's block
+LOCAL_AXES = ("pp", "ep")
+
+
+def _local_dims(spec, local_axes):
+    """The dims of ``spec`` sharded over a local axis (each over that
+    axis alone)."""
+    dims = []
+    for d, e in enumerate(spec):
+        axes = sharding.entry_axes(e)
+        if any(a in local_axes for a in axes):
+            if len(axes) != 1:
+                raise NotImplementedError(
+                    f"dim {d} mixes a local axis with others: {e}")
+            dims.append(d)
+    return dims
+
+
+def _compute_view(p, local_axes):
+    """What a step computes on: ``p`` gathered over every mesh axis but
+    ``local_axes``, along which it stays this rank's block."""
+    if not isinstance(p, DTensor):
+        return p
+    keep = [pl if name in local_axes and pl.is_shard() else Replicate()
+            for name, pl in zip(p.device_mesh.mesh_dim_names, p.placements)]
+    return p.redistribute(p.device_mesh, keep).to_local()
+
+
+def _compute_shape(p, local_axes):
+    """The shape of :func:`_compute_view` of ``p``."""
+    if not isinstance(p, DTensor):
+        return tuple(p.shape)
+    spec = sharding.dtensor_spec(p)
+    dims = _local_dims(spec, local_axes)
+    local_spec = tuple(e if d in dims else None for d, e in enumerate(spec))
+    return sharding.region_for(p.shape, local_spec,
+                               sharding.mesh_sizes(p.device_mesh),
+                               sharding.mesh_coords(p.device_mesh))[1]
+
+
 # the axes whose ranks compute different parts of the gradient: the data
 # axes (their own rows), sp (its own chunk of the sequence) and pp (its
 # stage's part of the pipeline, with the ends on every stage)
 MEAN_AXES = sharding.BATCH_AXES + ("pp", "sp")
 
 
-def _reduce_to_placements(mesh, leaves, acc, loss):
-    """Per-rank f32 grads of the whole params → each leaf's local shard of
-    their mean over the ranks of :data:`MEAN_AXES`, the global grad norm,
-    and the mean loss.
+def _reduce_to_placements(mesh, leaves, acc, loss, local_axes=()):
+    """Per-rank f32 grads of the params as the step computed on them (whole,
+    or this rank's block along ``local_axes``) → each leaf's local shard
+    of their mean over the ranks of :data:`MEAN_AXES`, the global grad
+    norm, and the mean loss.
 
     Each rank's loss is the mean over its rows and, under sequence
     parallelism, over its chunk of the sequence, so the step's loss is the
@@ -279,9 +335,14 @@ def _reduce_to_placements(mesh, leaves, acc, loss):
     its part of the gradient of the sum of the pp ranks' losses (the
     schedule's collectives carry their adjoints, ``parallel/pipeline.py``):
     its stage's layers, the ends on every rank, the embedding on stage 0.
-    So the mean over pp counts every contribution once. Ranks that differ
-    only in tp or ep ran the same rows through the same full-tensor compute
-    and already agree: they keep their region with no collective."""
+    So the mean over pp counts every contribution once. A dim sharded over
+    a local axis is already this rank's block and is neither cut nor
+    reduced along it: with a stage-local pipeline loss, no other stage
+    touched the stage's layers, so the mean over pp is the stage's own
+    gradient over pp. Ranks that differ only in tp or ep ran the same rows
+    and agree on every gradient they both hold (under a local ``ep`` the
+    MoE FFN's ``to_ep`` sums the experts' shares of the replicated
+    leaves' gradients): they keep their region with no collective."""
     sizes = sharding.mesh_sizes(mesh)
     coords = sharding.mesh_coords(mesh)
     n_mean = 1
@@ -292,10 +353,12 @@ def _reduce_to_placements(mesh, leaves, acc, loss):
     for p, g in zip(leaves, acc):
         spec = (sharding.dtensor_spec(p) if isinstance(p, DTensor)
                 else (None,) * g.ndim)
+        local = _local_dims(spec, local_axes)
         model_spec = tuple(
+            None if d in local else
             tuple(a for a in sharding.entry_axes(e)
                   if a not in MEAN_AXES) or None
-            for e in spec)
+            for d, e in enumerate(spec))
         start, shape = sharding.region_for(g.shape, model_spec, sizes, coords)
         g = sharding.local_region(g, start, shape)
         used = {a for e in spec for a in sharding.entry_axes(e)}
@@ -305,6 +368,8 @@ def _reduce_to_placements(mesh, leaves, acc, loss):
             g = g.contiguous()
             dist.all_reduce(g, group=group)
         for d, e in enumerate(spec):
+            if d in local:
+                continue
             mean_axes = [a for a in sharding.entry_axes(e) if a in MEAN_AXES]
             group = sharding.axis_group(mesh, mean_axes)
             if group is None:

@@ -77,6 +77,14 @@ SEQ_LEN = int(os.getenv("SEQ_LEN", "64"))
 CKPT_EVERY = 10
 
 
+def emit(record) -> None:
+    """``record`` as one JSON line, in one write. The ranks share stdout,
+    and with ``PYTHONUNBUFFERED`` set ``print`` writes the text and its
+    newline apart, so two ranks' records could land on one line."""
+    sys.stdout.write(json.dumps(record) + "\n")
+    sys.stdout.flush()
+
+
 def example_config(seq_len: int = SEQ_LEN) -> llama.LlamaConfig:
     return llama.LlamaConfig(
         vocab_size=2048, dim=128, n_layers=4, n_heads=4, n_kv_heads=2,
@@ -177,8 +185,7 @@ def train(config, steps: int, global_batch: int, seq_len: int,
             if on_step is not None:
                 on_step(step, result.loss)
             if step == kill_at_step and ckpt.engine.wait_drained():
-                print(json.dumps({"killed_at_step": step,
-                                  "ts": time.time()}), flush=True)
+                emit({"killed_at_step": step, "ts": time.time()})
                 os.kill(os.getpid(), signal.SIGKILL)
             ctx.publish_step(step)
             if ctx.is_leader:
@@ -207,8 +214,7 @@ def main() -> int:
 
     def on_step(step, loss):
         if ctx.is_leader:
-            print(json.dumps({"step": step, "loss": float(loss)}),
-                  flush=True)
+            emit({"step": step, "loss": float(loss)})
         if wedge and step + 1 == hang:
             # the hang drill restores the wedged step's frame: wait out
             # this drain so that step's save is not skipped as busy
@@ -220,26 +226,22 @@ def main() -> int:
                 on_step=on_step,
                 on_start=lambda start, ckpt, trainer: engine.append(
                     ckpt.engine))
-    print(json.dumps({"rank": ctx.rank, "forbidden_modules": sorted(
+    emit({"rank": ctx.rank, "forbidden_modules": sorted(
         m for m in sys.modules
-        if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu"))}),
-        flush=True)
+        if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu"))})
     if wedge:
         # the hang drill: stop stepping outside the training span until
         # the agent's restart kills this worker
         if ctx.is_leader:
             with open(marker, "w") as f:
                 f.write(str(time.time()))
-            print(json.dumps({"wedged_after_step": out["final_step"],
-                              "start_step": out["start_step"],
-                              "restored_from": out["restored_from"]}),
-                  flush=True)
+            emit({"wedged_after_step": out["final_step"],
+                  "start_step": out["start_step"],
+                  "restored_from": out["restored_from"]})
         time.sleep(3600)
     if ctx.is_leader:
-        print(json.dumps({"done": out["final_step"],
-                          "start_step": out["start_step"],
-                          "restored_from": out["restored_from"]}),
-              flush=True)
+        emit({"done": out["final_step"], "start_step": out["start_step"],
+              "restored_from": out["restored_from"]})
     worker.shutdown()
     return 0
 

@@ -8,12 +8,15 @@ Each rank prints one ``RESULT <json>`` line. ``mode`` picks the checks:
 ``ckpt`` (``shard``, then the checkpoint engine across ranks), ``moe``
 (``ckpt`` on the tiny MoE model, for an ``ep`` plan), ``sp`` (ring and
 Ulysses attention, the sequence-parallel loss and trainer steps, for an
-``sp`` plan) or ``pp`` (``pipeline_apply``, ``next_token_loss_pp`` and
-trainer steps, for a ``pp`` plan with or without ``dp``). ``sp`` and
-``pp`` may run in one launch, each on its own mesh: mode ``sp,pp`` with
-the plan ``{"sp": <plan>, "pp": <plan>}``. Each reads its inputs from
-``<out dir>/<mode>_inputs.npz`` and writes its tensors to ``<out
-dir>/<mode><world>_<rank>.npz``.
+``sp`` plan), ``pp`` (``pipeline_apply``, ``next_token_loss_pp`` and
+trainer steps on the whole stack and on the stage's own layers, for a
+``pp`` plan with or without ``dp``), ``moe_ep`` (the MoE loss on the
+rank's own experts and trainer steps that keep them local, for an ``ep``
+plan) or ``moe_sp`` (the same with ring and Ulysses attention, for an
+``ep`` × ``sp`` plan). These four may run in one launch, each on its own
+mesh: mode ``sp,pp`` with the plan ``{"sp": <plan>, "pp": <plan>}``. Each
+reads its inputs from ``<out dir>/<mode>_inputs.npz`` and writes its
+tensors to ``<out dir>/<mode><world>_<rank>.npz``.
 """
 
 import dataclasses
@@ -40,8 +43,13 @@ from dlrover_tpu_torch.ckpt.shm_handler import (  # noqa: E402
 from dlrover_tpu_torch.convert import named_leaves  # noqa: E402
 from dlrover_tpu_torch.models import llama, moe  # noqa: E402
 from dlrover_tpu_torch.parallel.mesh import build_mesh, plan_mesh  # noqa: E402
+from dlrover_tpu_torch.observability.memory import (  # noqa: E402
+    get_accountant,
+)
 from dlrover_tpu_torch.parallel.sharding import (  # noqa: E402
     global_batch_from_local,
+    mesh_coords,
+    mesh_sizes,
     shard_tree,
 )
 from dlrover_tpu_torch.trainer.elastic import (  # noqa: E402
@@ -120,22 +128,62 @@ def _grads(loss, tree, prefix, arrays):
         arrays[f"{prefix}{name}"] = g.numpy()
 
 
-def _steps(mesh, plan, c, loss_fn, inp, params, res, arrays, key):
+def _steps(mesh, plan, c, loss_fn, inp, params, res, arrays, key,
+           local_axes=()):
     """3 trainer steps on every rank's copy of the global batches; the
-    losses and norms into ``res[key]``, the final params into arrays."""
+    losses and norms into ``res[key]``, the final params into arrays.
+    With ``local_axes``, also what the first micro step computed on: the
+    layer leaves' shapes ``loss_fn`` took, the f32 accumulators' shapes
+    and their claimed bytes (``res[key + "_live"]``)."""
     tt = ElasticTrainer(loss_fn, adamw(3e-4), GLOBAL_BATCH,
                         max(1, GLOBAL_BATCH // (2 * plan.dp_total)),
-                        device="cpu")
+                        device="cpu", local_axes=local_axes)
     tt.configure_for_world(plan)
     state = make_train_state(
-        shard_tree(mesh, params, llama.param_logical_axes(c)), tt._optimizer)
+        shard_tree(mesh, params, model(c).param_logical_axes(c)),
+        tt._optimizer)
     res[key] = []
-    for b in inp["batches"]:
-        state, r = tt.train_step(state, b.reshape(
-            tt.grad_accum_steps, tt.micro_batch_global, -1))
-        res[key].append([float(r.loss), float(r.grad_norm)])
+    live, accums = {}, []
+    real_add = torch._foreach_add_
+    if local_axes:
+        def seen(p, x, loss_fn=loss_fn):
+            if not live:
+                live.update({n: list(t.shape)
+                             for n, t in p["layers"].items()})
+            return loss_fn(p, x)
+
+        def add(acc, *a, **k):
+            if not accums:
+                accums.append([list(t.shape) for t in acc])
+            return real_add(acc, *a, **k)
+
+        tt._loss_fn = seen
+        torch._foreach_add_ = add
+    try:
+        for b in inp["batches"]:
+            state, r = tt.train_step(state, b.reshape(
+                tt.grad_accum_steps, tt.micro_batch_global, -1))
+            res[key].append([float(r.loss), float(r.grad_norm)])
+    finally:
+        torch._foreach_add_ = real_add
+    if local_axes:
+        res[key + "_live"] = dict(
+            layers=live, accum_shapes=accums[0],
+            accum_bytes=get_accountant().bytes_for("activations"))
     for name, p in flat(state["params"]).items():
         arrays[f"{key}/{name}"] = p.full_tensor().numpy()
+
+
+def _block(params, mesh, axis, names, dim):
+    """``params`` with the leaves ``names`` of ``params["layers"]`` cut to
+    this rank's block along ``dim`` over the mesh ``axis``."""
+    n, r = mesh_sizes(mesh)[axis], mesh_coords(mesh)[axis]
+    layers = dict(params["layers"])
+    for name in names:
+        w = layers[name]
+        e = w.shape[dim] // n
+        layers[name] = w.narrow(dim, r * e, e).clone()
+    return {**params, "layers": layers}
 
 
 def sp_checks(ctx, n, mesh, plan, inp, res, arrays):
@@ -218,10 +266,66 @@ def pp_checks(mesh, plan, inp, res, arrays):
     loss = llama.next_token_loss_pp(params, rows(inp["tokens"], 0), c, mesh)
     arrays["loss_pp"] = loss.detach().numpy()
     _grads(loss, params, "grad_pp/", arrays)
+    # the stage's own layers alone
+    stage = _block(unflat(inp, "params/"), mesh, "pp",
+                   list(params["layers"]), 0)
+    for t in flat(stage).values():
+        t.requires_grad_(True)
+    loss = llama.next_token_loss_pp(stage, rows(inp["tokens"], 0), c, mesh)
+    arrays["loss_pp_local"] = loss.detach().numpy()
+    _grads(loss, stage, "grad_pp_local/", arrays)
     c = parallel_config(n_layers=4, remat=True)
     _steps(mesh, plan, c,
            lambda p, t: llama.next_token_loss_pp(p, t, c, mesh),
            inp, unflat(inp, "params/"), res, arrays, "train_pp")
+    _steps(mesh, plan, c,
+           lambda p, t: llama.next_token_loss_pp(p, t, c, mesh),
+           inp, unflat(inp, "params/"), res, arrays, "train_pp_local",
+           local_axes=("pp",))
+
+
+EXPERT_LEAVES = ("w1", "w3", "w2")
+
+
+def moe_config(**kw):
+    """The tiny MoE of the moe_ep and moe_sp modes (f32, remat "dots",
+    the flash path's plain versions)."""
+    return dataclasses.replace(moe.MoEConfig.tiny(), dtype=torch.float32,
+                               use_flash_attention=True, remat=True, **kw)
+
+
+def moe_checks(mesh, plan, inp, res, arrays, strategies):
+    """The MoE loss and its grads on this rank's experts (and chunk, under
+    an sp strategy) for each of ``strategies``, the expert products'
+    batch sizes, and 3 trainer steps that keep the experts local, with
+    the first strategy."""
+    tokens = torch.from_numpy(np.array(inp["tokens"]))
+    for strategy in strategies:
+        tag = strategy or "ep"
+        c = moe_config(sp_attention=strategy)
+        params = _block(unflat(inp, "params/"), mesh, "ep", EXPERT_LEAVES,
+                        1)
+        for t in flat(params).values():
+            t.requires_grad_(True)
+        batches, real_bmm = [], torch.bmm
+
+        def bmm(a, b, **k):
+            batches.append(a.shape[0])
+            return real_bmm(a, b, **k)
+
+        torch.bmm = bmm
+        try:
+            loss = moe.next_token_loss(params, tokens, c, mesh)
+            _grads(loss, params, f"grad_{tag}/", arrays)
+        finally:
+            torch.bmm = real_bmm
+        arrays[f"loss_{tag}"] = loss.detach().numpy()
+        res[f"bmm_{tag}"] = sorted(set(batches))
+    c = moe_config(sp_attention=strategies[0])
+    _steps(mesh, plan, c,
+           lambda p, x: moe.next_token_loss(p, x, c, mesh),
+           inp, unflat(inp, "params/"), res, arrays, "train",
+           local_axes=("ep",))
 
 
 def parallel_main(ctx, modes, plans, out_dir):
@@ -233,8 +337,13 @@ def parallel_main(ctx, modes, plans, out_dir):
         res[mode], arrays = {}, {}
         if mode == "sp":
             sp_checks(ctx, ctx.world_size, mesh, plan, inp, res[mode], arrays)
-        else:
+        elif mode == "pp":
             pp_checks(mesh, plan, inp, res[mode], arrays)
+        elif mode == "moe_ep":
+            moe_checks(mesh, plan, inp, res[mode], arrays, [None])
+        else:
+            moe_checks(mesh, plan, inp, res[mode], arrays,
+                       ["ring", "ulysses"])
         np.savez(os.path.join(
             out_dir, f"{mode}{ctx.world_size}_{ctx.rank}.npz"), **arrays)
     print("RESULT " + json.dumps(res), flush=True)
@@ -244,7 +353,7 @@ def parallel_main(ctx, modes, plans, out_dir):
 def main(mode, plan_kw, out_dir):
     ctx = worker.init(device="cpu")
     modes = mode.split(",")
-    if set(modes) <= {"sp", "pp"}:
+    if set(modes) <= {"sp", "pp", "moe_ep", "moe_sp"}:
         return parallel_main(ctx, modes, plan_kw, out_dir)
     c = config(mode)
     m = model(c)

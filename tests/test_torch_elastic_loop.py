@@ -20,6 +20,7 @@ import os
 import signal
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -142,6 +143,71 @@ def test_twin_under_the_agent_matches_jax_and_resumes_from_shm(tmp_path):
     assert sorted(losses) == list(range(1, STEPS + 1))
     np.testing.assert_allclose([losses[s] for s in range(1, STEPS + 1)],
                                want, rtol=1e-5)
+
+
+# -- the twin's records on a shared stdout ------------------------------------
+
+
+def test_twin_writes_each_record_in_one_write(monkeypatch):
+    """Every record of the twin goes through ``emit`` (no ``print``, which
+    writes the text and its newline apart on an unbuffered stream), and
+    ``emit`` hands the stream the whole line in one write."""
+    import ast
+    import importlib.util
+
+    with open(TWIN) as f:
+        tree = ast.parse(f.read())
+    prints = [node.lineno for node in ast.walk(tree)
+              if isinstance(node, ast.Call)
+              and getattr(node.func, "id", None) == "print"]
+    assert prints == []
+    spec = importlib.util.spec_from_file_location("twin_records", TWIN)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    writes = []
+
+    class Stream:
+        def write(self, text):
+            writes.append(text)
+            return len(text)
+
+        def flush(self):
+            pass
+
+    monkeypatch.setattr(sys, "stdout", Stream())
+    twin.emit({"killed_at_step": 7, "ts": 1.5})
+    assert writes == ['{"killed_at_step": 7, "ts": 1.5}\n']
+
+
+RECORD_WRITER = (
+    "import importlib.util, sys, time\n"
+    "spec = importlib.util.spec_from_file_location('twin', sys.argv[1])\n"
+    "twin = importlib.util.module_from_spec(spec)\n"
+    "spec.loader.exec_module(twin)\n"
+    "time.sleep(max(0.0, float(sys.argv[2]) - time.time()))\n"
+    "for i in range(400):\n"
+    "    twin.emit({'killed_at_step': i, 'ts': time.time(),\n"
+    "               'rank': int(sys.argv[3])})\n"
+)
+
+
+def test_twin_records_from_two_ranks_stay_whole_lines():
+    """Two processes on one unbuffered stdout pipe (as the agent's workers
+    share theirs) emit records at the same instants: every line parses."""
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=REPO)
+    read, write = os.pipe()
+    start = str(time.time() + 8.0)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RECORD_WRITER, TWIN, start, str(r)],
+        env=env, stdout=write) for r in range(2)]
+    os.close(write)
+    with os.fdopen(read) as f:
+        lines = f.read().splitlines()
+    for p in procs:
+        assert p.wait(timeout=60) == 0
+    records = [json.loads(ln) for ln in lines]
+    assert sorted((r["rank"], r["killed_at_step"]) for r in records) == [
+        (r, i) for r in range(2) for i in range(400)]
 
 
 # -- the twin under the port's own agent ---------------------------------------

@@ -160,6 +160,52 @@ def test_route_matches_jax(case):
                          & ~(expert == 1).any(-1)).any())
 
 
+# sequence-parallel routing folds: (token rows, sequence, group size) with
+# the group one sequence (it spans every chunk), two sequences, inside a
+# chunk, and 16 tokens, which straddle the chunk boundaries
+SP_ROUTE_CASES = {
+    "sequence": (2, 24, None),
+    "two_sequences": (4, 24, 48),
+    "inside_chunk": (2, 24, 6),
+    "straddle": (4, 24, 16),
+}
+
+
+@pytest.mark.parametrize("sp", [2, 4])
+@pytest.mark.parametrize("case", sorted(SP_ROUTE_CASES))
+def test_sp_route_chunks_equal_whole_sequence_routing(case, sp):
+    """The sp ranks' routing (``fold_routes`` of each chunk's choices:
+    every chunk's top-k gathered, the slots taken on whole groups, the
+    probability sums added), folded on one process: each chunk's
+    experts, slots, kept flags and gates are exactly those of routing the
+    whole batch at once, and its aux term is the reference's
+    ``_route``'s."""
+    B, S, g = SP_ROUTE_CASES[case]
+    jc, tc = _configs(route_group_size=g)
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((B, S, jc.dim)).astype(np.float32)
+    router = (rng.standard_normal((jc.dim, jc.n_experts))
+              * jc.dim ** -0.5).astype(np.float32)
+    g = tm._group_size(tc, B, S)
+    cap = tm.expert_capacity(tc, B, S)
+    whole = tm._route(torch.from_numpy(x.reshape(B * S // g, g, jc.dim)),
+                      torch.from_numpy(router), tc, cap)
+    _, _, ref_aux = jm._route(jnp.asarray(x.reshape(B * S // g, g, jc.dim)),
+                              jnp.asarray(router), jc, cap)
+    s = S // sp
+    chunks = tm.fold_routes(
+        [tm._choices(torch.from_numpy(x[:, r * s:(r + 1) * s]),
+                     torch.from_numpy(router), tc) for r in range(sp)],
+        tc, cap, g)
+    for i, name in enumerate(("expert", "slot", "kept", "gates")):
+        got = torch.cat([out[i] for out in chunks], dim=1)
+        assert torch.equal(got, whole[i].reshape(B, S, -1)), name
+    for out in chunks:
+        np.testing.assert_allclose(float(out[4]), float(ref_aux), rtol=1e-6)
+    if case == "inside_chunk":
+        assert not bool(whole[2].all())  # the case really drops choices
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_moe_ffn_matches_jax(dtype):
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
@@ -271,11 +317,24 @@ def test_remat_dots_recomputes_the_expert_products(monkeypatch):
     assert counts["bmm"] == 2 * forward_bmm
 
 
-def test_sequence_parallel_moe_config_raises():
-    _, tc = _configs(sp_attention="ring")
-    _, tparams = _params(_configs()[0])
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        tm.forward(tparams, torch.zeros((1, 4), dtype=torch.long), tc)
+@pytest.mark.parametrize("sp", [dict(sp_attention="ring"),
+                                dict(sp_attention="ulysses"),
+                                dict(use_ring_attention=True)],
+                         ids=["ring", "ulysses", "legacy"])
+def test_moe_sp_config_without_mesh_is_plain_attention(sp):
+    """With no mesh a sequence-parallel MoE config computes plain
+    attention over whole sequences, as the reference's: the loss is the
+    non-sp config's bit for bit, and JAX's."""
+    jc, tc = _configs(**sp)
+    jparams, tparams = _params(jc)
+    tokens = np.random.default_rng(4).integers(
+        0, jc.vocab_size, (2, 17)).astype(np.int32)
+    ref = jm.next_token_loss(jparams, jnp.asarray(tokens), jc)
+    got = tm.next_token_loss(tparams, torch.from_numpy(tokens), tc)
+    plain = tm.next_token_loss(tparams, torch.from_numpy(tokens),
+                               _configs()[1])
+    assert torch.equal(got, plain)
+    np.testing.assert_allclose(float(got), float(ref), atol=ATOL)
 
 
 def test_dense_llama_entry_points_refuse_a_moe_config():
@@ -746,3 +805,184 @@ def test_two_ep_ranks_hold_jax_regions_train_and_checkpoint(tmp_path):
         assert (step, medium, equal) == (5, "shm", True)
     w1 = "['params']['layers']['w1']"
     assert res[0]["needs"][w1] != res[1]["needs"][w1]
+
+
+# -- expert-local and sequence-parallel training across gloo ranks ------------
+
+# the two launches: ranks → mode and plan
+MOE_LAUNCHES = {2: ("moe_ep", {"ep": 2}), 4: ("moe_sp", {"ep": 2, "sp": 2})}
+LOSS_ATOL, GRAD_ATOL = 1e-5, 1e-4    # as tests/test_torch_parallel.py
+STEP_LOSS_RTOL, STEP_NORM_RTOL, PARAM_ATOL = 1e-5, 1e-4, 1e-5
+EXPERTS = ("w1", "w3", "w2")
+
+
+def _rank_inputs():
+    """The params and trainer batches of ``test_three_trainer_steps_match_
+    jax`` (on other draws Adam's normalisation can lift one element's f32
+    rounding past PARAM_ATOL after 3 steps, one process alone included)
+    and a batch for the loss."""
+    jc, _ = _configs(remat=True)
+    rng = np.random.default_rng(12)
+    params = jm.init_params(jc, jax.random.PRNGKey(0))
+    return dict(
+        tokens=rng.integers(0, jc.vocab_size, (2, SEQ + 1)).astype(np.int32),
+        batches=np.stack([b.reshape(GLOBAL_BATCH, SEQ + 1)
+                          for b in _batches(jc, 2, 3)]),
+        **{f"params/{k}": v for k, v in _ranks_module().flat(
+            _np_tree(params)).items()})
+
+
+@pytest.fixture(scope="module")
+def moe_ranks(tmp_path_factory):
+    """``moe_ranks(n)`` → (inputs, RESULT dicts by rank, arrays by rank)
+    of the ``n``-rank launch, run once."""
+    ranks = _ranks_module()
+    inputs = _rank_inputs()
+    done = {}
+
+    def get(n):
+        mode, plan = MOE_LAUNCHES[n]
+        if n not in done:
+            out = str(tmp_path_factory.mktemp(f"moe{n}"))
+            np.savez(os.path.join(out, f"{mode}_inputs.npz"), **inputs)
+            res = ranks.launch(n, mode, {mode: plan}, out,
+                               f"me{n}_{os.getpid()}")
+            arrays = [dict(np.load(os.path.join(out, f"{mode}{n}_{r}.npz")))
+                      for r in range(n)]
+            done[n] = ({r: v[mode] for r, v in res.items()}, arrays)
+        return (inputs, *done[n])
+
+    return get
+
+
+def _jax_loss_and_grads(inputs, n, strategy):
+    """The reference's loss and ``jax.grad`` on its CPU mesh of ``n``
+    devices (ep 2, and sp 2 for a strategy), the params sharded by their
+    logical axes."""
+    jc, _ = _configs(remat=True, sp_attention=strategy)
+    kw = dict(ep=2, sp=2) if strategy else dict(ep=2)
+    mesh = jmesh.build_mesh(jmesh.plan_mesh(n, **kw), jax.devices()[:n])
+    ranks = _ranks_module()
+    params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                          ranks.unflat(inputs, "params/"))
+    params = jsharding.shard_tree(mesh, params, jm.param_logical_axes(jc))
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: jm.next_token_loss(p, t, jc, mesh)))(
+            params, jnp.asarray(inputs["tokens"]))
+    return float(loss), ranks.flat(_np_tree(grads))
+
+
+def _ep_coord(n, rank):
+    """The ep coordinate of ``rank`` in the launch of ``n`` ranks (the
+    mesh order puts sp inside ep)."""
+    return rank // 2 if n == 4 else rank
+
+
+def _assert_ep_grads(arrays, n, prefix, ref):
+    """Each leaf's grad against ``ref``: the mean over the ranks that
+    hold the same block (the sp ranks; the trainer's reduction), the
+    expert leaves' blocks joined in ep order. The ep ranks agree on
+    every replicated leaf."""
+    names = sorted(k[len(prefix):] for k in arrays[0] if k.startswith(prefix))
+    assert names == sorted(ref)
+    for name in names:
+        blocks = []
+        for e in range(2):
+            same = [a[prefix + name] for r, a in enumerate(arrays)
+                    if _ep_coord(n, r) == e]
+            blocks.append(np.mean(same, axis=0))
+        if name.split("/")[-1] in EXPERTS:
+            got = np.concatenate(blocks, axis=1)
+        else:
+            np.testing.assert_array_equal(blocks[0], blocks[1],
+                                          err_msg=name)
+            got = blocks[0]
+        np.testing.assert_allclose(got, ref[name], atol=GRAD_ATOL,
+                                   err_msg=name)
+
+
+def test_ep_loss_and_grads_on_local_experts_match_jax(moe_ranks):
+    """ep = 2: each rank's expert products run its 2 of the 4 experts
+    alone; its loss is the whole loss, its grads the whole gradient of
+    every replicated leaf and its experts' block of the expert leaves."""
+    inputs, res, arrays = moe_ranks(2)
+    loss, grads = _jax_loss_and_grads(inputs, 2, None)
+    for r in range(2):
+        assert res[r]["bmm_ep"] == [2]
+        np.testing.assert_allclose(float(arrays[r]["loss_ep"]), loss,
+                                   atol=LOSS_ATOL)
+    _assert_ep_grads(arrays, 2, "grad_ep/", grads)
+
+
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_ep_sp_loss_and_grads_match_jax(moe_ranks, strategy):
+    """ep 2 × sp 2: each rank routes its chunk in groups that span both
+    chunks (the default group, one sequence) and runs its 2 experts; the
+    mean of the sp ranks' losses is the reference's loss, and the mean of
+    their grads its ``jax.grad``."""
+    inputs, res, arrays = moe_ranks(4)
+    loss, grads = _jax_loss_and_grads(inputs, 4, strategy)
+    for r in range(4):
+        assert res[r][f"bmm_{strategy}"] == [2]
+    for e in range(2):
+        got = np.mean([float(arrays[r][f"loss_{strategy}"])
+                       for r in range(4) if _ep_coord(4, r) == e])
+        np.testing.assert_allclose(got, loss, atol=LOSS_ATOL)
+    _assert_ep_grads(arrays, 4, f"grad_{strategy}/", grads)
+
+
+def _jax_trainer_steps(inputs):
+    """3 steps of the JAX trainer (plain loss, one device) from the same
+    params on the same batches: losses, norms, final params."""
+    jc, _ = _configs(remat=True)
+    jtr = jt.ElasticTrainer(lambda p, t: jm.next_token_loss(p, t, jc),
+                            optax.adamw(3e-4), GLOBAL_BATCH,
+                            GLOBAL_BATCH // 2)
+    jtr.configure_for_world(jmesh.plan_mesh(1))
+    ranks = _ranks_module()
+    state = jt.make_train_state(
+        jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                     ranks.unflat(inputs, "params/")), jtr._optimizer)
+    steps = []
+    for b in inputs["batches"]:
+        state, r = jtr.train_step(state, jnp.asarray(b.reshape(
+            jtr.grad_accum_steps, jtr.micro_batch_global, -1)))
+        steps.append([float(r.loss), float(r.grad_norm)])
+    return steps, ranks.flat(_np_tree(state["params"]))
+
+
+@pytest.mark.parametrize("n", [2, 4], ids=["ep2", "ep2sp2"])
+def test_ep_trainer_steps_on_local_experts_match_jax(moe_ranks, n):
+    """3 ``ElasticTrainer`` steps (accum 2) with ``local_axes=("ep",)``
+    against the JAX trainer: the loss takes each rank's 2 experts (the
+    live expert leaves and their f32 accumulators hold E/ep experts, and
+    the ledger claims those bytes), every rank reports the same steps."""
+    inputs, res, arrays = moe_ranks(n)
+    ref_steps, ref_params = _jax_trainer_steps(inputs)
+    got = np.array(res[0]["train"])
+    for r in range(n):
+        assert res[r]["train"] == res[0]["train"]
+    np.testing.assert_allclose(got[:, 0], np.array(ref_steps)[:, 0],
+                               rtol=STEP_LOSS_RTOL)
+    np.testing.assert_allclose(got[:, 1], np.array(ref_steps)[:, 1],
+                               rtol=STEP_NORM_RTOL)
+    params = {k[len("train/"):]: v for k, v in arrays[0].items()
+              if k.startswith("train/")}
+    assert sorted(params) == sorted(ref_params)
+    for name, ref in ref_params.items():
+        np.testing.assert_allclose(params[name], ref, atol=PARAM_ATOL,
+                                   err_msg=name)
+    jc, _ = _configs()
+    E, L = jc.n_experts, jc.n_layers
+    full = {k: v.shape for k, v in ref_params.items()}
+    for r in range(n):
+        live = res[r]["train_live"]
+        for name in EXPERTS:
+            assert live["layers"][name][:2] == [L, E // 2]
+        shapes = sorted(map(tuple, live["accum_shapes"]))
+        want = sorted(
+            (shape[0], E // 2) + tuple(shape[2:])
+            if name.split("/")[-1] in EXPERTS else tuple(shape)
+            for name, shape in full.items())
+        assert shapes == want
+        assert live["accum_bytes"] == 4 * sum(int(np.prod(s)) for s in want)

@@ -7,12 +7,14 @@ plain attention. Across gloo ranks (``tests/data/torch_ranks.py`` modes
 sp = 2 and 4 (both bodies), Ulysses at sp = 2 with GQA and its refusal
 at sp = 4, the sequence-parallel loss with every leaf's grad,
 ``pipeline_apply`` on the reference tests' linear stage and
-``next_token_loss_pp`` at pp = 2 and pp × dp, and 3 ``ElasticTrainer``
-steps per layout. The ranks read the same numpy inputs the JAX side gets
-(on its 8-device CPU mesh); a rank's gradients are its part of the
-gradient of the sum of the ranks' losses, so their mean (the trainer's
-reduction) is the gradient of the mean loss. f32 throughout; the port's
-flash path runs the plain version of K1-K3.
+``next_token_loss_pp`` at pp = 2 and pp × dp, on the whole stack and on
+the stage's own layers, and 3 ``ElasticTrainer`` steps per layout (for pp
+also with ``local_axes=("pp",)``, where a stage's live layers and f32
+accumulators hold its L/pp layers). The ranks read the same numpy inputs
+the JAX side gets (on its 8-device CPU mesh); a rank's gradients are its
+part of the gradient of the sum of the ranks' losses, so their mean (the
+trainer's reduction) is the gradient of the mean loss. f32 throughout;
+the port's flash path runs the plain version of K1-K3.
 """
 
 import dataclasses
@@ -37,7 +39,6 @@ from dlrover_tpu.parallel.mesh import plan_mesh as jplan  # noqa: E402
 from dlrover_tpu.trainer import elastic as je  # noqa: E402
 from dlrover_tpu_torch.convert import params_from_jax  # noqa: E402
 from dlrover_tpu_torch.models import llama as tl  # noqa: E402
-from dlrover_tpu_torch.models import moe as tm  # noqa: E402
 from dlrover_tpu_torch.parallel import pipeline as tp  # noqa: E402
 from dlrover_tpu_torch.parallel import ring_attention as tr  # noqa: E402
 from dlrover_tpu_torch.parallel import ulysses as tu  # noqa: E402
@@ -167,7 +168,6 @@ def test_sp_config_without_mesh_is_plain_attention(sp):
     reference's: the loss and every leaf's grad match JAX's."""
     jc = _jax_config(n_layers=2, use_flash_attention=False, **sp)
     tc = RANKS.parallel_config(n_layers=2, use_flash_attention=False, **sp)
-    tl.check_supported(tc)
     params = jl.init_params(jc, jax.random.PRNGKey(0))
     tokens = np.random.default_rng(1).integers(
         0, jc.vocab_size, (2, 17)).astype(np.int32)
@@ -186,15 +186,6 @@ def test_sp_config_without_mesh_is_plain_attention(sp):
     for name, g in zip(named, grads):
         np.testing.assert_allclose(g.numpy(), ref_named[name],
                                    atol=GRAD_ATOL, err_msg=name)
-
-
-def test_check_supported_refuses_only_moe_sp():
-    for kw in (dict(sp_attention="ring"), dict(sp_attention="ulysses"),
-               dict(use_ring_attention=True), {}):
-        tl.check_supported(dataclasses.replace(tl.LlamaConfig.tiny(), **kw))
-    with pytest.raises(NotImplementedError, match="sequence-parallel"):
-        tl.check_supported(dataclasses.replace(tm.MoEConfig.tiny(),
-                                               sp_attention="ring"))
 
 
 # ---------------------------------------------------------------------------
@@ -477,3 +468,66 @@ def test_pp_trainer_steps_match_jax(ranks, key):
     inp, res, arrays = ranks(key)
     _assert_steps(res, arrays, "train_pp",
                   *_jax_steps(inp, 4, GLOBAL_BATCH // 2))
+
+
+def _stage_grads(arrays, key, prefix, n_layers):
+    """The mean over ranks of the stage-local grads as whole-model grads:
+    a stage's layer grads in its rows of the stack (zeros elsewhere, as
+    no other stage touches them), the ends as they are."""
+    pp = 2
+    n_data = len(arrays) // pp
+    out = {}
+    for name in (k[len(prefix):] for k in arrays[0] if k.startswith(prefix)):
+        if not name.startswith("layers/"):
+            out[name] = np.mean([a[prefix + name] for a in arrays], axis=0)
+            continue
+        block = arrays[0][prefix + name].shape[0]
+        assert block == n_layers // pp
+        full = np.zeros((n_layers,) + arrays[0][prefix + name].shape[1:],
+                        np.float32)
+        for r, a in enumerate(arrays):
+            stage = r // n_data
+            full[stage * block:(stage + 1) * block] += a[prefix + name]
+        out[name] = full / len(arrays)
+    return out
+
+
+@pytest.mark.parametrize("key", ["pp2", "pp2dp2"])
+def test_next_token_loss_pp_on_stage_layers_matches_jax(ranks, key):
+    """Each stage given only its own L/pp layers: its grads are those
+    layers' (the whole model's, placed in the stage's rows, against
+    ``jax.grad``) and the ends'; the loss is the reference's."""
+    inp, _, arrays = ranks(key)
+    jc = _jax_config(n_layers=4, remat=False, use_flash_attention=False)
+    params = jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                          RANKS.unflat(inp, "params/"))
+    mesh = _pp_mesh(key)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: jl.next_token_loss_pp(p, t, jc, mesh)))(
+            params, jnp.asarray(inp["tokens"]))
+    np.testing.assert_allclose(np.mean([a["loss_pp_local"] for a in arrays]),
+                               float(loss), atol=LOSS_ATOL)
+    _assert_leaves(_stage_grads(arrays, key, "grad_pp_local/", 4),
+                   RANKS.flat(_np(grads)), GRAD_ATOL)
+
+
+@pytest.mark.parametrize("key", ["pp2", "pp2dp2"])
+def test_pp_trainer_steps_on_stage_layers_match_jax(ranks, key):
+    """3 steps with ``local_axes=("pp",)``: a stage gathers, computes and
+    accumulates its own 2 of the 4 layers (the live layer leaves and
+    their f32 accumulators, and the bytes the ledger claims), and the
+    steps are the JAX trainer's."""
+    inp, res, arrays = ranks(key)
+    _assert_steps(res, arrays, "train_pp_local",
+                  *_jax_steps(inp, 4, GLOBAL_BATCH // 2))
+    whole = {n: v.shape for n, v in arrays[0].items()
+             if n.startswith("train_pp_local/")}
+    want = sorted(
+        (2,) + tuple(shape[1:]) if name.startswith("train_pp_local/layers/")
+        else tuple(shape) for name, shape in whole.items())
+    for r in res:
+        live = res[r]["train_pp_local_live"]
+        assert {n: s[0] for n, s in live["layers"].items()} == dict.fromkeys(
+            live["layers"], 2)
+        assert sorted(map(tuple, live["accum_shapes"])) == want
+        assert live["accum_bytes"] == 4 * sum(int(np.prod(s)) for s in want)
