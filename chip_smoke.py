@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # from the repository root, one card
     python3 chip_smoke.py --decode   # the decode kernel (K4) alone
     python3 chip_smoke.py --fold     # the ring fold (K1-K3 at sp = 4) alone
+    python3 chip_smoke.py --tp-fold  # the tp fold (K1-K3 at tp = 4) alone
     python3 chip_smoke.py --serve    # the serving replica (phase 7) alone
     python3 chip_smoke.py --serve-elastic  # the elastic serving plane (9)
     python3 chip_smoke.py --elastic  # the agent's fault drill (phase 8)
@@ -14,7 +15,7 @@
     python3 chip_smoke.py --timer-ab # phase 6's step without and with it
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
-    python3 chip_smoke.py --parallel 4  # ring, Ulysses, GPipe, MoE ep/sp
+    python3 chip_smoke.py --parallel 4  # ring, Ulysses, GPipe, MoE, fsdp, tp
     python3 chip_smoke.py --parallel 4 --control ring_drop  # ... broken
 
 Builds the port's CUDA kernels from ``dlrover_tpu_torch/ops/csrc`` and the
@@ -49,7 +50,14 @@ phase 8 after phase 6, ``straggler`` last:
    chunk, ``_merge_partials``), held with its backward (K2 and K3 with a
    non-zero lse cotangent) against K1-K3 causal over the whole 16384 and,
    at 4 x 1024, against the plain fold, at FOLD_SP launches of each
-   kernel, and timed beside the whole sequence;
+   kernel, and timed beside the whole sequence. The tp fold: one
+   ``LlamaConfig()`` layer on 2 x 2048 tokens, forward and backward, as
+   TP_FOLD = 4 tensor-parallel pieces on one card (each the model's
+   attention on its 8 q and 2 KV heads through K1-K3 and its MLP on its
+   quarter of the columns, the partials summed in f32 as *g* sums them,
+   the cotangents of the pieces' inputs as *f* does), held against the
+   whole layer through the same kernels within TP_FOLD_REL_TOL (the
+   layer's contribution, dx less dy, every weight's grad);
 ``timer`` — the device timer (``dlrover_tpu_torch/tpu_timer``, built with
    the host C++ compiler, its hand-declared CUDA prototypes checked against
    the toolkit's headers) in a child of this script under ``LD_PRELOAD``
@@ -105,12 +113,12 @@ phase 8 after phase 6, ``straggler`` last:
    the sweep (unattributed bytes, headroom, reserved) and the ledger's
    peak beside ``torch.cuda.max_memory_allocated``.
 
-5. ``ckpt`` — Flash Checkpoint on the train phase's state (bf16 params,
-   f32 moments: 16.8 GB at 8 layers), after ``worker.init`` (NCCL, one
-   rank) and with the state as DTensors on a mesh of 1. The free bytes of
-   ``/dev/shm`` and of the storage directory come first; when the state
-   does not fit both, the phase keeps the most layers that do and says
-   so. A ``save_to_memory`` is followed at once by a ``train_step``, which
+5. ``ckpt`` — Flash Checkpoint on the train phase's state cut to its
+   first CKPT_LAYERS = 4 layers (bf16 params, f32 moments: 9.7 GB; 16.8
+   GB at 8), after ``worker.init`` (NCCL, one rank) and with the state as
+   DTensors on a mesh of 1. The free bytes of ``/dev/shm`` and of the
+   storage directory come first; when the state does not fit both, the
+   phase keeps the most layers that do and says so. A ``save_to_memory`` is followed at once by a ``train_step``, which
    writes the state in place: the snapshot must hold the values from
    before the step. Then a ``save_to_storage``, a ``load`` from shm and
    one from storage, each bitwise equal to the saved state, leaf by leaf,
@@ -123,9 +131,10 @@ phase 8 after phase 6, ``straggler`` last:
    processes: ``LlamaConfig()`` widths, 2 layers, global batch 8,
    sequence 2048, memory saves every step, storage every 5. Two unkilled
    runs of 10 steps must agree bitwise; a third SIGKILLs itself once step
-   7's memory frame is sealed, and a fourth must resume from shm at step
-   7 (not from storage's step 5) and give the unkilled run's losses for
-   steps 8-10.
+   7's memory frame is sealed (beside the second unkilled run, on the
+   same card: the step times and gaps come from the first run and the
+   resumed one), and a fourth must resume from shm at step 7 (not from
+   storage's step 5) and give the unkilled run's losses for steps 8-10.
 8. ``elastic`` — the port's ``dlrover-run`` (``python -m
    dlrover_tpu_torch.agent.run --standalone --nproc-per-node=1
    --max-restarts=3 --save-at-breakpoint``, its master in the agent
@@ -178,10 +187,11 @@ phase 8 after phase 6, ``straggler`` last:
    trace of the saver's ``ckpt.persist`` in them (the context rode the
    SAVE event over the agent's queue).
 7. ``serve`` — the serving replica behind the port's master servicer and
-   router: replica A in this process (``DecodeReplica`` around phase 2's
-   weights: int8 cache, 8 slots, 4096 cache slots, buckets 512/1024/2048,
-   prefix cache with a 2 GiB budget) and replica B, a subprocess through
-   ``python -m dlrover_tpu_torch.serving.replica --config llama`` with
+   router: replica A in this process (``DecodeReplica`` around the first
+   SERVE_LAYERS = 16 layers of phase 2's weights: int8 cache, 8 slots,
+   4096 cache slots, buckets 512/1024/2048, prefix cache with a 2 GiB
+   budget) and replica B, a subprocess through ``python -m
+   dlrover_tpu_torch.serving.replica --config llama --n-layers 16`` with
    seed + 1, which warm-starts from A over the fabric. 32 requests from 4
    clients through the router: 8 shared 512-token system prompts, seeded
    suffixes of 16-1024 tokens and 16-48 new tokens, every prompt sent
@@ -220,10 +230,12 @@ phase 8 after phase 6, ``straggler`` last:
    ``LocalReplicaManager``, replicas as subprocesses through
    ``python -m dlrover_tpu_torch.serving.replica --config llama``. (a)
    ``run_serving_drill``: two ``LlamaConfig()`` replicas at full width and
-   depth (one seed, int8 cache, 8 slots, cache_len 2048, buckets
-   256/512/1024), 48 requests from 8 clients (prompts 64/200/500/1000, 32
-   new tokens), the ``serve.replica`` chaos site deciding a SIGKILL once a
-   third have completed; the replacement is spawned with another seed, so
+   SERVE_KILL_LAYERS = 8 layers (one seed, int8 cache, 8 slots,
+   cache_len 2048, buckets 256/512/1024), 48 requests from 8 clients
+   (prompts 64/200/500/1000, 32 new tokens), a SIGKILL of a replica with
+   requests in flight once a third have completed (the ``serve.replica``
+   chaos site's fault reported after it); the replacement is spawned
+   with another seed, so
    only the survivor's weights give it the survivor's tokens. Held: no request lost or failed, all completed;
    the kill detected, at least one re-route, the fleet restored by the
    autoscaler; the journal's ``fault_injected``, ``serve_replica_lost``
@@ -328,9 +340,16 @@ across 4 cards (ring and Ulysses at sp 4 on 1 x 32768 tokens, GPipe at
 pp 4 on 16 x 2048 with each stage on its own layers, ``LlamaConfig()``
 widths; the MoE at ``MoEConfig()`` widths and 2 layers at ep 4 on 8 x
 2048, each card on its own 2 experts, and at ep 2 x sp 2 with the ring
-on 1 x 16384, its routing groups spanning both chunks; 3
-``ElasticTrainer`` steps each, NCCL) against one card's run of the same
-steps: each rank's K1-K3 launches at its layout's formula, the ranks at
+on 1 x 16384, its routing groups spanning both chunks; the train
+phase's step, 8 layers on 8 x 2048 as 2 micro batches of 4, at fsdp 4,
+tp 4 and fsdp 2 x tp 2, and the MoE's at ep 2 x fsdp 2, each card
+computing on its own blocks: ``local_axes`` holds fsdp and tp, each
+layer gathers its fsdp blocks in its forward and its recompute, and K1-K3
+run on the card's H/tp heads; the MoE's at ep 2 x tp 2, each card on its
+halves of its 4 experts' FFN; 3 ``ElasticTrainer`` steps each, NCCL)
+against one card's run of the same steps (layouts of the same model and
+batch share one): each rank's K1-K3 launches at its layout's formula,
+the ranks at
 one loss and grad norm, each step's loss and grad norm and every leaf's
 step-1 grad norm within the PARALLEL_* limits (MOE_PARALLEL_* with the
 share of step 1's routing decisions that flipped for the MoE layouts);
@@ -338,7 +357,8 @@ it prints step time, tokens/s and peak memory a card beside one
 card's; no result line. ``--parallel 4 --control NAME`` breaks one
 layout's communication (PARALLEL_CONTROLS) and exits 0 only when that
 layout's readings failed and its launches held. ``--fold`` runs the ring
-fold alone. Any
+fold alone, ``--tp-fold`` the tp fold and its control (a fold that drops
+one piece, which must exceed TP_FOLD_REL_TOL). Any
 mismatch, refused launch or fault exits non-zero. Without CUDA the script
 exits non-zero and prints no result.
 
@@ -367,8 +387,13 @@ from dlrover_tpu_torch import worker
 from dlrover_tpu_torch.models import decode, llama, moe
 from dlrover_tpu_torch.ops import _build
 from dlrover_tpu_torch.ops import flash_attention as fa
-from dlrover_tpu_torch.parallel import pipeline, ring_attention, ulysses
-from dlrover_tpu_torch.parallel.mesh import build_mesh, plan_mesh
+from dlrover_tpu_torch.parallel import (
+    collectives,
+    pipeline,
+    ring_attention,
+    ulysses,
+)
+from dlrover_tpu_torch.parallel.mesh import build_mesh, plan_coords, plan_mesh
 from dlrover_tpu_torch.parallel.sharding import (
     dtensor_spec,
     mesh_coords,
@@ -496,12 +521,16 @@ def time_ms(fn, iters, device, queue_ahead=True):
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_profile(fn, iters, device, top=5, match=None):
+def device_profile(fn, iters, device, top=5, match=None, check_reader=False):
     """``fn`` run ``iters`` times under ``torch.profiler`` (device activity
     only, so the host pays little for the tracing): wall time and device
     kernel time per call, the device's idle share, the ``top`` kernels
     that took most of it and, with ``match``, the device time per call of
-    the kernels whose name contains it."""
+    the kernels whose name contains it. With ``check_reader`` the same
+    trace is also read through ``key_averages()`` (its busy time and top
+    kernels, under ``key_averages``): the profiler's own sums, beside
+    which the trace reader's are printed (the MoE phase's profiles; over
+    a long trace it takes minutes)."""
     from torch.profiler import ProfilerActivity, profile
 
     act = (ProfilerActivity.CUDA if device.type == "cuda"
@@ -513,19 +542,33 @@ def device_profile(fn, iters, device, top=5, match=None):
             fn()
         _sync(device)
         wall_s = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    # the device's events straight from the trace, summed by name (what
+    # key_averages() gives as their self device time, without building
+    # its event tree: over a serving pass that took minutes of host time)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+    busy_s = sum(by_name.values()) / 1e9
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     out = dict(
         steps=iters, wall_ms=wall_s * 1e3 / iters,
         device_busy_ms=busy_s * 1e3 / iters, idle_share=1 - busy_s / wall_s,
-        top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3 / iters]
-                        for e in ranked],
+        top_kernels_ms=[[name[:80], ns / 1e6 / iters]
+                        for name, ns in ranked],
     )
     if match is not None:
-        out[f"{match}_ms"] = sum(e.self_device_time_total for e in kernels
-                                 if match in e.key) / 1e3 / iters
+        out[f"{match}_ms"] = sum(ns for name, ns in by_name.items()
+                                 if match in name) / 1e6 / iters
+    if check_reader:
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        out["key_averages"] = dict(
+            device_busy_ms=sum(e.self_device_time_total for e in kernels)
+            / 1e3 / iters,
+            top_kernels_ms=[[e.key[:80], e.self_device_time_total / 1e3
+                             / iters] for e in kernels[:top]])
     return out
 
 
@@ -1001,8 +1044,145 @@ def ring_fold_rows(gen, device, shape, plain_seq):
                 seconds=time.perf_counter() - t0)
 
 
+# the tp fold: one LlamaConfig() layer as TP_FOLD tensor-parallel pieces
+TP_FOLD = 4
+TP_FOLD_ROWS, TP_FOLD_SEQ = 2, 2048
+# ||fold - whole|| / ||whole|| of the layer's contribution (its output
+# less its input), of dx less dy and of every weight's grad. The pieces
+# round their partial products to bf16 before the f32 sum, where the
+# whole layer rounds each product once. On an H100 (700 W) the sound fold
+# read at most 0.0077 (the attention norm's grad), and a fold that drops
+# one piece (TP_FOLD_CONTROLS) read 0.50 to 0.58 on every one of these;
+# the limit sits between (PERF.md §6)
+TP_FOLD_REL_TOL = 0.05
+TP_FOLD_CONTROLS = ("drop_piece",)
+
+
+class _FoldF(torch.autograd.Function):
+    """*f* of the fold: ``n`` copies of ``x``, their cotangents summed in
+    f32 (what ``collectives.to_region``'s all-reduce does)."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.clone() for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return sum(g.float() for g in grads).to(grads[0].dtype), None
+
+
+class _FoldG(torch.autograd.Function):
+    """*g* of the fold: the pieces' partials summed in f32 and cast back
+    (``collectives.from_region``), the cotangent to each as it is."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.n = len(parts)
+        return sum(p.float() for p in parts).to(parts[0].dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(g for _ in range(ctx.n))
+
+
+def _tp_fold_layer(x, layer, c, positions, n, drop=None):
+    """One layer computed as ``n`` tp pieces on one card: each piece the
+    model's own attention and MLP on its slices of the weights
+    (``llama.tp_slices``: its q heads and the KV heads they read, its
+    MLP columns and rows), entered through *f* and left through *g* as
+    on ``n`` cards. ``drop`` (a control) leaves one piece out of each
+    sum."""
+    def pieces(h, block):
+        parts = []
+        for t, ht in enumerate(_FoldF.apply(h, n)):
+            sl = llama.tp_slices(c, n, t)
+            w = {k: (layer[k].narrow(*sl[k]) if k in sl else layer[k])
+                 for k in layer}
+            if t != drop:
+                parts.append(block(ht, w))
+        return _FoldG.apply(*parts)
+
+    x = x + pieces(llama.rms_norm(x, layer["attn_norm"], c.norm_eps),
+                   lambda h, w: llama.attention(h, w, c, positions))
+    return x + pieces(llama.rms_norm(x, layer["ffn_norm"], c.norm_eps),
+                      lambda h, w: llama.mlp(h, w, c))
+
+
+def tp_fold_rows(gen, device, config, control=None):
+    """One ``config`` layer (K1-K3 on the flash path) on TP_FOLD_ROWS x
+    TP_FOLD_SEQ tokens, forward and backward, as TP_FOLD tp pieces
+    (:func:`_tp_fold_layer`: each piece K1-K3 on its H/TP_FOLD q and
+    KV/TP_FOLD KV heads) against the whole layer through the same
+    kernels: the layer's contribution, dx less dy and every weight's
+    grad within TP_FOLD_REL_TOL, K1-K3 launched TP_FOLD + 1 times each.
+    ``control`` "drop_piece" leaves the last piece out; the row then
+    reports its readings and raises nothing."""
+    t0 = time.perf_counter()
+    c = dataclasses.replace(config, n_layers=1, use_flash_attention=True)
+    layer = llama.layer_params(llama.init_params(c, gen, device), 0)
+    x = torch.randn((TP_FOLD_ROWS, TP_FOLD_SEQ, c.dim), generator=gen,
+                    device=device).to(c.dtype)
+    dy = torch.randn(x.shape, generator=gen, device=device).to(c.dtype)
+    positions = torch.arange(TP_FOLD_SEQ, device=device)[None, :].expand(
+        TP_FOLD_ROWS, TP_FOLD_SEQ)
+    names = sorted(layer)
+    drop = TP_FOLD - 1 if control == "drop_piece" else None
+    if control not in (None, *TP_FOLD_CONTROLS):
+        raise ValueError(f"unknown tp fold control {control!r}")
+
+    def run(fold):
+        xs = x.detach().requires_grad_()
+        ws = {k: layer[k].detach().requires_grad_() for k in names}
+        y = (_tp_fold_layer(xs, ws, c, positions, TP_FOLD, drop) if fold
+             else llama._layer(xs, ws, c, positions))
+        grads = torch.autograd.grad(y, [xs, *(ws[k] for k in names)], dy)
+        return y.detach(), grads
+
+    fa.reset_launch_counts()
+    y_f, g_f = run(True)
+    y_w, g_w = run(False)
+    launches = _launches()
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    k = TP_FOLD + (0 if drop is None else -1) + 1
+    want.update(flash_fwd=k, flash_bwd_dq=k, flash_bwd_dkv=k)
+
+    def rel(a, b):
+        return float(torch.linalg.vector_norm(a.float() - b.float())
+                     / torch.linalg.vector_norm(b.float()))
+
+    readings = {"out": rel(y_f - x, y_w - x), "dx": rel(g_f[0] - dy,
+                                                        g_w[0] - dy)}
+    for name, gf, gw in zip(names, g_f[1:], g_w[1:]):
+        readings[f"d{name}"] = rel(gf, gw)
+    worst = max(readings, key=readings.get)
+    row = dict(
+        shape=f"1 layer, B{TP_FOLD_ROWS} S{TP_FOLD_SEQ}, dim {c.dim}, "
+              f"{c.n_heads} q / {c.n_kv_heads} KV heads as {TP_FOLD} "
+              f"pieces of {c.n_heads // TP_FOLD} / "
+              f"{max(1, c.n_kv_heads // TP_FOLD)}",
+        control=control, rel=readings, worst=worst,
+        worst_rel=readings[worst], limit=TP_FOLD_REL_TOL,
+        share_of_limit=readings[worst] / TP_FOLD_REL_TOL,
+        launches=launches)
+    if control is None:
+        row["fold_ms"] = time_ms(lambda: run(True), 3, device,
+                                 queue_ahead=False)
+        row["whole_ms"] = time_ms(lambda: run(False), 3, device,
+                                  queue_ahead=False)
+    row["seconds"] = time.perf_counter() - t0
+    if control is None:
+        if launches != want:
+            raise AssertionError(f"tp fold: launches {launches}, expected "
+                                 f"{want}")
+        if not readings[worst] <= TP_FOLD_REL_TOL:
+            raise AssertionError(f"tp fold: {worst} {readings[worst]:.4g} "
+                                 f"> {TP_FOLD_REL_TOL}: {row}")
+    return row
+
+
 def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
-                 fwd_timed=(), fold_shape=None, fold_plain_seq=4096):
+                 fwd_timed=(), fold_shape=None, fold_plain_seq=4096,
+                 tp_fold_config=None):
     """Hold every kernel against its plain version; returns the JSON rows
     of the kernel table (without launches). K1 is timed at ``fwd_shape``
     and at each causal ``(B, H, S)`` of ``fwd_timed`` (same head_dim)."""
@@ -1064,6 +1244,8 @@ def kernel_phase(device, fwd_shape, bwd_shape, decode_shape, iters=10,
     if fold_shape is not None:
         cases["ring_fold"] = ring_fold_rows(gen, device, fold_shape,
                                             fold_plain_seq)
+    if tp_fold_config is not None:
+        cases["tp_fold"] = tp_fold_rows(gen, device, tp_fold_config)
     emit({"phase": "kernels", **cases})
     return cases
 
@@ -2042,6 +2224,21 @@ def _serve_traffic(router, reqs, clients):
         return list(pool.map(one, range(len(reqs))))
 
 
+# phase 7 serves the first 16 of LlamaConfig()'s 32 layers of phases 1-3's
+# weights (full width): replica B warm-starts a 6.2 GB blob from A, not
+# 11.9 GB (0.2-0.3 GB/s through the fabric), and every decode step runs
+# half the layers
+SERVE_LAYERS = 16
+
+
+def serve_layers(params, config, n_layers=SERVE_LAYERS):
+    """``params`` and ``config`` cut to their first ``n_layers`` layers
+    (views of the stacked weights, no copy)."""
+    return ({**params, "layers": {k: v[:n_layers]
+                                  for k, v in params["layers"].items()}},
+            dataclasses.replace(config, n_layers=n_layers))
+
+
 def serve_phase(params, config, device, config_flag="llama", slots=8,
                 cache_len=4096, buckets=(512, 1024, 2048), max_new_cap=64,
                 n_prefixes=8, prefix_len=512, suffix_range=(16, 1024),
@@ -2071,6 +2268,7 @@ def serve_phase(params, config, device, config_flag="llama", slots=8,
     server, servicer = start_master()
     addr = f"127.0.0.1:{server.port}"
     flags = ["--backend", "torch", "--config", config_flag,
+             "--n-layers", str(L),
              "--device", str(device), "--slots", str(slots),
              "--cache-len", str(cache_len),
              "--buckets", ",".join(str(b) for b in buckets),
@@ -2496,12 +2694,24 @@ def _bundle_digest(bundle):
                 incidents=bundle["incidents"])
 
 
-def serve_elastic_phase(config, device, config_flag="llama"):
-    """(a) the kill drill: two ``LlamaConfig()`` replicas as subprocesses
-    (same seed, int8 cache, 8 slots, cache_len 2048, buckets
-    256/512/1024), 48 requests from 8 clients (prompts 64/200/500/1000,
-    32 new tokens), the ``serve.replica`` site deciding a SIGKILL once a
-    third have completed, the replacement spawned with another seed; (b) the burst drill: 1 replica, at most 2, under
+# phase 9's kill drill at 8 of LlamaConfig()'s 32 layers, at full width:
+# its replacement warm-starts a 3.4 GB blob from the survivor, not 11.9
+# GB (0.2-0.3 GB/s through the fabric), and its 48 requests decode 4x
+# fewer layers; the burst drill keeps the whole depth, whose queue its
+# grow and its SLO alert need
+SERVE_KILL_LAYERS = 8
+
+
+def serve_elastic_phase(config, device, config_flag="llama",
+                        kill_layers=SERVE_KILL_LAYERS):
+    """(a) the kill drill: two ``LlamaConfig()`` replicas at
+    ``kill_layers`` layers as subprocesses (same seed, int8 cache, 8
+    slots, cache_len 2048, buckets 256/512/1024), 48 requests from 8
+    clients (prompts 64/200/500/1000, 32 new tokens), a SIGKILL of a
+    replica with requests in flight once a third have completed (the
+    ``serve.replica`` site's fault reported after it), the replacement
+    spawned with another seed; (b) the burst drill: 1 replica, at most 2,
+    under
     the reference's bursty ramp scaled to full-width prompts. Returns the
     K4 launches the replicas counted. ``config_flag`` is the replicas'
     ``--config`` (``tiny`` with a tiny ``config`` rehearses it on the
@@ -2519,7 +2729,8 @@ def serve_elastic_phase(config, device, config_flag="llama"):
     common = dict(LLAMA_DRILL, config=config_flag, device=str(device),
                   seed=SEED)
     t0 = time.perf_counter()
-    res = run_serving_drill(replicas=2, **LLAMA_KILL_TRAFFIC, **common)
+    res = run_serving_drill(replicas=2, n_layers=kill_layers,
+                            **LLAMA_KILL_TRAFFIC, **common)
     seconds = time.perf_counter() - t0
     journal = res["journal"]
     warm = res["warm_start"] or {}
@@ -2551,13 +2762,13 @@ def serve_elastic_phase(config, device, config_flag="llama"):
         start_order=res["start_order"],
         replica_scrapes=res["replica_scrapes"],
         node_fault_bundle=_bundle_digest(res["node_fault_bundle"]))
-    kill_rows, bad = _decode_launches(res["replica_gauges"],
-                                      config.n_layers)
+    kill_rows, bad = _decode_launches(res["replica_gauges"], kill_layers)
     row["replicas"] = kill_rows
+    row["n_layers"] = kill_layers
     emit(row)
     problems = []
     if bad:
-        problems.append(f"K4 launches not {config.n_layers} a step on "
+        problems.append(f"K4 launches not {kill_layers} a step on "
                         f"replicas {bad}")
     if (res["lost"] or res["failed_responses"]
             or res["completed"] != res["requests"]):
@@ -2576,7 +2787,7 @@ def serve_elastic_phase(config, device, config_flag="llama"):
                         f"{res['blob_bytes']} bytes")
     if not row["probe_agrees"]:
         problems.append(f"probe tokens {probe}")
-    problems += _scrape_problems(res["replica_scrapes"], config.n_layers)
+    problems += _scrape_problems(res["replica_scrapes"], kill_layers)
     bundle = res["node_fault_bundle"]
     if (bundle is None or bundle["manifest"].get("node_id") != victim
             or not bundle["victim_lost"]):
@@ -3156,7 +3367,7 @@ def moe_generate(params, c, device, tag, batch, prompt_len, new, quantize,
         step()
     _sync(device)
     decode_step_ms = (time.perf_counter() - t0) * 1e3 / 8
-    profile = device_profile(step, 4, device, top=8)
+    profile = device_profile(step, 4, device, top=8, check_reader=True)
     del cache, state
     os.environ["DLROVER_TPU_FLASH_DECODE"] = "0"
     try:
@@ -3262,7 +3473,7 @@ def moe_train(c, device, global_batch, micro_batch, seq, steps, lr):
         nonlocal state
         state, _ = trainer.train_step(state, batches[0])
 
-    profile = device_profile(one_step, 1, device, top=12)
+    profile = device_profile(one_step, 1, device, top=12, check_reader=True)
     tokens = global_batch * seq
     step_mean = float(np.mean(step_s[1:])) if steps > 1 else step_s[0]
     flops = (6 * _matmul_params(c) * tokens
@@ -3435,6 +3646,11 @@ def _first_layers(state, n_layers):
     return cut(state)
 
 
+# phase 5 runs on the train phase's first 4 layers: its copies, drains,
+# storage writes and restores scale with the state (9.7 GB, not 16.8)
+CKPT_LAYERS = 4
+
+
 def ckpt_phase(trained, device, ckpt_root):
     """Flash Checkpoint on the train phase's state (see the module
     docstring, phase 5). Returns the launches of its two train steps."""
@@ -3456,7 +3672,7 @@ def ckpt_phase(trained, device, ckpt_root):
                     if "['layers']" in name) // c.n_layers
     fixed = full_bytes - per_layer * c.n_layers
     room = min(shm_free, disk_free) * 0.9
-    layers = c.n_layers
+    layers = min(c.n_layers, CKPT_LAYERS)
     while layers > 1 and fixed + per_layer * layers > room:
         layers -= 1
     if layers != c.n_layers:
@@ -3467,7 +3683,8 @@ def ckpt_phase(trained, device, ckpt_root):
     emit({"phase": "ckpt_space", "dev_shm_free_bytes": shm_free,
           "storage_free_bytes": disk_free, "storage_dir": ckpt_root,
           "state_bytes_8_layers": full_bytes, "layers": layers,
-          "cut": layers != trained["config"].n_layers})
+          "cut_for_space": layers < min(trained["config"].n_layers,
+                                        CKPT_LAYERS)})
     # the state as DTensors on a mesh of 1 (same storage, no copy)
     mesh = build_mesh(plan_mesh(1), device.type)
     axes = llama.param_logical_axes(c)
@@ -4413,7 +4630,9 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
     """The kill drill (see the module docstring, phase 6). Returns the
     launches of the children's runs and the reference phase 8 holds its
     run against: the unkilled losses, their spread and the longest gap
-    between two step reports of any run."""
+    between two step reports of any run that was not killed."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dlrover_tpu_torch.ckpt.shm_handler import shm_name
     from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
 
@@ -4439,19 +4658,26 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
         shutil.rmtree(os.path.join(ckpt_root, name), ignore_errors=True)
 
     tag = os.getpid()
-    results, counts = {}, []
-    for name in ("unkilled_a", "unkilled_b"):
-        _, _, results[name] = run(name, f"resume_{name}_{tag}")
+
+    def unkilled(name):
+        _, _, res = run(name, f"resume_{name}_{tag}")
         drop(name, f"resume_{name}_{tag}")
-        counts.append(results[name]["launches"])
-    a, b = results["unkilled_a"]["losses"], results["unkilled_b"]["losses"]
-    if sorted(a) != list(range(1, steps + 1)) or sorted(b) != sorted(a):
-        raise AssertionError(f"resume: unkilled runs took steps {sorted(a)}"
-                             f" and {sorted(b)}")
-    spread = max(abs(a[s] - b[s]) / abs(a[s]) for s in a)
+        return res
+
+    # the first unkilled run alone gives the step times; the second runs
+    # beside the drill's first run on the same card (its losses and step
+    # gaps are read), which saves one run's time
+    results = {"unkilled_a": unkilled("unkilled_a")}
     job = f"resume_drill_{tag}"
     try:
-        rc, out, killed = run("drill", job, kill=kill_at)
+        with ThreadPoolExecutor(1) as pool:
+            second = pool.submit(unkilled, "unkilled_b")
+            rc, out, killed = run("drill", job, kill=kill_at)
+            results["unkilled_b"] = second.result()
+        a, b = (results[n]["losses"] for n in ("unkilled_a", "unkilled_b"))
+        if sorted(a) != list(range(1, steps + 1)) or sorted(b) != sorted(a):
+            raise AssertionError(f"resume: unkilled runs took steps "
+                                 f"{sorted(a)} and {sorted(b)}")
         if rc != -signal.SIGKILL or killed is not None:
             raise AssertionError(
                 f"resume: the drill's first run ended {rc}, not by SIGKILL "
@@ -4459,6 +4685,8 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
         _, _, resumed = run("drill", job)
     finally:
         drop("drill", job)
+    counts = [results[n]["launches"] for n in ("unkilled_a", "unkilled_b")]
+    spread = max(abs(a[s] - b[s]) / abs(a[s]) for s in a)
     counts.append(resumed["launches"])
     got = resumed["losses"]
     tail = list(range(kill_at + 1, steps + 1))
@@ -4467,9 +4695,12 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
     ok = (resumed["start_step"] == kill_at
           and resumed["restored_from"] == "shm"
           and sorted(got) == tail and worst <= spread)
-    max_gap = max(max(_step_gaps(r))
-                  for r in (*results.values(), resumed))
-    step_s = _median_step_s((r["step_s"] for r in results.values()),
+    # every run's longest gap: unkilled_b's ran beside the drill's first
+    # run, so it is if anything longer than one run alone would take
+    run_gaps = {n: max(_step_gaps(r))
+                for n, r in (*results.items(), ("resumed", resumed))}
+    max_gap = max(run_gaps.values())
+    step_s = _median_step_s([results["unkilled_a"]["step_s"]],
                             storage_every)
     emit(dict(
         phase="resume", config=dict(dim=config.dim, n_layers=config.n_layers,
@@ -4484,8 +4715,8 @@ def resume_phase(config, device, ckpt_root, global_batch, seq, steps,
         resumed_max_rel_diff=worst,
         run_seconds={k: v["seconds"] for k, v in results.items()},
         resumed_run_seconds=resumed["seconds"],
-        max_step_gap_s=max_gap, median_step_s=step_s,
-        launches_per_run=counts))
+        max_step_gap_s=max_gap, run_max_step_gap_s=run_gaps,
+        median_step_s=step_s, launches_per_run=counts))
     if not ok:
         raise AssertionError(
             f"resume: resumed at {resumed['start_step']} from "
@@ -4951,21 +5182,51 @@ PARALLEL_LAYOUTS = {
     # the whole sequence, so capacity is claimed across both sp ranks
     "moe_sp": dict(model="moe", axes=dict(ep=2, sp=2), layers=2,
                    sp_attention="ring", global_batch=1, seq=16384),
+    # the train phase's step (8 x 2048 as 2 micro batches of 4) at fsdp 4:
+    # one row a card a micro step; each card holds, accumulates and
+    # updates a quarter of every matrix and gathers one layer's blocks
+    # at a time, in its forward and again in its recompute
+    "fsdp": dict(axes=dict(fsdp=4), layers=8, sp_attention=None,
+                 global_batch=8, micro_batch=4, seq=2048),
+    # the same step at tp 4: every card runs all rows on its 8 q and 2 KV
+    # heads (K1-K3 on those), its quarter of the MLP columns and of the
+    # vocab
+    "tp": dict(axes=dict(tp=4), layers=8, sp_attention=None,
+               global_batch=8, micro_batch=4, seq=2048),
+    # fsdp 2 x tp 2: two rows a card a micro step on 16 q and 4 KV heads
+    "fsdp_tp": dict(axes=dict(fsdp=2, tp=2), layers=8, sp_attention=None,
+                    global_batch=8, micro_batch=4, seq=2048),
+    # the moe phase's train step at ep 2 x fsdp 2: two rows a card a micro
+    # step, each card's 4 experts with their embed dim gathered a layer at
+    # a time
+    "moe_fsdp": dict(model="moe", axes=dict(ep=2, fsdp=2), layers=2,
+                     sp_attention=None, global_batch=8, micro_batch=4,
+                     seq=2048),
+    # the same step at ep 2 x tp 2: all rows on every card, 16 q and 4 KV
+    # heads, 4 experts' halves of the FFN columns
+    "moe_tp": dict(model="moe", axes=dict(ep=2, tp=2), layers=2,
+                   sp_attention=None, global_batch=8, micro_batch=4,
+                   seq=2048),
 }
 PARALLEL_STEPS = 3
 # one control a layout, each breaking its communication (and not the
 # launches): the ring's hops deliver nothing (each rank attends its own
 # chunk in place of every earlier one); Ulysses swaps the first two
 # sequence chunks it gathers; each pipeline hop delivers the tick
-# before's output; from_ep keeps the rank's partial combine (its experts'
-# share of every token's output); each sp rank routes its chunk as its
-# own groups
+# before's output; the MoE FFN's from_region keeps the rank's partial
+# combine (its experts' share of every token's output); each sp rank
+# routes its chunk as its own groups; the fsdp gather returns the rank's
+# own block in every slot; the tp region's g keeps the rank's partial
+# (its heads', columns' or vocab rows' share)
 PARALLEL_CONTROLS = {"ring_drop": "ring", "ulysses_swap": "ulysses",
                      "gpipe_stale": "gpipe", "moe_ep_partial": "moe_ep",
-                     "moe_sp_local_groups": "moe_sp"}
+                     "moe_sp_local_groups": "moe_sp",
+                     "fsdp_own_shard": "fsdp", "tp_no_reduce": "tp"}
 # the checks besides the readings a control may fail: with partial
 # combines the ranks hold different outputs, and so different losses
 PARALLEL_CONTROL_ALSO_FAILS = {"moe_ep_partial": ("ranks_agree",)}
+# the axes along which the layouts' trainers keep each rank's block
+PARALLEL_LOCAL_AXES = ("pp", "ep", "fsdp", "tp")
 # The layouts against one card's run of the same steps (same params, same
 # batches; plain attention over the whole sequence there), relative
 # differences: each step's loss, each step's grad norm, and every leaf's
@@ -5055,7 +5316,7 @@ def _parallel_control(name):
             return out
         patch(pipeline, "shift", stale)
     elif name == "moe_ep_partial":
-        patch(moe, "from_ep", lambda x, group: x.clone())
+        patch(moe, "from_region", lambda x, group: x.clone())
     elif name == "moe_sp_local_groups":
         route = moe._route
 
@@ -5063,6 +5324,13 @@ def _parallel_control(name):
             # the chunk of each row its own group, at the same capacity
             return route(x, router, c, capacity)
         patch(moe, "_route_sp", local_groups)
+    elif name == "fsdp_own_shard":
+        def own_block(x, group, dim):
+            n = torch.distributed.get_world_size(group)
+            return torch.cat([x.detach()] * n, dim)
+        patch(collectives, "_all_gather", own_block)
+    elif name == "tp_no_reduce":
+        patch(llama, "from_region", lambda x, group: x.clone())
     elif name is not None:
         raise ValueError(f"unknown control {name!r}; expected one of "
                          f"{sorted(PARALLEL_CONTROLS)}")
@@ -5138,15 +5406,13 @@ def parallel_child(args) -> int:
             mesh = build_mesh(plan, device.type)
             params = shard_tree(mesh, params, family.param_logical_axes(c))
         local_axes = ()
-        if mesh is not None and "pp" in spec["axes"]:
-            local_axes = ("pp",)
-
+        if mesh is not None:
+            local_axes = tuple(a for a in PARALLEL_LOCAL_AXES
+                               if spec["axes"].get(a, 1) > 1)
+        if "pp" in local_axes:
             def loss_fn(p, t, c=c, mesh=mesh):
                 return llama.next_token_loss_pp(p, t, c, mesh)
         else:
-            if mesh is not None and is_moe:
-                local_axes = ("ep",)
-
             def loss_fn(p, t, c=c, mesh=mesh, family=family):
                 return family.next_token_loss(p, t, c, mesh)
         opt = adamw(3e-4)
@@ -5253,21 +5519,43 @@ def _rel(x, y):
     return abs(x - y) / abs(y)
 
 
-def _parallel_flips_between(one_dir, spread_dir, name, spec, ranks):
+def _parallel_flips_between(one_path, spread_dir, name, spec, ranks):
     """(decisions that differ, decisions) between one card's step-1
-    routing of a MoE layout and the ranks': the ranks at ep coordinate 0
-    hold the sp chunks in order (the mesh puts sp inside ep)."""
-    one = torch.load(os.path.join(one_dir, f"{name}_0.pt"))
-    chunks = [torch.load(os.path.join(spread_dir, f"{name}_{r}.pt"))
-              for r in range(spec["axes"].get("sp", 1))]
-    if any(len(c) != len(one) for c in chunks):
-        raise AssertionError(f"parallel {name}: {len(one)} routing calls "
-                             f"on one card, {[len(c) for c in chunks]} on "
-                             f"{ranks}")
-    joined = [tuple(torch.cat([c[i][j] for c in chunks], dim=1)
+    routing of a MoE layout (``one_path``) and the ranks': the ranks at
+    ep and tp coordinate 0 hold the rows (along fsdp) and the sp chunks
+    of one card's batch, joined in their mesh order."""
+    one = torch.load(one_path)
+    plan = plan_mesh(ranks, **spec["axes"])
+    coords = {r: plan_coords(plan, r) for r in range(ranks)}
+    holders = sorted((c["fsdp"], c["sp"], r) for r, c in coords.items()
+                     if c["ep"] == c["tp"] == 0)
+    parts = {}
+    for f, _, r in holders:
+        parts.setdefault(f, []).append(
+            torch.load(os.path.join(spread_dir, f"{name}_{r}.pt")))
+    if any(len(c) != len(one) for row in parts.values() for c in row):
+        raise AssertionError(
+            f"parallel {name}: {len(one)} routing calls on one card, "
+            f"{[len(c) for row in parts.values() for c in row]} on {ranks}")
+    joined = [tuple(torch.cat([torch.cat([c[i][j] for c in row], dim=1)
+                               for _, row in sorted(parts.items())], dim=0)
                     for j in range(2)) for i in range(len(one))]
     return route_flips(joined, [tuple(t.reshape(j[0].shape) for t in call)
                                 for call, j in zip(one, joined)])
+
+
+def _one_card_runs(layouts, shrink):
+    """``layout -> the layout whose one-card run it shares``: one card's
+    steps depend on the model, its depth and the batch, not on the axes
+    nor on the sp strategy (one card attends over the whole sequence)."""
+    first, out = {}, {}
+    for name in layouts:
+        spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
+        key = json.dumps({k: v for k, v in spec.items()
+                          if k not in ("axes", "sp_attention")},
+                         sort_keys=True)
+        out[name] = first.setdefault(key, name)
+    return out
 
 
 def parallel_phase(ranks, control=None, device="cuda", shrink=None):
@@ -5294,7 +5582,9 @@ def parallel_phase(ranks, control=None, device="cuda", shrink=None):
                                for d in ("one", "spread"))
         os.makedirs(one_dir)
         os.makedirs(spread_dir)
-        one = _parallel_runs(layouts, 1, None, device, shrink, one_dir)[0]
+        shared = _one_card_runs(layouts, shrink)
+        one = _parallel_runs([n for n in layouts if shared[n] == n], 1,
+                             None, device, shrink, one_dir)[0]
         spread = _parallel_runs(layouts, ranks, control, device, shrink,
                                 spread_dir)
         flips = {}
@@ -5302,7 +5592,8 @@ def parallel_phase(ranks, control=None, device="cuda", shrink=None):
             spec = dict(PARALLEL_LAYOUTS[name], **shrink.get(name, {}))
             if spec.get("model") == "moe":
                 flips[name] = _parallel_flips_between(
-                    one_dir, spread_dir, name, spec, ranks)
+                    os.path.join(one_dir, f"{shared[name]}_0.pt"),
+                    spread_dir, name, spec, ranks)
     finally:
         shutil.rmtree(route_dir, ignore_errors=True)
     failed = []
@@ -5313,7 +5604,7 @@ def parallel_phase(ranks, control=None, device="cuda", shrink=None):
                    MOE_PARALLEL_LEAF_NORM_REL_TOL] if is_moe else
                   [PARALLEL_LOSS_REL_TOL, PARALLEL_NORM_REL_TOL,
                    PARALLEL_LEAF_NORM_REL_TOL])
-        ref, runs = one[name], [res[name] for res in spread]
+        ref, runs = one[shared[name]], [res[name] for res in spread]
         got = runs[0]
         checks = {}
         checks["launches"] = (
@@ -5347,6 +5638,7 @@ def parallel_phase(ranks, control=None, device="cuda", shrink=None):
         one_step = float(np.mean(ref["step_s"][1:]))
         emit(dict(
             phase="parallel", layout=name, control=control, ranks=ranks,
+            one_card_run_of=shared[name],
             axes=spec["axes"], n_layers=spec["layers"],
             global_batch=spec["global_batch"],
             micro_batch=spec.get("micro_batch", spec["global_batch"]),
@@ -5578,7 +5870,7 @@ def main(argv) -> int:
         _build_report()
         params = llama.init_params(
             config, torch.Generator(device=device).manual_seed(SEED), device)
-        serve_phase(params, config, device)
+        serve_phase(*serve_layers(params, config), device)
         _print_card()
         return 0
     if argv[1:] == ["--serve-elastic"]:
@@ -5595,6 +5887,24 @@ def main(argv) -> int:
             gen, device, (1, 32, 4 * 4096, 128), 4096)})
         _print_card()
         return 0
+    if argv[1:2] == ["--tp-fold"]:
+        # the tp fold alone (see tp_fold_rows), then each control of it;
+        # no result line
+        _build_report(["flash_fwd", "flash_bwd"])
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        rows = {"tp_fold": tp_fold_rows(gen, device, config)}
+        for control in TP_FOLD_CONTROLS:
+            rows[f"tp_fold_{control}"] = tp_fold_rows(gen, device, config,
+                                                      control)
+        emit({"phase": "kernels", **rows})
+        _print_card()
+        passed = [n for n, r in rows.items()
+                  if r["control"] and r["worst_rel"] <= TP_FOLD_REL_TOL]
+        if passed:
+            print(f"chip_smoke: tp fold controls {passed} within "
+                  f"{TP_FOLD_REL_TOL}", file=sys.stderr)
+            return 1
+        return 0
     if argv[1:] == ["--decode"]:
         # K4 alone: its checks and times, no result line
         _build_report(["flash_decode"])
@@ -5610,7 +5920,8 @@ def main(argv) -> int:
                                       (4, 32, 2048)),
                            bwd_shape=(4, 32, 2048, 128),
                            decode_shape=decode_shape,
-                           fold_shape=(1, 32, 4 * 4096, 128))
+                           fold_shape=(1, 32, 4 * 4096, 128),
+                           tp_fold_config=config)
     torch.cuda.empty_cache()
     timer_phase(device)
 
@@ -5634,7 +5945,7 @@ def main(argv) -> int:
         params, config, device, slots=8, cache_len=4096, n_requests=16,
         len_range=(100, 1500), new_range=(16, 48), n_teacher=4))
     torch.cuda.empty_cache()
-    main_path.append(serve_phase(params, config, device))
+    main_path.append(serve_phase(*serve_layers(params, config), device))
     del params  # the serving weights make room for the replicas and training
     torch.cuda.empty_cache()
     main_path.append(serve_elastic_phase(config, device))
@@ -5699,4 +6010,17 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv))
+    try:
+        code = main(sys.argv)
+    except Exception as e:
+        # a failed check's message leads with what failed and may go on
+        # with pages of a child's log: print its first line again last,
+        # where the tail of the output shows it
+        import traceback
+
+        traceback.print_exc()
+        head = str(e).split("\n", 1)[0]
+        print(f"chip_smoke: failed: {type(e).__name__}: {head[:6000]}",
+              file=sys.stderr, flush=True)
+        code = 1
+    sys.exit(code)

@@ -24,7 +24,10 @@ runs on each host:
 The agent serves the workers' IPC (:class:`LocalIPCServer`: frame locks,
 the save-event queue, progress) and forwards their steps to the master;
 an incarnation's first step is also reported as ``step_resumed``, which
-closes a recovery in the master's journal.
+closes a recovery in the master's journal. Besides its periodic poll, it
+forwards the workers' progress once more before it reports a failure,
+restarts the workers or ends, so an incarnation shorter than one poll
+period still closes its recovery.
 Its rendezvous rounds, spawns, worker failures, restarts and breakpoint
 saves are events of target ``agent_<node_rank>`` (``common/event.py``:
 the log, and JSONL under ``DLROVER_TPU_EVENT_DIR``).
@@ -441,6 +444,7 @@ class ElasticTrainingAgent:
                     self._config.node_rank, reason)
         self._events.instant(AgentEvent.RESTART, reason=reason,
                              restart_count=self._restart_count)
+        self._forward_progress()
         # stop first: the frames outlive the workers, and persisting after
         # they died rules out reading a frame mid-write
         self._stop_workers(grace_s=grace_s)
@@ -569,6 +573,19 @@ class ElasticTrainingAgent:
             pending, self._pending_action = self._pending_action, None
             return pending if pending is not None else (None, {})
 
+    def _forward_progress(self) -> None:
+        """Forward what the workers published since the last progress
+        poll, before a fault, a restart or the end is reported: an
+        incarnation that stopped within one poll period of its first step
+        still reports its ``step_resumed`` first, so the master's journal
+        closes its recovery before the next fault would open one."""
+        if self._training_monitor is None:
+            return
+        try:
+            self._training_monitor.poll_once()
+        except Exception:  # noqa: BLE001 — progress is best-effort
+            logger.exception("training progress poll failed")
+
     def observe_global_step(self, step: int, ts: float) -> None:
         if self._last_step_ts == 0.0:
             # the incarnation's first step: training is live again (the
@@ -668,6 +685,7 @@ class ElasticTrainingAgent:
             if result.state == WorkerState.SUCCEEDED:
                 logger.info("node %s workers all succeeded",
                             self._config.node_rank)
+                self._forward_progress()
                 self._client.update_node_status(NodeStatus.SUCCEEDED)
                 return 0
             if result.state == WorkerState.FAILED:
@@ -755,6 +773,7 @@ class ElasticTrainingAgent:
         self._events.instant(AgentEvent.WORKER_FAIL,
                              failures=result.failures,
                              restart_count=self._restart_count)
+        self._forward_progress()
         try:
             self._client.report_failure(
                 error_data=str(result.failures),

@@ -100,7 +100,7 @@ def ffn(xn, layer, config):
         if config.route_group_size is not None:
             config = dataclasses.replace(config, route_group_size=None)
         return moe._moe_ffn(xn, layer, config)[0]
-    return mlp(xn, layer)
+    return mlp(xn, layer, config)
 
 
 def init_kv_cache(config, batch: int, max_len: Optional[int] = None,

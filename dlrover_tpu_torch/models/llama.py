@@ -25,6 +25,7 @@ mesh an sp config computes plain attention. Pipeline parallelism:
 stages over the mesh's ``pp`` axis (``parallel/pipeline.py``).
 """
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -42,6 +43,12 @@ from torch.utils.checkpoint import (
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.ops.flash_attention import flash_attention, repeat_kv
 from dlrover_tpu_torch.parallel import sharding
+from dlrover_tpu_torch.parallel.collectives import (
+    from_region,
+    gather_from_region,
+    gather_shard,
+    to_region,
+)
 
 
 class AttentionConfigMixin:
@@ -224,9 +231,116 @@ def rope(x, positions, theta: float):
     return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
 
 
-def mlp(x, layer):
+def _tp(mesh):
+    """``(group, size, coordinate)`` of this rank along ``tp``, or ``(None,
+    1, 0)`` with no mesh or ``tp`` = 1."""
+    group = None if mesh is None else sharding.axis_group(mesh, ["tp"])
+    if group is None:
+        return None, 1, 0
+    return (group, sharding.mesh_sizes(mesh)["tp"],
+            sharding.mesh_coords(mesh)["tp"])
+
+
+def logical_sizes(config) -> Dict[str, int]:
+    """The whole size of each logical axis of the params."""
+    c = config
+    return {"embed": c.dim, "norm": c.dim, "heads": c.n_heads * c.head_dim,
+            "kv_heads": c.n_kv_heads * c.head_dim, "mlp": c.ffn_dim,
+            "vocab": c.vocab_size, "expert": getattr(c, "n_experts", 0)}
+
+
+def gather_fsdp(leaves: Dict, logical: Dict, config, mesh) -> Dict:
+    """``leaves`` with each one that this rank holds a block of along an
+    ``fsdp`` dim (``logical`` names each leaf's dims; the rules put
+    ``embed`` there) gathered whole through ``collectives.gather_shard``,
+    whose backward reduce-scatters the grad into the block. Whether a dim
+    is a block is read from the leaf's size (``sharding.held_block``): a
+    whole leaf (no mesh, a dim fsdp does not divide, or ``fsdp`` not
+    among the trainer's local axes) passes as it is."""
+    group = None if mesh is None else sharding.axis_group(mesh, ["fsdp"])
+    if group is None:
+        return leaves
+    sizes = logical_sizes(config)
+    out = {}
+    for name, w in leaves.items():
+        for d, axis in enumerate(logical[name]):
+            rule = sharding.DEFAULT_RULES.get(axis) if axis else None
+            if "fsdp" not in sharding.entry_axes(rule):
+                continue
+            _, held = sharding.held_block(mesh, "fsdp", w.shape[d],
+                                          sizes[axis])
+            if held != sizes[axis]:
+                w = gather_shard(w, group, d)
+        out[name] = w
+    return out
+
+
+def _tp_take(w, dim: int, lo: int, n: int, total: int, mesh, group):
+    """``[lo, lo + n)`` along ``dim`` of a weight of the ``tp`` region
+    (``total`` whole), from what this rank holds of it. Its own block is
+    taken as it is. A whole weight (the clamp of a dim ``tp`` does not
+    divide, or ``tp`` not local) enters the region through *f*: the ranks
+    read different slices of it, so their grads sum over ``tp``. A block
+    that is not the slice the rank needs (KV heads split finer than
+    whole heads) is gathered (``gather_shard``), and its backward sums
+    the ranks' slices' grads into each block."""
+    start, held = sharding.held_block(mesh, "tp", w.shape[dim], total)
+    if (start, held) == (lo, n):
+        return w
+    if held == total:
+        (w,) = to_region((w,), group)
+    else:
+        w = gather_shard(w, group, dim)
+    return w.narrow(dim, lo, n)
+
+
+def tp_slices(config, tp: int, t: int) -> Dict:
+    """The slice of each leaf of a layer that the rank at ``tp``
+    coordinate ``t`` computes with: ``name -> (dim, start, size)`` of the
+    per-layer weight, for ``wq``/``wk``/``wv`` and ``w1``/``w3``
+    (columns: column-parallel) and ``wo``/``w2`` (rows: row-parallel).
+    ``w1``/``w3``/``w2`` are left out when ``tp`` does not divide the FFN
+    width: that MLP runs whole on every rank."""
+    c = config
+    hd = c.head_dim
+    h0, h1, kv0, kv1 = sharding.tp_heads(c.n_heads, c.n_kv_heads, tp, t)
+    out = {"wq": (1, h0 * hd, (h1 - h0) * hd),
+           "wk": (1, kv0 * hd, (kv1 - kv0) * hd),
+           "wv": (1, kv0 * hd, (kv1 - kv0) * hd),
+           "wo": (0, h0 * hd, (h1 - h0) * hd)}
+    if c.ffn_dim % tp == 0:
+        n = c.ffn_dim // tp
+        out.update(w1=(1, t * n, n), w3=(1, t * n, n), w2=(0, t * n, n))
+    return out
+
+
+def _tp_layer(layer, names, config, mesh):
+    """``(group, layer)``: the ``tp`` group and ``layer`` with the leaves
+    ``names`` cut to this rank's slices (:func:`tp_slices`), or ``(None,
+    layer)`` when the rank computes them whole."""
+    group, T, t = _tp(mesh)
+    slices = tp_slices(config, T, t) if group is not None else {}
+    if not all(n in slices for n in names):
+        return None, layer
+    sizes = logical_sizes(config)
+    totals = {"wq": sizes["heads"], "wk": sizes["kv_heads"],
+              "wv": sizes["kv_heads"], "wo": sizes["heads"],
+              "w1": sizes["mlp"], "w3": sizes["mlp"], "w2": sizes["mlp"]}
+    taken = {n: _tp_take(layer[n], *slices[n], totals[n], mesh, group)
+             for n in names}
+    return group, {**layer, **taken}
+
+
+def mlp(x, layer, config, mesh=None):
+    """SwiGLU. Under ``tp`` (``mesh``), column-parallel ``w1``/``w3`` and
+    row-parallel ``w2`` on the rank's columns, entered through *f* and
+    left through *g* (one all-reduce each way)."""
+    group, layer = _tp_layer(layer, ("w1", "w3", "w2"), config, mesh)
+    if group is not None:
+        (x,) = to_region((x,), group)
     gate = F.silu(x @ layer["w1"])
-    return (gate * (x @ layer["w3"])) @ layer["w2"]
+    out = (gate * (x @ layer["w3"])) @ layer["w2"]
+    return out if group is None else from_region(out, group)
 
 
 def full_causal_attention(q, k, v, scale: Optional[float] = None):
@@ -255,12 +369,21 @@ def _sp_chunk(config, mesh):
 def attention(x, layer, config: LlamaConfig, positions, mesh=None):
     """The attention block on ``x`` ``(B, S, dim)``; under sequence
     parallelism ``x`` is this rank's chunk and ``positions`` its global
-    positions."""
+    positions. Under ``tp`` the rank attends with its q heads and the KV
+    heads they read (``sharding.tp_heads``): column-parallel
+    ``wq``/``wk``/``wv`` after *f*, K1-K3 (or the sp paths) on those
+    heads, and row-parallel ``wo`` before *g*."""
     c = config
     B, S, _ = x.shape
-    q = (x @ layer["wq"]).reshape(B, S, c.n_heads, c.head_dim)
-    k = (x @ layer["wk"]).reshape(B, S, c.n_kv_heads, c.head_dim)
-    v = (x @ layer["wv"]).reshape(B, S, c.n_kv_heads, c.head_dim)
+    group, layer = _tp_layer(layer, ("wq", "wk", "wv", "wo"), c, mesh)
+    if group is not None:
+        (x,) = to_region((x,), group)
+    hd = c.head_dim
+    n_q = layer["wq"].shape[1] // hd
+    n_kv = layer["wk"].shape[1] // hd
+    q = (x @ layer["wq"]).reshape(B, S, n_q, hd)
+    k = (x @ layer["wk"]).reshape(B, S, n_kv, hd)
+    v = (x @ layer["wv"]).reshape(B, S, n_kv, hd)
     q = rope(q, positions, c.rope_theta)
     k = rope(k, positions, c.rope_theta)
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, S, D)
@@ -276,7 +399,7 @@ def attention(x, layer, config: LlamaConfig, positions, mesh=None):
     # GQA: repeat kv heads to match q heads, except on the Ulysses path,
     # which scatters unrepeated K/V and repeats them after
     if not (use_sp and strategy == "ulysses"):
-        k, v = repeat_kv(k, v, c.n_heads // c.n_kv_heads)
+        k, v = repeat_kv(k, v, n_q // n_kv)
     if use_sp and strategy == "ulysses":
         from dlrover_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -289,8 +412,8 @@ def attention(x, layer, config: LlamaConfig, positions, mesh=None):
         out = flash_attention(q, k, v, causal=True)
     else:
         out = full_causal_attention(q, k, v)
-    out = out.transpose(1, 2).reshape(B, S, c.n_heads * c.head_dim)
-    return out @ layer["wo"]
+    out = out.transpose(1, 2).reshape(B, S, n_q * hd) @ layer["wo"]
+    return out if group is None else from_region(out, group)
 
 
 def _dots_policy(ctx, func, *args, **kwargs):
@@ -319,11 +442,22 @@ attention_block = attention
 remat_context = _remat_context
 
 
+def layer_axes(logical: Dict) -> Dict:
+    """A family's per-layer logical axes: those of its stacked
+    ``params["layers"]`` without the leading ``layers`` dim."""
+    return {n: axes[1:] for n, axes in logical["layers"].items()}
+
+
 def _layer(x, layer, config: LlamaConfig, positions, mesh=None):
+    """One layer. Its fsdp blocks are gathered here, inside the
+    checkpoint of :func:`_layers`: a recompute gathers them again, and no
+    gathered layer outlives its use."""
     c = config
+    layer = gather_fsdp(layer, layer_axes(param_logical_axes(c)), c, mesh)
     x = x + attention(rms_norm(x, layer["attn_norm"], c.norm_eps), layer, c,
                       positions, mesh)
-    return x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer)
+    return x + mlp(rms_norm(x, layer["ffn_norm"], c.norm_eps), layer, c,
+                   mesh)
 
 
 def _layers(x, stacked: Dict, config: LlamaConfig, positions, mesh=None):
@@ -351,9 +485,40 @@ def _layers(x, stacked: Dict, config: LlamaConfig, positions, mesh=None):
     return x
 
 
-def _logits(params: Dict, x, config: LlamaConfig):
+def embed(params: Dict, tokens, config, mesh=None):
+    """The rows of ``tokens`` in ``params["tok_embed"]`` (its fsdp block
+    gathered). Split over ``tp`` by vocab, each rank looks up the tokens
+    of its rows (zeros for the others) and *g* sums the ranks' rows."""
+    w = gather_fsdp({"tok_embed": params["tok_embed"]},
+                    {"tok_embed": ("vocab", "embed")}, config,
+                    mesh)["tok_embed"]
+    group = _tp(mesh)[0]
+    v0, n = sharding.held_block(mesh, "tp", w.shape[0], config.vocab_size)
+    if n == config.vocab_size:
+        return w[tokens]
+    idx = tokens - v0
+    mine = (idx >= 0) & (idx < n)
+    rows = w[torch.where(mine, idx, 0)] * mine[..., None].to(w.dtype)
+    return from_region(rows, group)
+
+
+def logits(params: Dict, x, config, mesh=None):
+    """f32 logits of the final-normed ``x`` (``lm_head``'s fsdp block
+    gathered). Split over ``tp`` by vocab, each rank computes its
+    columns after *f* and the columns are gathered whole on every rank
+    (``gather_from_region``), as the reference gathers its vocab-sharded
+    logits; the loss is the whole-vocab cross entropy."""
     x = rms_norm(x, params["final_norm"], config.norm_eps)
-    return torch.matmul(x.float(), params["lm_head"].float())
+    w = gather_fsdp({"lm_head": params["lm_head"]},
+                    {"lm_head": ("embed", "vocab")}, config,
+                    mesh)["lm_head"]
+    group = _tp(mesh)[0]
+    _, n = sharding.held_block(mesh, "tp", w.shape[1], config.vocab_size)
+    x = x.float()
+    if n == config.vocab_size:
+        return torch.matmul(x, w.float())
+    (x,) = to_region((x,), group)
+    return gather_from_region(torch.matmul(x, w.float()), group, x.ndim - 1)
 
 
 def forward(params: Dict, tokens, config: LlamaConfig, mesh=None):
@@ -374,9 +539,9 @@ def forward(params: Dict, tokens, config: LlamaConfig, mesh=None):
     s = S // sp
     tokens = tokens[:, r * s:(r + 1) * s]
     positions = (r * s + torch.arange(s, device=tokens.device))[None, :]
-    x = params["tok_embed"][tokens]
+    x = embed(params, tokens, c, mesh)
     x = _layers(x, params["layers"], c, positions.expand(B, s), mesh)
-    return _logits(params, x, c)
+    return logits(params, x, c, mesh)
 
 
 def cross_entropy(logits, targets):
@@ -429,7 +594,7 @@ def forward_pp(params: Dict, tokens, config: LlamaConfig, mesh,
     M = n_microbatches
     if not M:
         M = next(d for d in range(min(B, 4 * S_pp), 0, -1) if B % d == 0)
-    x = params["tok_embed"][tokens]
+    x = embed(params, tokens, c, mesh)
     depth = next(iter(params["layers"].values())).shape[0]
     if depth * S_pp == c.n_layers:
         stages = stack_stages(params["layers"], 1)   # (1, L/pp, ...)
@@ -439,13 +604,18 @@ def forward_pp(params: Dict, tokens, config: LlamaConfig, mesh,
         raise ValueError(f"{depth} stacked layers are neither the model's "
                          f"{c.n_layers} nor a stage's {c.n_layers // S_pp}")
 
+    # a stage attends over the whole sequence (no sp split inside it)
+    stage_c = dataclasses.replace(c, sp_attention=None,
+                                  use_ring_attention=False)
+
     def stage_fn(layer_group, h):
         positions = torch.arange(h.shape[1], device=h.device)[None, :]
-        return _layers(h, layer_group, c, positions.expand(h.shape[:2]))
+        return _layers(h, layer_group, stage_c,
+                       positions.expand(h.shape[:2]), mesh)
 
     ym = pipeline_apply(stage_fn, stages, microbatch(x, M), mesh, axis="pp",
                         checkpoint_ticks=not c.remat)
-    return _logits(params, unmicrobatch(ym), c)
+    return logits(params, unmicrobatch(ym), c, mesh)
 
 
 def next_token_loss_pp(params, tokens, config: LlamaConfig, mesh,

@@ -34,15 +34,28 @@ kept and dropped tokens and every sum are the same; the one-hot tensor
 Sharded over ``ep`` (``parallel/sharding.py``'s ``expert`` rule), rank r
 holds experts ``[r·E/ep, (r+1)·E/ep)``. Given the mesh, ``forward`` runs
 only those: routing stays whole and replicated (every ``ep`` rank routes
-the same tokens), the dispatch gathers the kept choices of the rank's own
-experts into an ``(E/ep, G·C, D)`` batch, the combine sums those choices
-in f32, and ``collectives.from_ep`` sums the ranks' partials before the
-cast. The normed tokens and the gates enter through ``collectives.to_ep``,
-whose backward sums the ranks' shares of their gradients. The expert
-weights may be the rank's block or the whole stack (the rank takes its
-block). This is what the reference's sharded einsums compute: its batch
-shards over the data axes only, so the ranks of an ``ep`` group hold the
-same tokens and no token all-to-all is needed.
+the same tokens), the dispatch gathers the kept choices of the rank's
+own experts into an ``(E/ep, G·C, D)`` batch, the combine sums those
+choices in f32, and ``collectives.from_region`` sums the ranks' partials
+before the cast. The normed tokens and the gates enter through
+``collectives.to_region``, whose backward sums the ranks' shares of
+their gradients. The expert weights may be the rank's block or the whole
+stack (the rank takes its block). This is what the reference's sharded
+einsums compute: its batch shards over the data axes only, so the ranks
+of an ``ep`` group hold the same tokens and no token all-to-all is
+needed.
+
+Given blocks along ``fsdp`` (the trainer's ``local_axes``), each layer
+gathers its blocks inside its checkpoint, as the Llama layer does
+(``llama.gather_fsdp``); the experts stay the rank's ``ep`` block. Under
+``tp`` the attention block and the vocab-split ends are the Llama ones,
+and the experts' FFN is split as the Llama MLP is (``mlp`` over ``tp``,
+the reference's rule): a rank runs the dispatch and combine on every
+token routed to its experts with its columns of ``w1``/``w3`` and rows
+of ``w2``, so its combine is a partial, and ``from_region`` sums the
+partials over ``ep`` and ``tp`` at once (``to_region`` the inputs'
+grads).
+Experts given whole along ``tp`` run whole on every tp rank.
 
 Under sequence parallelism (``sp_attention`` and a mesh whose ``sp`` axis
 is > 1) each rank computes its contiguous chunk of the sequence: the
@@ -69,10 +82,10 @@ from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import llama as _llama
 from dlrover_tpu_torch.parallel import sharding
 from dlrover_tpu_torch.parallel.collectives import (
-    from_ep,
+    from_region,
     gather,
     psum,
-    to_ep,
+    to_region,
 )
 
 
@@ -337,10 +350,27 @@ def _ep_block(mesh, n_experts: int):
     return group, sharding.mesh_coords(mesh)["ep"] * local, local
 
 
+def _ffn_region(mesh, config: MoEConfig, w1):
+    """The group whose ranks each compute a share of the expert FFN's
+    output on the same tokens: ``ep`` (each rank's experts) and, when
+    ``w1``'s mlp dim is this rank's ``tp`` block (``sharding.held_block``;
+    ``w3``'s columns and ``w2``'s rows split with it), ``tp`` (its
+    columns of every expert's FFN). None when the rank computes the FFN
+    whole."""
+    if mesh is None:
+        return None
+    axes = ["ep"]
+    _, n = sharding.held_block(mesh, "tp", w1.shape[-1], config.ffn_dim)
+    if n != config.ffn_dim:
+        axes.append("tp")
+    return sharding.axis_group(mesh, axes)
+
+
 def _moe_ffn(x, layer, config: MoEConfig, mesh=None):
     """Sparse expert FFN. x ``(B, s, D)`` → ``(B, s, D)``, aux scalar. With
     ``mesh``: under sequence parallelism ``x`` is this rank's chunk of the
-    sequence, and under ``ep`` the rank runs only its block of experts
+    sequence, under ``ep`` the rank runs only its block of experts, and
+    under ``tp`` (experts held as tp blocks) only its columns of them
     (module docstring)."""
     c = config
     B, s, D = x.shape
@@ -365,11 +395,13 @@ def _moe_ffn(x, layer, config: MoEConfig, mesh=None):
     ep_group, lo, El = _ep_block(mesh, E)
     w1, w3, w2 = (w if w.shape[0] == El else w[lo:lo + El]
                   for w in (layer["w1"], layer["w3"], layer["w2"]))
+    region = _ffn_region(mesh, c, w1)
     xf = x.reshape(N, D)
     own = kept
     if ep_group is not None:
         own = kept & (expert >= lo) & (expert < lo + El)
-        xf, gates = to_ep((xf, gates), ep_group)
+    if region is not None:
+        xf, gates = to_region((xf, gates), region)
     # dispatch: the token of each kept (group, expert, slot) of this rank,
     # or the zero row N
     n_cells = G * El * capacity
@@ -391,13 +423,16 @@ def _moe_ffn(x, layer, config: MoEConfig, mesh=None):
     picked = expert_out[torch.where(own, cell, 0)]           # (N, k, D)
     w = (gates * own).to(x.dtype).float()                    # (N, k)
     out = (picked.float() * w[..., None]).sum(1)
-    if ep_group is not None:
-        out = from_ep(out, ep_group)
+    if region is not None:
+        out = from_region(out, region)
     return out.to(x.dtype).reshape(B, s, D), aux
 
 
 def _layer(x, layer, config: MoEConfig, positions, mesh=None):
     c = config
+    # the layer's fsdp blocks, gathered inside the layer's checkpoint
+    layer = _llama.gather_fsdp(
+        layer, _llama.layer_axes(param_logical_axes(c)), c, mesh)
     x = x + _llama.attention_block(
         _llama.rms_norm(x, layer["attn_norm"], c.norm_eps), layer, c,
         positions, mesh)
@@ -416,7 +451,8 @@ def forward(params: Dict, tokens, config: MoEConfig, mesh=None):
     With ``mesh`` (module docstring): under sequence parallelism S must
     divide by sp, and the rank returns its chunk ``(B, S/sp, vocab)`` of
     the logits; under ``ep`` the rank runs its block of experts, the
-    weights given as that block or whole."""
+    weights given as that block or whole; under ``fsdp`` and ``tp`` the
+    ends and the attention block are the Llama ones (module docstring)."""
     c = config
     B, S = tokens.shape
     sp, r = _llama._sp_chunk(c, mesh)
@@ -424,7 +460,7 @@ def forward(params: Dict, tokens, config: MoEConfig, mesh=None):
         raise ValueError(f"sequence length {S} does not divide by sp {sp}")
     s = S // sp
     tokens = tokens[:, r * s:(r + 1) * s]
-    x = params["tok_embed"][tokens]
+    x = _llama.embed(params, tokens, c, mesh)
     positions = (r * s + torch.arange(s, device=tokens.device))[None, :]
     positions = positions.expand(B, s)
     names = list(params["layers"])
@@ -443,9 +479,7 @@ def forward(params: Dict, tokens, config: MoEConfig, mesh=None):
         else:
             x, aux = _layer(x, layer, c, positions, mesh)
         aux_sum = aux_sum + aux
-    x = _llama.rms_norm(x, params["final_norm"], c.norm_eps)
-    logits = torch.matmul(x.float(), params["lm_head"].float())
-    return logits, aux_sum / c.n_layers
+    return _llama.logits(params, x, c, mesh), aux_sum / c.n_layers
 
 
 def next_token_loss(params, tokens, config: MoEConfig, mesh=None):

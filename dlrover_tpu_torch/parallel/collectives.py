@@ -15,11 +15,17 @@ backward runs the adjoint collective, and two rules keep the ranks paired:
 - two collectives that autograd could run in either order must not share
   a pair of ranks: the ring moves K and V in one :func:`shift`.
 
-The ``ep`` region of the MoE FFN (``models/moe.py``) takes a conjugate
-pair: :func:`to_ep` enters it (identity forward, all-reduce backward) and
-:func:`from_ep` leaves it (all-reduce forward, identity backward), the
-adjoint of the reference's expert-sharded einsums. :func:`psum` sums over
-a group both ways, for a value every rank's loss reads.
+A region whose ranks each compute a share of one result on the same rows
+(the ``ep`` experts of the MoE FFN, ``models/moe.py``; the ``tp`` heads,
+columns and vocab rows of ``models/llama.py``) takes a conjugate pair,
+Megatron's *f* and *g*: :func:`to_region` enters it (identity forward,
+all-reduce backward) and :func:`from_region` leaves it (all-reduce
+forward, identity backward), the adjoint of the reference's sharded
+einsums. :func:`gather_from_region` leaves it along a split dim instead
+(an all-gather; the backward keeps the rank's block).
+:func:`gather_shard` gathers a param's ``fsdp`` blocks for ranks that
+run different rows: its backward reduce-scatters the grad. :func:`psum`
+sums over a group both ways, for a value every rank's loss reads.
 
 Point-to-point ops take global ranks (``dist.get_global_rank``). A failed
 send, receive, all-to-all or all-reduce raises; nothing is caught.
@@ -181,7 +187,7 @@ def _sum_f32(t, group):
     return total.to(t.dtype)
 
 
-class _ToEP(torch.autograd.Function):
+class _ToRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, *tensors):
         ctx.group = group
@@ -192,16 +198,16 @@ class _ToEP(torch.autograd.Function):
         return (None, *(_sum_f32(g, ctx.group) for g in grads))
 
 
-def to_ep(tensors: Sequence[torch.Tensor], group):
-    """Enter the ``ep`` region: ``tensors`` (replicated over ``group``)
-    unchanged. Each rank's cotangents then hold only its own experts'
-    share, so the backward sums them over ``group`` (in f32, one
-    all-reduce a tensor in the given order), and every rank leaves with
-    the whole gradient."""
-    return _ToEP.apply(group, *tensors)
+def to_region(tensors: Sequence[torch.Tensor], group):
+    """Enter a region of ``group`` (*f*): ``tensors`` (replicated over
+    ``group``) unchanged. Each rank's cotangents then hold only its own
+    share (its experts', heads' or columns'), so the backward sums them
+    over ``group`` (in f32, one all-reduce a tensor in the given order),
+    and every rank leaves with the whole gradient."""
+    return _ToRegion.apply(group, *tensors)
 
 
-class _FromEP(torch.autograd.Function):
+class _FromRegion(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         return _sum_f32(x.detach(), group)
@@ -211,12 +217,79 @@ class _FromEP(torch.autograd.Function):
         return g, None
 
 
-def from_ep(x, group):
-    """Leave the ``ep`` region: the sum over ``group`` of the ranks'
-    partial results ``x`` (each rank's experts' share). Every rank's loss
-    reads the same sum, so a rank's partial takes that loss's cotangent as
-    it is: the backward is the identity."""
-    return _FromEP.apply(x, group)
+def from_region(x, group):
+    """Leave a region of ``group`` (*g*): the sum over ``group`` of the
+    ranks' partial results ``x`` (in f32, cast back). Every rank's loss
+    reads the same sum, so a rank's partial takes that loss's cotangent
+    as it is: the backward is the identity."""
+    return _FromRegion.apply(x, group)
+
+
+def _all_gather(x, group, dim: int):
+    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in
+    group-rank order. NCCL gathers along dim 0; another dim is a strided
+    copy of the gathered stack."""
+    n = dist.get_world_size(group)
+    x = x.detach().contiguous()
+    parts = x.new_empty((n * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(parts, x, group=group)
+    if dim == 0:
+        return parts
+    shape = list(x.shape)
+    shape[dim] *= n
+    return parts.unflatten(0, (n, x.shape[0])).movedim(0, dim).reshape(shape)
+
+
+class _GatherShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = dist.get_world_size(ctx.group)
+        dim = ctx.dim
+        block = list(g.shape)
+        block[dim] //= n
+        # (n, *block): block j of the cotangent along dim for group rank j
+        chunks = g.float().unflatten(dim, (n, block[dim])).movedim(dim, 0)
+        chunks = chunks.contiguous()
+        piece = chunks.new_empty(block)
+        dist.reduce_scatter_tensor(
+            piece, chunks.reshape(n * block[0], *block[1:]),
+            group=ctx.group)
+        return piece.to(g.dtype), None, None
+
+
+def gather_shard(x, group, dim: int):
+    """The whole of a param from each rank's block ``x`` along ``dim``
+    over ``group`` (an all-gather). The ranks of ``group`` run different
+    rows (``fsdp`` is a data axis), so each rank's cotangent is its rows'
+    share of the whole's gradient: the backward reduce-scatters it along
+    ``dim``, summed in f32, and each rank's block takes the sum of every
+    rank's share."""
+    return _GatherShard.apply(x, group, dim)
+
+
+class _GatherFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+
+
+def gather_from_region(x, group, dim: int):
+    """Leave a region of ``group`` along ``dim``: each rank's block ``x``
+    (its vocab columns of the logits) gathered whole on every rank. Every
+    rank's loss reads the same whole tensor, so the backward keeps the
+    rank's own block of the cotangent."""
+    return _GatherFromRegion.apply(x, group, dim)
 
 
 class _PSum(torch.autograd.Function):

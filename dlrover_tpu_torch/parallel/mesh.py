@@ -9,7 +9,8 @@ grad-accum from :attr:`MeshPlan.dp_total`.
 
 :func:`build_mesh` turns a plan into a ``torch.distributed`` DeviceMesh
 over the same axis names in the same order (one rank per card, rank ``r``
-at the row-major position ``r``, as the reference lays device ids out);
+at the row-major position ``r``, as the reference lays device ids out:
+:func:`plan_coords`);
 :class:`ElasticMeshManager` re-plans it when the world changes.
 """
 
@@ -103,9 +104,20 @@ def plan_mesh(
     })
 
 
+def plan_coords(plan: MeshPlan, rank: int) -> Dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis of ``plan``: ranks lie
+    row-major in :data:`AXIS_ORDER` (``tp`` innermost)."""
+    coords = {}
+    for axis in reversed(AXIS_ORDER):
+        coords[axis] = rank % plan.size(axis)
+        rank //= plan.size(axis)
+    return coords
+
+
 def build_mesh(plan: MeshPlan, device_type: str = "cuda"):
-    """A DeviceMesh over :data:`AXIS_ORDER` with the plan's sizes. Needs the
-    default process group, with exactly ``plan.n_devices`` ranks."""
+    """A DeviceMesh over :data:`AXIS_ORDER` with the plan's sizes, each rank
+    at its :func:`plan_coords`. Needs the default process group, with
+    exactly ``plan.n_devices`` ranks."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
@@ -114,9 +126,11 @@ def build_mesh(plan: MeshPlan, device_type: str = "cuda"):
     if world != plan.n_devices:
         raise ValueError(
             f"plan needs {plan.n_devices} ranks, the world has {world}")
-    shape = tuple(plan.size(a) for a in AXIS_ORDER)
-    return DeviceMesh(device_type, torch.arange(world).reshape(shape),
-                      mesh_dim_names=AXIS_ORDER)
+    ranks = torch.empty([plan.size(a) for a in AXIS_ORDER], dtype=torch.long)
+    for r in range(world):
+        coords = plan_coords(plan, r)
+        ranks[tuple(coords[a] for a in AXIS_ORDER)] = r
+    return DeviceMesh(device_type, ranks, mesh_dim_names=AXIS_ORDER)
 
 
 class ElasticMeshManager:

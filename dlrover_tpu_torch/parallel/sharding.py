@@ -143,6 +143,41 @@ def placements_for(spec: Sequence, mesh_axis_names: Sequence[str]):
             for a in mesh_axis_names]
 
 
+def held_block(mesh, axis: str, n_local: int, n_global: int
+               ) -> Tuple[int, int]:
+    """``(start, size)`` of the block of a dim of ``n_global`` that this
+    rank was handed, read from the size ``n_local`` it holds: the whole
+    dim, or its block along the mesh ``axis`` (even blocks, as
+    :func:`valid_spec_for` shards only a dim the axis divides; a dim it
+    does not divide stays whole). Raises for any other size."""
+    n = 1 if mesh is None else mesh_sizes(mesh).get(axis, 1)
+    if n_local == n_global:
+        return 0, n_global
+    if n > 1 and n_global % n == 0 and n_local == n_global // n:
+        return mesh_coords(mesh)[axis] * n_local, n_local
+    raise ValueError(f"a dim of {n_global} held as {n_local} is neither "
+                     f"whole nor a block over {axis} = {n}")
+
+
+def tp_heads(n_heads: int, n_kv_heads: int, tp: int, t: int
+             ) -> Tuple[int, int, int, int]:
+    """``(h0, h1, kv0, kv1)``: the q heads ``[h0, h1)`` the rank at ``tp``
+    coordinate ``t`` attends with and the KV heads ``[kv0, kv1)`` they
+    read under GQA (q head ``h`` reads KV head ``h // (H / KV)``). The
+    q heads split evenly; the KV heads split with them when ``tp``
+    divides them, and otherwise (``tp`` a multiple of KV) a rank's q
+    heads all read one KV head, shared with its neighbours."""
+    if n_heads % tp:
+        raise ValueError(f"{n_heads} heads do not split over tp {tp}")
+    if n_kv_heads % tp and tp % n_kv_heads:
+        raise ValueError(f"{n_kv_heads} KV heads neither split over tp "
+                         f"{tp} nor divide it")
+    local = n_heads // tp
+    rep = n_heads // n_kv_heads
+    h0 = t * local
+    return h0, h0 + local, h0 // rep, (h0 + local - 1) // rep + 1
+
+
 def local_region(tensor: torch.Tensor, start, shape) -> torch.Tensor:
     """The ``(start, shape)`` block of ``tensor`` (a view)."""
     out = tensor

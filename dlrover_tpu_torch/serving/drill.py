@@ -17,30 +17,31 @@ survivor's tokens.
 
 Beside the reference's arguments, both drills take the manager's engine
 arguments (``config``, ``device``, ``quantize``; the toy backend takes
-none). Both run at the reference's 0.2 s heartbeat and grace
-(:data:`HEARTBEAT_S`, :data:`GRACE_S`). :data:`LLAMA_DRILL` and
-:data:`LLAMA_KILL_TRAFFIC` are their settings for ``LlamaConfig()``
-replicas on one card. ``run_serving_drill``'s result
-has the reference's keys and, on top of them: ``detect_s`` (kill →
-the victim leaves the registry) and ``restore_s`` (kill → the
-replacement registers), both on the journal's clock;
-``restored_node`` and its ``warm_start`` (``bytes``, ``seconds``, from
-its beats) beside the survivor's ``blob_bytes``; ``probe_tokens``, one
-fixed prompt's greedy tokens on every live replica after the restore;
+none), and the kill drill its replicas' depth (``n_layers``). The kill
+drill SIGKILLs a replica that holds requests in flight, and reports the
+injected fault after the kill. Both run at the reference's 0.2 s
+heartbeat and grace (:data:`HEARTBEAT_S`, :data:`GRACE_S`).
+:data:`LLAMA_DRILL` and :data:`LLAMA_KILL_TRAFFIC` are their settings
+for ``LlamaConfig()`` replicas on one card. ``run_serving_drill``'s
+result has the reference's keys and, on top of them: ``detect_s`` (kill
+→ the victim leaves the registry) and ``restore_s`` (kill → the
+replacement registers), both on the journal's clock; ``restored_node``
+and its ``warm_start`` (``bytes``, ``seconds``, from its beats) beside
+the survivor's ``blob_bytes``; ``probe_tokens``, one fixed prompt's
+greedy tokens on every live replica after the restore;
 ``replica_gauges``, every replica's last beat (the victim's included);
-and ``false_deaths``, replicas other than the victim the master
-declared lost; ``start_order``, each replica's registration and the peer
-its warm start took the most bytes from, with both times on the
-journal's clock (the goodput window opens at the first registration, so
-the order moves serving goodput: ROADMAP C12); and
-``node_fault_bundle``, the master's flight-recorder bundle of the kill
-(its manifest, whether its journal holds the victim's loss, and its
-incidents, which the reference's stitcher opens only for training
-faults). Both drills' results add ``replica_gauges``, ``replica_scrapes``
-(each live replica's decode steps and kernel launches read over HTTP
-from its ``/metrics``, beside its last beat's) and ``journal_dump`` (the
-master's journal as ``EventJournal.to_json()`` gives it).
-"""
+and ``false_deaths``, replicas other than the victim the master declared
+lost; ``start_order``, each replica's registration and the peer its warm
+start took the most bytes from, with both times on the journal's clock
+(the goodput window opens at the first registration, so the order moves
+serving goodput: ROADMAP C12); and ``node_fault_bundle``, the master's
+flight-recorder bundle of the kill (its manifest, whether its journal
+holds the victim's loss, and its incidents, which the reference's
+stitcher opens only for training faults). Both drills' results add
+``replica_gauges``, ``replica_scrapes`` (each live replica's decode
+steps and kernel launches read over HTTP from its ``/metrics``, beside
+its last beat's) and ``journal_dump`` (the master's journal as
+``EventJournal.to_json()`` gives it). """
 
 import contextlib
 import json
@@ -107,11 +108,12 @@ class _NoTrainingPlan:
         return ResourcePlan()
 
 
-def _engine_kwargs(backend, config, device, quantize) -> Dict:
+def _engine_kwargs(backend, config, device, quantize, n_layers=None) -> Dict:
     """The manager's engine arguments; the toy backend takes none."""
     if backend == "toy":
         return {}
-    return {"config": config, "device": device, "quantize": quantize}
+    return {"config": config, "device": device, "quantize": quantize,
+            "n_layers": n_layers}
 
 
 @contextlib.contextmanager
@@ -310,13 +312,14 @@ def run_serving_drill(
     config: str = "tiny",
     device: Optional[str] = None,
     quantize: bool = False,
+    n_layers: Optional[int] = None,
     start_timeout_s: float = 60.0,
 ) -> Dict:
     """Run the kill drill; returns the metrics and assertion dict."""
     with _drill_plane(
             "serve-drill", replicas, request_timeout_s,
-            # the injector decides the kill (and the master journals it);
-            # SIGKILL is only the mechanism
+            # the injected fault names the kill (and the master journals
+            # it); SIGKILL is the mechanism, sent before the report
             kill_schedule=(f"{SERVE_REPLICA_SITE}:error@nth=1"
                            if kill_mid_traffic else None),
             seed=seed, backend=backend, slots=slots, buckets=buckets,
@@ -325,7 +328,7 @@ def run_serving_drill(
             # the kill lands mid-traffic; a model needs no pacing
             step_delay_s=((0.01 if backend == "toy" else 0.0)
                           if step_delay_s is None else step_delay_s),
-            **_engine_kwargs(backend, config, device, quantize)
+            **_engine_kwargs(backend, config, device, quantize, n_layers)
     ) as (master, manager, router):
         journal = master.event_journal
 
@@ -390,6 +393,18 @@ def run_serving_drill(
                         break
                 if done_evt.is_set():
                     return
+                # the victim holds requests in flight, so the kill lands
+                # mid-traffic
+                busy = router.inflight_by_node()
+                while not busy and not done_evt.wait(0.005):
+                    busy = router.inflight_by_node()
+                # SIGKILL before the injected fault is reported: the
+                # report (the master's journal entry and its flight-
+                # recorder bundle) can outlast the rest of the traffic on
+                # a loaded host
+                kill_t.append(journal.now())
+                result["killed_node"] = manager.kill_one(
+                    max(busy, key=busy.get) if busy else None)
                 inj = get_injector()
                 try:
                     if inj is not None:
@@ -397,10 +412,8 @@ def run_serving_drill(
                 except (ConnectionError, RuntimeError):
                     # the injected fault is the kill decision (journaled as
                     # fault_injected by the master's reporter)
-                    logger.info("chaos fired on %s: SIGKILLing a replica",
-                                SERVE_REPLICA_SITE)
-                kill_t.append(journal.now())
-                result["killed_node"] = manager.kill_one()
+                    logger.info("chaos fired on %s: replica %s SIGKILLed",
+                                SERVE_REPLICA_SITE, result["killed_node"])
 
             t0 = time.monotonic()
             workers = [threading.Thread(target=_load_worker,

@@ -59,11 +59,12 @@ engine on ``--device`` (default ``cuda``; the toy backend, the
 reference's default, takes no device and says it serves no model): with
 ``--config tiny`` the small f32 model of ``build_tiny_engine``, with
 ``--config llama`` ``LlamaConfig()`` in bf16 (random weights from
-``--seed`` until a peer's arrive).
+``--seed`` until a peer's arrive), cut to ``--n-layers`` when given.
 """
 
 import argparse
 import collections
+import dataclasses
 import os
 import signal
 import subprocess
@@ -471,7 +472,8 @@ class LocalReplicaManager:
     serving autoscaler executes, ``kill_one`` the chaos hammer.
 
     Takes the reference's arguments, and for ``backend="torch"`` the
-    engine's: ``config`` (``tiny`` or ``llama``), ``device`` (default
+    engine's: ``config`` (``tiny`` or ``llama``), ``n_layers`` (its depth,
+    when given), ``device`` (default
     ``cuda``, which raises here on a box without CUDA; the toy backend
     takes none). ``seed`` is the seed of the replicas spawned from then
     on. A child that exits before it registers makes :meth:`wait_live`
@@ -496,6 +498,7 @@ class LocalReplicaManager:
         prefix_cache: bool = False,
         config: str = "tiny",
         device: Optional[str] = None,
+        n_layers: Optional[int] = None,
     ):
         if backend == "toy":
             if device is not None:
@@ -521,6 +524,7 @@ class LocalReplicaManager:
         self._prefix_cache = prefix_cache
         self._config = config
         self._device = device
+        self._n_layers = n_layers
         self._lock = threading.Lock()
         self._procs: Dict[int, subprocess.Popen] = {}
         self._tails: Dict[int, collections.deque] = {}
@@ -551,6 +555,8 @@ class LocalReplicaManager:
         ]
         if self._backend != "toy":
             cmd += ["--config", self._config, "--device", self._device]
+            if self._n_layers:
+                cmd += ["--n-layers", str(self._n_layers)]
         if self._quantize:
             cmd.append("--quantize")
         if self._prefix_cache:
@@ -697,9 +703,13 @@ def _build_engine(args, params=None):
                            step_delay_s=args.step_delay_s)
     else:
         device = torch.device(args.device)
-        config = (tiny_config(args.cache_len, args.vocab, args.dim,
-                              args.n_layers)
-                  if args.config == "tiny" else LlamaConfig())
+        if args.config == "tiny":
+            config = tiny_config(args.cache_len, args.vocab, args.dim,
+                                 args.n_layers or 2)
+        else:
+            config = LlamaConfig()
+            if args.n_layers:
+                config = dataclasses.replace(config, n_layers=args.n_layers)
         if params is None:
             params = init_params(
                 config, torch.Generator(device=device).manual_seed(args.seed),
@@ -732,7 +742,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--cache-len", type=int, default=48)
     parser.add_argument("--vocab", type=int, default=32)
     parser.add_argument("--dim", type=int, default=16)
-    parser.add_argument("--n-layers", type=int, default=2)
+    parser.add_argument("--n-layers", type=int, default=None,
+                        help="torch backend: the model's depth (tiny: 2; "
+                             "llama: LlamaConfig()'s 32)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--hb-interval-s", type=float, default=None)
     parser.add_argument("--step-delay-s", type=float, default=0.0)

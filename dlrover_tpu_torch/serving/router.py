@@ -226,6 +226,11 @@ class RequestRouter:
         with self._lock:
             return sum(self._inflight.values())
 
+    def inflight_by_node(self) -> Dict[int, int]:
+        """The attempts in flight on each replica that has any."""
+        with self._lock:
+            return dict(self._inflight)
+
     def ttft_p99(self) -> float:
         """TTFT p99 over the last 512 completions."""
         with self._lock:

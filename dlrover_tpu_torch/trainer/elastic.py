@@ -16,19 +16,25 @@ Across ranks the params are DTensors (``parallel.sharding.shard_tree``).
 The kernels take plain tensors through ``ctypes``, so a step gathers each
 param over every mesh axis but the ``local_axes`` the loss handles itself:
 ``pp`` for a pipeline loss (``llama.next_token_loss_pp``: a stage takes
-its block of the stacked layers) and ``ep`` for the MoE loss given the
-mesh (``moe.next_token_loss``: a rank runs its block of experts). The
-caller names them (``ElasticTrainer(local_axes=...)``); along them a leaf
-stays this rank's block, its f32 accumulator takes that block's shape,
-and no collective runs. Along the other axes (``fsdp``, ``tp``) the step
-computes on the whole tensor. It runs the micro steps on this rank's
-rows of the global batch, reduces the f32 accumulators to each leaf's
-placement as the mean over the ranks of the data axes, ``sp`` and ``pp``
+its block of the stacked layers), ``ep`` for the MoE loss given the mesh
+(``moe.next_token_loss``: a rank runs its block of experts), and
+``fsdp`` and ``tp`` for a loss given the mesh that computes on blocks
+(``models/llama.py``: each layer gathers its fsdp blocks inside its
+forward and its recompute through ``collectives.gather_shard``, whose
+backward reduce-scatters the grad into the block; the tp ranks run their
+own heads, columns and vocab rows between *f* and *g*). The caller names
+them (``ElasticTrainer(local_axes=...)``); along them a leaf stays this
+rank's block, its f32 accumulator takes that block's shape, and the step
+runs no collective of its own. Along the other axes the step computes on
+the whole tensor. It runs the micro steps on this rank's rows of the
+global batch, reduces the f32 accumulators to each leaf's placement as
+the mean over the ranks of the data axes, ``sp`` and ``pp``
 (``reduce_scatter_tensor`` along a gathered dim those axes shard,
-``all_reduce`` over those that replicate it), takes the global norm with
-one ``all_reduce`` and runs AdamW on the local shards. On one rank, or
-with plain tensors, no collective runs and the step is the single-card
-step bit for bit.
+``all_reduce`` over those that replicate it; a dim held as a block along
+a local ``fsdp`` was reduce-scattered by the model already), takes the
+global norm with one ``all_reduce`` and runs AdamW on the local shards.
+On one rank, or with plain tensors, no collective runs and the step is
+the single-card step bit for bit.
 
 Before it writes the state in place the step waits for the registered
 readers of it (``common.state_fence``: a checkpoint snapshot still
@@ -277,7 +283,7 @@ def _local(t):
 
 
 # the mesh axes along which a loss may compute on this rank's block
-LOCAL_AXES = ("pp", "ep")
+LOCAL_AXES = ("pp", "ep", "fsdp", "tp")
 
 
 def _local_dims(spec, local_axes):
@@ -339,9 +345,13 @@ def _reduce_to_placements(mesh, leaves, acc, loss, local_axes=()):
     a local axis is already this rank's block and is neither cut nor
     reduced along it: with a stage-local pipeline loss, no other stage
     touched the stage's layers, so the mean over pp is the stage's own
-    gradient over pp. Ranks that differ only in tp or ep ran the same rows
-    and agree on every gradient they both hold (under a local ``ep`` the
-    MoE FFN's ``to_ep`` sums the experts' shares of the replicated
+    gradient over pp. A dim held as a block along a local ``fsdp`` has
+    the sum over fsdp already (the model's ``gather_shard`` reduce-
+    scattered it), so the leaf is all-reduced over the other averaged
+    axes only, and divided by the whole ``n_mean``. Ranks that differ
+    only in tp or ep ran the same rows and agree on every gradient they
+    both hold (under a local ``ep`` or ``tp`` the region's *f*,
+    ``collectives.to_region``, sums the ranks' shares of the replicated
     leaves' gradients): they keep their region with no collective."""
     sizes = sharding.mesh_sizes(mesh)
     coords = sharding.mesh_coords(mesh)

@@ -8,7 +8,8 @@ checkpoint cadence:
   gloo on the CPU) + master client
 - mesh planning from the live world size (tp/sp fixed, fsdp absorbs), the
   params sharded as DTensors by their logical axes
-- ``ElasticTrainer`` — fixed global batch through grad-accum
+- ``ElasticTrainer`` — fixed global batch through grad-accum, the loss
+  computing on each rank's ``fsdp`` and ``tp`` blocks (``local_axes``)
 - ``ElasticDataLoader`` + ``ElasticDistributedSampler`` — resumable
 - Flash Checkpoint — memory saves every step, storage every 10; the
   sampler's position rides the checkpoint
@@ -120,13 +121,16 @@ def train(config, steps: int, global_batch: int, seq_len: int,
                           device),
         llama.param_logical_axes(config),
     )
+    # the model computes on this rank's fsdp and tp blocks: each layer
+    # gathers its fsdp blocks in its forward and its recompute
     trainer = ElasticTrainer(
-        loss_fn=lambda p, t: llama.next_token_loss(p, t, config),
+        loss_fn=lambda p, t: llama.next_token_loss(p, t, config, mesh),
         optimizer=adamw(3e-4),
         global_batch_size=global_batch,
         micro_batch_per_replica=micro_batch_per_replica or max(
             1, global_batch // (2 * plan.dp_total)),
         device=device,
+        local_axes=("fsdp", "tp"),
     )
     trainer.configure_for_world(plan)
     state = make_train_state(params, trainer._optimizer)

@@ -13,10 +13,15 @@ trainer steps on the whole stack and on the stage's own layers, for a
 ``pp`` plan with or without ``dp``), ``moe_ep`` (the MoE loss on the
 rank's own experts and trainer steps that keep them local, for an ``ep``
 plan) or ``moe_sp`` (the same with ring and Ulysses attention, for an
-``ep`` × ``sp`` plan). These four may run in one launch, each on its own
-mesh: mode ``sp,pp`` with the plan ``{"sp": <plan>, "pp": <plan>}``. Each
-reads its inputs from ``<out dir>/<mode>_inputs.npz`` and writes its
-tensors to ``<out dir>/<mode><world>_<rank>.npz``.
+``ep`` × ``sp`` plan), or one of the block layouts of
+:data:`BLOCK_LAYOUTS` (``fsdp2``, ``tp2``, ``fsdp4``, ``fsdp_tp``,
+``tp_sp``, ``pp_fsdp``, ``tp4``, ``moe_fsdp``, ``moe_tp``: the loss and
+every leaf's
+mean grad, and trainer steps, with ``fsdp`` and ``tp`` among the local
+axes). These may run in one launch, each on its own mesh: mode ``sp,pp``
+with the plan ``{"sp": <plan>, "pp": <plan>}``. Each reads its inputs
+from ``<out dir>/<mode>_inputs.npz`` and writes its tensors to
+``<out dir>/<mode><world>_<rank>.npz``.
 """
 
 import dataclasses
@@ -328,6 +333,117 @@ def moe_checks(mesh, plan, inp, res, arrays, strategies):
            local_axes=("ep",))
 
 
+# the layouts that compute on blocks along fsdp and tp: the model family
+# ("llama": PARALLEL_MODEL; "tiny": LlamaConfig.tiny(), whose KV heads at
+# tp 4 are split finer than a head; "moe": moe_config()), its config
+# overrides and the trainer's local axes (the plan is the launch's)
+BLOCK_LAYOUTS = {
+    "fsdp2": dict(family="llama", local=("fsdp", "tp")),
+    "tp2": dict(family="llama", local=("fsdp", "tp")),
+    "fsdp4": dict(family="llama", local=("fsdp", "tp")),
+    "fsdp_tp": dict(family="llama", local=("fsdp", "tp")),
+    "tp_sp": dict(family="llama", local=("fsdp", "tp"),
+                  config=dict(sp_attention="ring")),
+    "pp_fsdp": dict(family="llama", local=("pp", "fsdp", "tp"),
+                    config=dict(n_layers=4)),
+    "tp4": dict(family="tiny", local=("fsdp", "tp")),
+    "moe_fsdp": dict(family="moe", local=("ep", "fsdp")),
+    "moe_tp": dict(family="moe", local=("ep", "tp")),
+}
+
+
+def block_config(layout):
+    """The f32 config of a block layout (remat "dots", the flash path's
+    plain versions on the CPU)."""
+    spec = BLOCK_LAYOUTS[layout]
+    kw = dict(spec.get("config", {}))
+    if spec["family"] == "moe":
+        return moe_config(**kw)
+    kw.setdefault("n_layers", 2)
+    base = (dataclasses.replace(llama.LlamaConfig.tiny(),
+                                dtype=torch.float32)
+            if spec["family"] == "tiny" else parallel_config())
+    return dataclasses.replace(base, remat=True, use_flash_attention=True,
+                               **kw)
+
+
+def block_loss(c, mesh):
+    """The layout's loss on this rank's rows, given the mesh."""
+    if isinstance(c, moe.MoEConfig):
+        return lambda p, t: moe.next_token_loss(p, t, c, mesh)
+    if mesh_sizes(mesh)["pp"] > 1:
+        return lambda p, t: llama.next_token_loss_pp(p, t, c, mesh)
+    return lambda p, t: llama.next_token_loss(p, t, c, mesh)
+
+
+def block_checks(layout, mesh, plan, inp, res, arrays):
+    """The loss and every leaf's grad on the trainer's views (blocks along
+    the local axes, ``_compute_view``) reduced to the placements by the
+    trainer's own reduction and gathered whole (``grad/``, ``loss``);
+    what the step computed on: the layer leaves' shapes, every
+    all-gather's block shape and dim, the heads of every K1 call
+    (``seen``); then 3 trainer steps. ``tp2`` also runs the loss with tp
+    not local (whole weights entering the region through f:
+    ``grad_whole/``, ``loss_whole``)."""
+    from torch.distributed.tensor import DTensor
+
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel import collectives
+    from dlrover_tpu_torch.trainer import elastic
+    from dlrover_tpu_torch.trainer.optim import tree_unflatten
+
+    c = block_config(layout)
+    local = BLOCK_LAYOUTS[layout]["local"]
+    loss_fn = block_loss(c, mesh)
+    tokens = torch.from_numpy(np.array(inp["tokens"]))
+    rows = ElasticTrainer._rows_of_this_rank(mesh, tokens[None])[0]
+    seen = dict(gathers=[], heads=[])
+    real_gather, real_fwd = collectives._all_gather, fa.flash_attention_plain
+
+    def gather(x, group, dim):
+        seen["gathers"].append([list(x.shape), dim])
+        return real_gather(x, group, dim)
+
+    def fwd(q, *a, **k):
+        seen["heads"].append(q.shape[1])
+        return real_fwd(q, *a, **k)
+
+    variants = [("", local)]
+    if layout == "tp2":
+        variants.append(("_whole", ("fsdp",)))
+    for tag, axes in variants:
+        sharded = shard_tree(mesh, unflat(inp, "params/"),
+                             model(c).param_logical_axes(c))
+        leaves = tree_leaves(sharded)
+        views = [elastic._compute_view(p, axes).detach().requires_grad_()
+                 for p in leaves]
+        params = tree_unflatten(sharded, views)
+        collectives._all_gather, fa.flash_attention_plain = gather, fwd
+        try:
+            loss = loss_fn(params, rows)
+            grads = torch.autograd.grad(loss, views)
+        finally:
+            collectives._all_gather = real_gather
+            fa.flash_attention_plain = real_fwd
+        if not tag:
+            res["seen"] = dict(
+                seen, layers={n: list(t.shape)
+                              for n, t in params["layers"].items()})
+        out, _, mean_loss = elastic._reduce_to_placements(
+            mesh, leaves, [g.float() for g in grads], loss.detach().float(),
+            axes)
+        arrays[f"loss{tag}"] = mean_loss.numpy()
+        whole = tree_unflatten(sharded, [
+            DTensor.from_local(g, mesh, p.placements, run_check=False,
+                               shape=p.shape, stride=p.stride()
+                               ).full_tensor()
+            for p, g in zip(leaves, out)])
+        for name, g in flat(whole).items():
+            arrays[f"grad{tag}/{name}"] = g.numpy()
+    _steps(mesh, plan, c, loss_fn, inp, unflat(inp, "params/"), res, arrays,
+           "train", local_axes=local)
+
+
 def parallel_main(ctx, modes, plans, out_dir):
     res = {"rank": ctx.rank}
     for mode in modes:
@@ -339,6 +455,8 @@ def parallel_main(ctx, modes, plans, out_dir):
             sp_checks(ctx, ctx.world_size, mesh, plan, inp, res[mode], arrays)
         elif mode == "pp":
             pp_checks(mesh, plan, inp, res[mode], arrays)
+        elif mode in BLOCK_LAYOUTS:
+            block_checks(mode, mesh, plan, inp, res[mode], arrays)
         elif mode == "moe_ep":
             moe_checks(mesh, plan, inp, res[mode], arrays, [None])
         else:
@@ -353,7 +471,7 @@ def parallel_main(ctx, modes, plans, out_dir):
 def main(mode, plan_kw, out_dir):
     ctx = worker.init(device="cpu")
     modes = mode.split(",")
-    if set(modes) <= {"sp", "pp", "moe_ep", "moe_sp"}:
+    if set(modes) <= {"sp", "pp", "moe_ep", "moe_sp", *BLOCK_LAYOUTS}:
         return parallel_main(ctx, modes, plan_kw, out_dir)
     c = config(mode)
     m = model(c)

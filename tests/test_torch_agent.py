@@ -434,6 +434,61 @@ def test_abort_retried_in_place_only_after_a_peer_failed(job, evidence):
         master.stop()
 
 
+def test_a_short_incarnation_closes_its_recovery_before_its_fault(
+        job, monkeypatch):
+    """Two incarnations in a row each publish a step and fail before the
+    agent's next progress poll: each still reports ``step_resumed`` before
+    its failure, so the master's journal holds one incident a fault and
+    the first is resolved."""
+    from dlrover_tpu_torch.agent.monitor import TrainingMonitor
+    from dlrover_tpu_torch.agent.training import RunResult, WorkerState
+    from dlrover_tpu_torch.observability.incidents import stitch_incidents
+
+    master = LocalJobMaster(job_name=job, node_num=1)
+    master.prepare()
+    try:
+        config = ElasticLaunchConfig(
+            min_nodes=1, max_nodes=1, nproc_per_node=1, job_name=job,
+            master_addr=master.addr, max_restarts=3, entrypoint=SCRIPT)
+        agent = ElasticTrainingAgent(config, MasterClient(master.addr, 0, 0))
+        published = {}
+
+        class _Server:
+            """The workers' progress dict, as the agent's IPC serves it."""
+
+            def local_dict(self, name):
+                return published
+
+        # the periodic poll never runs: an hour between polls
+        agent._training_monitor = TrainingMonitor(
+            _Server(), agent._client, on_step=agent.observe_global_step,
+            interval_s=3600.0)
+
+        def restart(reason, grace_s=None):
+            # what a restart does to the progress bookkeeping; no workers
+            agent._last_global_step = 0
+            agent._last_step_ts = 0.0
+            agent._training_monitor.reset()
+
+        monkeypatch.setattr(agent, "_restart_workers", restart)
+        monkeypatch.setattr(agent, "_diagnose_training_failure",
+                            lambda codes: DiagnosisActionType.RESTART_WORKER)
+        for step in (3, 6):
+            published.update(step=step, ts=time.time())
+            assert agent._handle_worker_failure(
+                RunResult(WorkerState.FAILED, {0: -9}))
+        events = master.event_journal.events()
+        assert [e["kind"] for e in events] == [
+            "step_resumed", "fault_detected", "step_resumed",
+            "fault_detected"]
+        incidents = stitch_incidents(events, now_t=time.time())
+        assert [i.resolution for i in incidents] == ["resolved",
+                                                     "unresolved"]
+        assert master.perf_monitor.completed_global_step == 6
+    finally:
+        master.stop()
+
+
 def test_saver_persists_a_new_lineage_after_an_older_restore(job, tmp_path,
                                                               monkeypatch):
     """Storage holds step 5; a breakpoint save persists step 7, whose

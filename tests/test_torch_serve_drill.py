@@ -23,6 +23,8 @@ trace id a replica answered with) is a ``serve.route`` trace of the
 router's process: the context crossed the wire both ways.
 """
 
+import time
+
 import pytest
 
 pytest.importorskip("torch")
@@ -133,6 +135,34 @@ def test_jax_replicas_under_the_port_drill(monkeypatch):
     _assert_kill_drill(result, 24)
     assert result["false_deaths"] == []
     assert len({tuple(t) for t in result["probe_tokens"].values()}) == 1
+
+
+def test_kill_lands_mid_traffic_when_the_fault_report_is_slow(monkeypatch):
+    """The chaos fault's report (the master's journal entry and its
+    flight-recorder bundle) can take longer on a loaded host than the
+    rest of the toy traffic. The drill SIGKILLs a replica that holds
+    requests in flight first and reports the fault after, so the kill
+    still lands mid-traffic: here the report takes 1.5 s, several times
+    what the traffic after the threshold takes."""
+    real = tdrill.get_injector
+
+    class _SlowReport:
+        def __init__(self, inj):
+            self._inj = inj
+
+        def fire(self, *args, **kwargs):
+            time.sleep(1.5)
+            return self._inj.fire(*args, **kwargs)
+
+    def slow():
+        inj = real()
+        return None if inj is None else _SlowReport(inj)
+
+    monkeypatch.setattr(tdrill, "get_injector", slow)
+    result = tdrill.run_serving_drill(replicas=2, backend="toy",
+                                      num_requests=24)
+    _assert_kill_drill(result, 24)
+    assert result["false_deaths"] == []
 
 
 def test_manager_raises_with_the_exit_code_of_a_replica_that_never_registered():
