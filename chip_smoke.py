@@ -13,6 +13,7 @@
     python3 chip_smoke.py --moe      # the Mixtral-class MoE phase alone
     python3 chip_smoke.py --moe --control dk0  # ... with a kernel made wrong
     python3 chip_smoke.py --timer-ab # phase 6's step without and with it
+    python3 chip_smoke.py --copy-probe  # the replica store's frame copy
     python3 chip_smoke.py --multi 4  # the elastic loop across 4 cards
     python3 chip_smoke.py --node-drill 4  # its node drill alone
     python3 chip_smoke.py --parallel 4  # ring, Ulysses, GPipe, MoE, fsdp, tp
@@ -137,9 +138,12 @@ phase 8 after phase 6, ``straggler`` last:
    storage's step 5) and give the unkilled run's losses for steps 8-10.
 8. ``elastic`` — the port's ``dlrover-run`` (``python -m
    dlrover_tpu_torch.agent.run --standalone --nproc-per-node=1
-   --max-restarts=3 --save-at-breakpoint``, its master in the agent
-   process; started as ``python -c`` around ``run.main``, which then
-   checks the agent's modules) drives the twin at phase 6's sizes on the card, through three
+   --max-restarts=4 --save-at-breakpoint --ckpt-replica=2``, its master
+   in the agent process; started as ``python -c`` around ``run.main``,
+   which then checks the agent's modules) drives the twin at phase 6's
+   sizes on the card, every incarnation released from a warm spare (the
+   agent's pool, spawned after the timer's build), each sealed frame
+   pushed to the agent's replica store, through four
    faults keyed on the agent's restart count: a SIGKILL once step 3's
    frame is sealed (the agent's breakpoint save, then a restore from shm
    at 3); a torn step-6 frame (``DLROVER_FAULT_SCHEDULE=
@@ -153,11 +157,22 @@ phase 8 after phase 6, ``straggler`` last:
    ``XPU_TIMER_COMMON_HANG``, the agent's beats carry it, and the master's
    hang rule, with ``hang_downtime_s`` 1.5 × phase 6's longest
    step-report gap + 10 s, hears the node's vote and queues a wedged
-   ``RESTART_WORKER``; the restore comes from shm at 8. Held: the agent
-   exits 0 after 3 restarts, each restore's medium and step, storage
-   holding 3, 5 and 8 and never 6, every step's last loss equal to phase
-   6's unkilled loss within the unkilled runs' spread, K1-K3 launched in
-   every incarnation, no JAX module in the agent or any worker; and the
+   ``RESTART_WORKER``; the restore comes from shm at 8; once the agent's
+   store holds step 9's frame, the worker unlinks its own segment and
+   SIGKILLs itself: the breakpoint save finds no frame, and the restore
+   writes step 9 back from the store and restores it from shm. Held: the
+   agent exits 0 after 4 restarts, each restore's medium and step, step 9
+   written back from the store, the store holding step 6 (torn: its copy
+   fails its CRCs and is refused) and step 9 at their kills, storage
+   holding 3, 5 and 8 and never 6 or 9, every step's last loss equal to
+   phase 6's unkilled loss within the unkilled runs' spread, K1-K3
+   launched in every incarnation, no JAX module in the agent or any
+   worker; every incarnation a warm spare's (torch imported at the
+   script's first line, the spare's times in its environment, every spawn
+   event warm) with no CUDA context at the script's first line, and no
+   process on the card (``nvidia-smi --query-compute-apps=pid``, polled
+   each second, when it shows this namespace's pids) but this one and the
+   released workers, each after its release; and the
    hang loop: the beats carried the gauge with non-zero
    ``XPU_TIMER_MM_KERNEL_*`` families, the master's verdict was
    ``training_hang`` on node 0's vote, the daemon's stack dump holds the
@@ -174,9 +189,13 @@ phase 8 after phase 6, ``straggler`` last:
    is journaled as ``memory_pressure`` and its bundle holds
    ``memory.json``, which ``python -m
    dlrover_tpu_torch.observability.report`` renders, and the report of
-   the run's journal counts one incident a fault (three). Prints
+   the run's journal counts one incident a fault (four). Prints
    each fault's detect (fault → the agent acts) and restart (fault → the
-   next incarnation's first step) seconds and restore, the gauge's rise
+   next incarnation's first step) seconds and restore, each
+   incarnation's pre-import and release-to-script seconds, the pushes'
+   rate and the store's lag in steps, the steps' own time with the
+   pushes (each from the end of the previous step's waits; kill and
+   storage steps left out) against phase 6's, the gauge's rise
    after the wedge, the median step time under the timer against phase
    6's, the rendezvous rounds, each incarnation's start-up seconds, and
    ``wall_s`` and ``goodput_pct`` (``compute_goodput`` over the run's
@@ -326,12 +345,18 @@ alone, held against its own unkilled run, with no result line.
 rank saving its own shards): its losses and grad norms against one card's
 (step 1 at the trainer tests' limits, later steps looser), two unkilled
 runs against each other, phase 6's drill across the ranks, and the node
-drill: a port master in this process and two port agents of N/2 workers,
-agent 1's process group SIGKILLed once storage holds step 5, the
-survivor at N/2 ranks
-with twice the accumulation steps restored from storage, agent 1 back
-and the world at N again, the losses against the unkilled run at the
-later-step limits, its agents with ``--tpu-timer`` so the beats carry the
+drill: a port master in this process and two port agents of N/2 workers
+with ``--ckpt-replica 2``, agent 1's process group SIGKILLed once
+storage holds step 5 and node 0's replica store holds both nodes' frames
+at one step past it; the survivor at N/2 ranks with twice the
+accumulation steps, its live reshard aborted on coverage (journaled),
+restored on every rank from the peer frames in node 0's store at that
+step; agent 1 back and every rank of the world at N restored by live
+reshard from node 0's frames (node 1's ranks over the fabric), no rank
+reading storage after the kill; the losses against the unkilled run at
+the later-step limits; every rank prints its restore (the reshard's
+local and remote bytes, the seconds) and rank 0 the pushes; its agents
+with ``--tpu-timer`` so the beats carry the
 hooked NCCL all-reduces' entry markers: before the kill the skew monitor
 shows every rank at one collective count and no hang; no result line.
 ``--node-drill N`` runs the node drill alone, held against its own
@@ -365,6 +390,16 @@ exits non-zero and prints no result.
 TF32 is switched off for matmuls and cuDNN, so f32 reference products on
 the card are full f32.
 """
+
+import time as _time
+
+# this script's first line ran: a worker released from a warm spare finds
+# torch imported already (phase 8 and the node drill print both)
+_SCRIPT_T0 = _time.time()
+_WARM_START = "torch" in __import__("sys").modules
+# a spare must hold no CUDA context before its release
+_CUDA_AT_FIRST_LINE = (_WARM_START and __import__("sys").modules[
+    "torch"].cuda.is_initialized())
 
 import atexit
 import contextlib
@@ -3847,8 +3882,16 @@ def resume_child(args) -> int:
 # once step 3's memory frame is sealed; the second tears its step-6 frame
 # (the injector) and is killed after it, waiting at its storage step until
 # storage holds that step (so the step-6 frame is not skipped as busy);
-# the third wedges the card after step 8, outside the training span
-ELASTIC_PLAN = {0: ("kill", 3), 1: ("kill", 6), 2: ("hang", 8)}
+# the third wedges the card after step 8, outside the training span; the
+# fourth, once the agent's replica store holds its step-9 frame, unlinks
+# its own segment and SIGKILLs itself
+ELASTIC_PLAN = {0: ("kill", 3), 1: ("kill", 6), 2: ("hang", 8),
+                3: ("unlink_kill", 9)}
+# the incarnations whose restore the store's copy of the killed step
+# decides (the torn frame's, refused; the unlinked frame's, written back):
+# they wait for the store to hold that step before the kill, the push of
+# the step before waited out so the kill step's is not skipped as busy
+ELASTIC_STORE_WAIT = (1, 3)
 # the device timer's hang timeout in phase 8: below the hang rule's
 # downtime, so the gauge is up in the beats before the stall counts
 ELASTIC_HANG_TIMEOUT_S = 10.0
@@ -3930,8 +3973,7 @@ def elastic_child(args) -> int:
     kind, at = ELASTIC_PLAN.get(restart, (None, None))
 
     def emit_line(tag, **data):
-        print(f"{tag} " + json.dumps(dict(restart=restart, t=time.time(),
-                                          **data)), flush=True)
+        _say(tag, dict(restart=restart, t=time.time(), **data))
 
     engine = []
     from dlrover_tpu_torch.observability import tracing
@@ -3949,23 +3991,84 @@ def elastic_child(args) -> int:
                 out.append([sp.attrs.get("step"), sp.trace_id])
         return out
 
+    spent = {}
+
+    def timed(obj, name):
+        """Sum the seconds of ``obj.name``'s calls into ``spent``."""
+        fn = getattr(obj, name)
+
+        def call(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] = (spent.get(name, 0.0)
+                               + time.perf_counter() - t0)
+
+        setattr(obj, name, call)
+
     def on_start(start_step, ckpt, trainer):
+        from dlrover_tpu_torch.common import state_fence
+
         engine.append(ckpt.engine)
+        # a step's parts: its train step, the optimizer's wait (inside it)
+        # for the last save's device-to-host copy, its save (the save lock
+        # and the frame's registration cross the agent's IPC) and its
+        # progress calls to the agent
+        for obj, name in ((trainer, "train_step"),
+                          (state_fence, "wait_readers"),
+                          (ckpt, "save_checkpoint"),
+                          (ctx, "publish_step"), (ctx, "report_step")):
+            timed(obj, name)
         emit_line("START", start_step=start_step, pid=os.getpid(),
                   restore=ckpt.engine.last_restore,
-                  grad_accum=trainer.grad_accum_steps)
+                  grad_accum=trainer.grad_accum_steps,
+                  **_start_of_script())
         # the model is built and restored: everything is imported by now
         emit_line("MODULES", forbidden=sorted(
             m for m in sys.modules
             if m.split(".")[0] in ("jax", "jaxlib", "dlrover_tpu")))
 
+    prev_end = []
+
     def on_step(step, loss):
+        replicas = engine[0].replicas
+        # the step's own time: from the end of the previous on_step (its
+        # waits left out) to here, the save's non-blocking part included
         emit_line("STEP", step=step, loss=float(loss),
-                  launches=_launches(), ckpt_traces=ckpt_traces())
+                  launches=_launches(), ckpt_traces=ckpt_traces(),
+                  push=replicas.last_push if replicas else None,
+                  work_s=time.time() - prev_end[0] if prev_end else None,
+                  parts=dict(spent),
+                  saved=engine[0].last_save.get("step") == step,
+                  last_save=dict(engine[0].last_save))
         # the op telemetry this step's publish will carry, beside the mm
         # family's compute count on this worker's device-timer /metrics:
         # both from the one native engine, read once its events drained
         emit_line("OPTEL", step=step, **_optel_vs_metrics())
+        if restart in ELASTIC_STORE_WAIT and replicas is not None:
+            if step + 1 == at:
+                # the drain ends with the store's copy
+                engine[0].wait_drained()
+            elif step == at:
+                # the fault waits on the store's step, not on the seal
+                engine[0].wait_drained()
+                stored = _await_stored(replicas, engine[0].local_rank,
+                                       step)
+                emit_line("STORED", step=step, stored=stored,
+                          push=replicas.last_push)
+        if kind == "unlink_kill" and step == at:
+            # the incarnation's one step reaches the agent (its recovery
+            # closes before this fault opens one); the segment goes next:
+            # the restore cannot come from shm, and the agent's breakpoint
+            # save finds no frame of this step
+            ctx.publish_step(step)
+            engine[0]._shm.unlink()
+            print(json.dumps({"killed_at_step": step, "ts": time.time()}),
+                  flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        prev_end[:] = [time.time()]
+        spent.clear()
         if kind == "hang" and step + 1 == at:
             # the hang restores the wedged step's frame: the drill waits
             # out this drain so that step's save is not skipped as busy
@@ -4007,6 +4110,44 @@ def elastic_child(args) -> int:
     return 0
 
 
+def _say(tag, obj):
+    """One ``TAG {json}`` line in one write: the ranks of a node share
+    their agent's stdout, and a line written in pieces interleaves."""
+    sys.stdout.flush()
+    os.write(sys.stdout.fileno(),
+             f"{tag} {json.dumps(obj)}\n".encode())
+
+
+def _start_of_script():
+    """How this worker process started: from a warm spare (torch imported
+    before the script's first line) with its spawn, pre-import and release
+    times, or cold; the seconds from release (warm) to the script's first
+    line; and whether torch held a CUDA context at that line."""
+    from dlrover_tpu_torch.common.constants import ConfigKey
+
+    spare = os.environ.get(ConfigKey.WARM_SPARE)
+    out = dict(warm=_WARM_START, script_t0=_SCRIPT_T0, spare=None)
+    if spare:
+        spawn, import_s, release = (float(x) for x in spare.split(","))
+        out["spare"] = dict(spawn=spawn, import_s=import_s, release=release,
+                            release_to_script_s=_SCRIPT_T0 - release)
+    out["cuda_at_first_line"] = bool(_CUDA_AT_FIRST_LINE)
+    return out
+
+
+def _await_stored(replicas, local_rank, step, timeout=600):
+    """The newest step of this worker's own frame in the stores, waited
+    (bounded) until it reaches ``step``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        mine = max((s for o, lr, s in replicas.list_entries()
+                    if (o, lr) == (replicas.node_rank, local_rank)),
+                   default=-1)
+        if mine >= step or time.monotonic() > deadline:
+            return mine
+        time.sleep(0.05)
+
+
 def node_child(args) -> int:
     """One worker of the node drill (``--multi``): the twin at a fixed
     micro batch of 1 a replica, so a smaller world takes more
@@ -4032,20 +4173,24 @@ def node_child(args) -> int:
     node = env_int(EnvKey.NODE_RANK, 0)
 
     def emit_line(tag, **data):
-        print(f"{tag} " + json.dumps(dict(
-            node=node, restart=restart, rank=ctx.rank,
-            world=ctx.world_size, t=time.time(), **data)), flush=True)
+        _say(tag, dict(node=node, restart=restart, rank=ctx.rank,
+                       world=ctx.world_size, t=time.time(), **data))
+
+    engine = []
 
     def on_start(start_step, ckpt, trainer):
-        if ctx.rank == 0:
-            emit_line("START", start_step=start_step,
-                      restore=ckpt.engine.last_restore,
-                      grad_accum=trainer.grad_accum_steps)
+        # every rank reports its restore
+        engine.append(ckpt.engine)
+        emit_line("START", start_step=start_step,
+                  restore=ckpt.engine.last_restore,
+                  grad_accum=trainer.grad_accum_steps, **_start_of_script())
 
     def on_step(step, loss):
         if ctx.rank == 0:
+            replicas = engine[0].replicas
             emit_line("STEP", step=step, loss=float(loss),
-                      launches=_launches())
+                      launches=_launches(),
+                      push=replicas.last_push if replicas else None)
         # pace the drill: the kill lands while the full world trains, and
         # the returning node joins while the small world has steps left
         time.sleep(args["pace_s"])
@@ -4132,6 +4277,22 @@ def _median_step_s(runs, storage_every):
                  for a, b in zip(order[1:], order[2:])
                  if int(b) % storage_every]
     return float(np.median(gaps)) if gaps else None
+
+
+def _steady_train_step_s(step_lines):
+    """The median ``train_step`` of the steps that neither start their
+    incarnation (warm-up) nor wait for a save's device-to-host copy (the
+    step after an incarnation's first save waits seconds for its cold
+    drain, with or without replicas): the step's own compute beside the
+    agent's copies; None when no step qualifies."""
+    first = {}
+    for r in step_lines:
+        first.setdefault(r["restart"], r["step"])
+    got = [r["parts"]["train_step"] for r in step_lines
+           if r.get("parts") and r["step"] != first[r["restart"]]
+           and r["parts"].get("wait_readers", 0.0) < 0.05
+           and "train_step" in r["parts"]]
+    return float(np.median(got)) if got else None
 
 
 def _timer_evidence(text, wedge_t):
@@ -4224,20 +4385,23 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
     env["DLROVER_TPU_HTTP_PORT"] = master_http.rsplit(":", 1)[1]
     log_path = os.path.join(ckpt_root, f"{job}.log")
     t0 = time.time()
-    scraped = {}
+    scraped, card_pids = {}, {}
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
             [sys.executable, "-c", ELASTIC_AGENT, "--standalone",
-             "--nproc-per-node=1", "--max-restarts=3",
+             "--nproc-per-node=1", "--max-restarts=4",
              "--save-at-breakpoint", "--monitor-interval=0.1",
-             "--tpu-timer", f"--job_name={job}", f"--ckpt_dir={ckpt_dir}",
-             os.path.abspath(__file__), "--elastic-child", json.dumps(args)],
+             "--tpu-timer", "--ckpt-replica=2", f"--job_name={job}",
+             f"--ckpt_dir={ckpt_dir}", os.path.abspath(__file__),
+             "--elastic-child", json.dumps(args)],
             env=env, stdout=log, stderr=subprocess.STDOUT, text=True,
             cwd=REPO, start_new_session=True)
         try:
             deadline = time.monotonic() + timeout
             while proc.poll() is None and time.monotonic() < deadline:
                 _scrape_master(master_http, scraped)
+                if device.type == "cuda":
+                    _card_pids(card_pids)
                 time.sleep(1.0)
             rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
         finally:
@@ -4295,9 +4459,33 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         launches[r["restart"]] = r["launches"]
         first_step.setdefault(r["restart"], r["t"])
         step_t.setdefault(r["restart"], {})[r["step"]] = r["t"]
+    # the steps' own times, under the pushes: the kill steps (waited
+    # drains) and the storage steps left out
+    work_rows = [r for r in step_lines if r.get("work_s")
+                 and r["step"] % storage_every and r["step"] not in kills]
+    work = [r["work_s"] for r in work_rows]
+    # the medians of those steps' parts (the rest: the loader and the
+    # loss's sync), and how many of them saved (the others skipped, the
+    # drain and the store's copy still running)
+    parts = {k: float(np.median([r["parts"].get(k, 0.0)
+                                 for r in work_rows]))
+             for k in ("train_step", "wait_readers", "save_checkpoint",
+                       "publish_step", "report_step")} if work_rows else {}
+    # every step's own time and parts, the save it made or skipped, and
+    # the newest save's drain (a first save in a process drains cold)
+    step_rows = [dict(restart=r["restart"], step=r["step"],
+                      work_s=r.get("work_s"), parts=r.get("parts"),
+                      saved=r.get("saved"), last_save=r.get("last_save"))
+                 for r in step_lines]
     timer.update(step_s_timer=_median_step_s(step_t.values(),
                                              storage_every),
                  step_s_phase6=reference.get("step_s"),
+                 work_step_s=float(np.median(work)) if work else None,
+                 work_steps=len(work), work_parts_s=parts,
+                 steady_train_step_s=_steady_train_step_s(step_lines),
+                 steps=step_rows,
+                 work_steps_saved=sum(bool(r.get("saved"))
+                                      for r in work_rows),
                  hang_timeout_s=ELASTIC_HANG_TIMEOUT_S)
 
     def fault(restart, t_fault, acted):
@@ -4321,7 +4509,13 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
             2, wedges[0]["t"] if wedges else None,
             next((r["ts"] for r in restarts
                   if "diagnosis action" in r["content"]["reason"]), None)),
+        "unlink_kill_after_9": fault(3, kills.get(9), fails[2]["ts"]
+                                     if len(fails) > 2 else None),
     }
+    written_back = starts.get(4, {}).get("restore", {}).get("written_back")
+    stored_lines = {r["restart"]: r for r in _lines(text, "STORED")}
+    spares = _spare_rows(starts, spawns, card_pids, os.getpid())
+    pushes = _push_rows(step_lines)
     startup_s = {sp["content"]["restart_count"]:
                  first_step.get(sp["content"]["restart_count"], 0) - sp["ts"]
                  for sp in spawns}
@@ -4329,28 +4523,42 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
     want = reference["losses"]
     worst = max(abs(losses.get(s, float("nan")) - want[s]) / abs(want[s])
                 for s in want)
-    per_run = [launches.get(r, {}) for r in range(4)]
+    per_run = [launches.get(r, {}) for r in range(5)]
     expect = {"kill_after_3": ("shm", 3), "torn_6_kill_after_6":
-              ("storage", 5), "hang_after_8": ("shm", 8)}
+              ("storage", 5), "hang_after_8": ("shm", 8),
+              "unlink_kill_after_9": ("shm", 9)}
     problems = []
     if rc != 0:
         problems.append(f"the agent exited {rc}")
-    if len(spawns) != 4 or len(fails) != 2:
+    if len(spawns) != 5 or len(fails) != 3:
         problems.append(f"{len(spawns)} spawns, {len(fails)} failures")
     for name, (medium, step) in expect.items():
         if (faults[name]["medium"], faults[name]["step"]) != (medium, step):
             problems.append(f"{name} restored {faults[name]}")
+    # the fourth fault's frame came back from the agent's store, and the
+    # store held the killed steps (the torn copy of 6 refused by its CRCs)
+    if written_back != "replica":
+        problems.append(f"step 9 was not written back from the replica "
+                        f"store: {starts.get(4, {}).get('restore')}")
+    if ({r: ln["stored"] for r, ln in stored_lines.items()} != {1: 6, 3: 9}
+            or "fails its integrity check" not in text):
+        problems.append(f"the store's copies: {stored_lines} (the torn "
+                        f"copy refused: {'fails its integrity' in text})")
     if "chaos: injected torn" not in text or (
             "refusing to persist" not in text):
         problems.append("the torn frame was not injected and refused")
-    if 6 in stored or not {3, 5, 8} <= set(stored):
+    if {6, 9} & set(stored) or not {3, 5, 8} <= set(stored):
         problems.append(f"storage holds steps {stored}")
     if sorted(losses) != list(range(1, steps + 1)) or not (
             worst <= reference["spread"]):
         problems.append(f"losses {losses} vs {want}")
-    if (len(modules) != 4 or any(m["forbidden"] for m in modules)
+    if (len(modules) != 5 or any(m["forbidden"] for m in modules)
             or agent_modules != ["AGENT_MODULES "]):
         problems.append(f"modules {modules} {agent_modules}")
+    # every incarnation from a warm spare, no cold fallback, and no spare
+    # on the card (a CUDA context) before its release
+    if spares["problems"]:
+        problems.append("warm spares: " + "; ".join(spares["problems"]))
     for r, c in enumerate(per_run):
         if not all(c.get(k) for k in ("flash_fwd", "flash_bwd_dq",
                                       "flash_bwd_dkv")):
@@ -4377,7 +4585,9 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         global_batch=global_batch, seq_len=seq, steps=steps,
         storage_every=storage_every, hang_downtime_s=hang_downtime_s,
         agent_exit=rc, restarts=len(spawns) - 1, faults=faults,
-        rendezvous_rounds=rounds, startup_s=startup_s,
+        step_9_written_back=written_back, store_at_kill=stored_lines,
+        spares=spares["rows"], card_pids_seen=spares["card_pids_seen"],
+        pushes=pushes, rendezvous_rounds=rounds, startup_s=startup_s,
         breakpoint_saves=bp_saves, storage_steps=stored,
         losses=[losses.get(s) for s in range(1, steps + 1)],
         max_rel_diff_vs_unkilled=worst,
@@ -4395,6 +4605,165 @@ def elastic_phase(config, device, ckpt_root, global_batch, seq, steps,
         raise AssertionError("elastic: " + "; ".join(problems)
                              + "\n" + text[-6000:])
     return per_run
+
+
+def copy_probe(nbytes=6_170_000_000, rounds=("bytearray", "numpy", "numpy",
+                                            "bytearray")):
+    """``--copy-probe``: the replica store's copy of a phase-8-sized frame
+    (6.17 GB) out of a ``/dev/shm`` file, by ``preadv`` into a
+    ``bytearray`` (zeroed first, under the GIL) or into an unzeroed numpy
+    buffer (what ``SharedMemoryHandler.read_frame_bytes`` allocates), with
+    a thread beside it that sleeps 1 ms at a time, as the agent's IPC and
+    RPC threads wait beside the store's copy: each round's copy seconds
+    and the thread's longest wake-up gap (how long the copy held the
+    GIL)."""
+    import threading
+
+    from dlrover_tpu_torch.ckpt.shm_handler import SharedMemoryHandler
+
+    path = f"/dev/shm/dlrtpu_copyprobe_{os.getpid()}"
+    fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o600)
+    rows = []
+    try:
+        block = np.random.default_rng(SEED).integers(
+            0, 255, 64 << 20, dtype=np.uint8).tobytes()
+        for off in range(0, nbytes, len(block)):
+            os.write(fd, block[:nbytes - off])
+        del block
+        for kind in rounds:
+            gaps, stop = [0.0], threading.Event()
+
+            def tick():
+                while not stop.is_set():
+                    t = time.perf_counter()
+                    time.sleep(0.001)
+                    gaps[0] = max(gaps[0], time.perf_counter() - t)
+
+            ticker = threading.Thread(target=tick, daemon=True)
+            ticker.start()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            buf = (bytearray(nbytes) if kind == "bytearray"
+                   else memoryview(np.empty(nbytes, np.uint8)))
+            alloc_s = time.perf_counter() - t0
+            ok = SharedMemoryHandler._preadv_full(fd, buf, 0)
+            copy_s = time.perf_counter() - t0
+            stop.set()
+            ticker.join()
+            rows.append(dict(buffer=kind, ok=ok, alloc_s=alloc_s,
+                             copy_s=copy_s, gb_per_s=nbytes / copy_s / 1e9,
+                             max_tick_gap_s=gaps[0]))
+            del buf
+            gc.collect()
+    finally:
+        os.close(fd)
+        os.unlink(path)
+    emit(dict(phase="copy_probe", bytes=nbytes, rounds=rows, card=_card()))
+    if not all(r["ok"] for r in rows):
+        raise AssertionError(f"copy_probe: a read failed: {rows}")
+
+
+def _card_pids(seen):
+    """Record the first time each process with a context on the card
+    appears in ``nvidia-smi``."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=10).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return
+    now = time.time()
+    for ln in out.split():
+        if ln.strip().isdigit():
+            seen.setdefault(int(ln), now)
+
+
+def _spare_rows(starts, spawns, card_pids, parent_pid):
+    """Each incarnation's start: warm or cold, the spare's pre-import
+    seconds, release (or spawn) to the script's first line, and when its
+    pid first held a context on the card. Problems: a cold start or a cold
+    spawn event, a context before the release, or a card process that is
+    no worker of the run (a spare with a context). ``nvidia-smi`` pids
+    are read only when it shows this process (the parent holds a
+    context), i.e. when the card's pids are this namespace's."""
+    rows, problems = {}, []
+    spawn_ts = {sp["content"]["restart_count"]: sp for sp in spawns}
+    visible = parent_pid in card_pids
+    workers = {r.get("pid") for r in starts.values()}
+    for restart, r in sorted(starts.items()):
+        spare = r.get("spare") or {}
+        sp = spawn_ts.get(restart, {})
+        first = card_pids.get(r.get("pid"))
+        rows[restart] = dict(
+            warm=r.get("warm"), pid=r.get("pid"),
+            import_s=spare.get("import_s"),
+            release_to_script_s=spare.get("release_to_script_s"),
+            spawn_to_script_s=(r["script_t0"] - sp["ts"]
+                               if not spare and sp else None),
+            on_card_after_release_s=(first - spare["release"]
+                                     if first and spare else None),
+            cuda_at_first_line=r.get("cuda_at_first_line"))
+        if not r.get("warm") or not spare:
+            problems.append(f"incarnation {restart} started cold")
+        if r.get("cuda_at_first_line"):
+            problems.append(f"incarnation {restart}: a CUDA context before "
+                            f"the script")
+        if sp and sp["content"].get("warm") != [True]:
+            problems.append(f"spawn {restart} warm={sp['content'].get('warm')}")
+        # nvidia-smi is polled once a second
+        if visible and first and spare and first < spare["release"] - 1.5:
+            problems.append(f"incarnation {restart}'s spare (pid "
+                            f"{r.get('pid')}) was on the card before its "
+                            f"release")
+    strangers = sorted(set(card_pids) - workers - {parent_pid}) \
+        if visible else []
+    if strangers:
+        problems.append(f"processes on the card that are no worker: "
+                        f"{strangers}")
+    seen = "visible"
+    if not visible and card_pids:
+        # another pid namespace: the pids on the card at the first poll
+        # are this process's, every later one a worker's; the k-th to
+        # appear must not come before the k-th release
+        first = min(card_pids.values())
+        later = sorted(t for t in card_pids.values() if t > first)
+        releases = sorted(r["spare"]["release"] for r in starts.values()
+                          if r.get("spare"))
+        seen = (f"another namespace: {len(later)} worker pids after "
+                f"{len(releases)} releases")
+        if len(later) > len(releases) or any(
+                t < rel - 1.5 for t, rel in zip(later, releases)):
+            problems.append(f"a card process appeared before its release: "
+                            f"{later} vs {releases}")
+    elif not visible:
+        seen = "none listed"
+    return {"rows": rows, "problems": problems, "card_pids_seen": seen}
+
+
+def _push_rows(step_lines):
+    """The replica pushes as the workers saw them: each step's newest
+    completed push (its step, so the store's lag in steps, and its rate)."""
+    rows = []
+    for r in step_lines:
+        push = r.get("push") or {}
+        if push.get("seconds"):
+            copy_s = push.get("copy_s")
+            rows.append(dict(restart=r["restart"], step=r["step"],
+                             pushed_step=push["step"],
+                             lag_steps=r["step"] - push["step"],
+                             gb_per_s=push["bytes"] / push["seconds"] / 1e9,
+                             copy_gb_per_s=(push["bytes"] / copy_s / 1e9
+                                            if copy_s else None),
+                             bytes=push["bytes"]))
+    rates = [p["gb_per_s"] for p in rows]
+    copies = [p["copy_gb_per_s"] for p in rows if p["copy_gb_per_s"]]
+    lags = [p["lag_steps"] for p in rows]
+    return dict(per_step=rows,
+                median_gb_per_s=float(np.median(rates)) if rates else None,
+                median_copy_gb_per_s=(float(np.median(copies)) if copies
+                                      else None),
+                max_lag_steps=max(lags) if lags else None)
 
 
 def _scrape_master(addr, scraped):
@@ -4421,15 +4790,17 @@ def _attribution_checks(scraped, bundle_dir, ckpt_root, job, optel, text):
     journal. Returns ``{"row", "problems"}``."""
     problems, row = [], {}
     beats = scraped.get("/heartbeats", {}).get("0", {})
-    rounds = {int(k): v for k, v in beats.items()}
+    # round -1: the beats before the first rendezvous (the agent waits
+    # for its warm spares' imports first), no incarnation's
+    rounds = {int(k): v for k, v in beats.items() if int(k) >= 0}
     row["beats"] = {r: {k: v for k, v in rec.items()
                         if not k.startswith("last_")}
                     for r, rec in sorted(rounds.items())}
     # a beat reports a step once the agent's progress poll (every 5 s)
-    # saw one: the three faulted incarnations live that long, the last
-    # (two steps) may not
+    # saw one: the first three faulted incarnations live that long, the
+    # last two (one step each) may not
     stepped = [rec for rec in rounds.values() if rec["stepped"]]
-    if len(rounds) != 4 or len(stepped) < 3 or any(
+    if len(rounds) != 5 or len(stepped) < 3 or any(
             rec["stepped_with_op_telemetry"] != rec["stepped"]
             or rec["stepped_with_memory"] != rec["stepped"]
             for rec in stepped):
@@ -4499,7 +4870,8 @@ def _attribution_checks(scraped, bundle_dir, ckpt_root, job, optel, text):
             problems.append(f"the memory bundle {files} and its report "
                             f"{report.get('bundle')}")
     row["report_journal"] = report["journal"]["text"].splitlines()[:8]
-    faults = ("killed at 3", "torn 6 and killed", "hang after 8")
+    faults = ("killed at 3", "torn 6 and killed", "hang after 8",
+              "unlinked and killed at 9")
     if (report["journal"]["rc"] != 0 or not report["journal"]["text"]
             .startswith(f"incident report: {len(faults)} incident(s)")):
         problems.append(f"the report of the journal: {report['journal']}")
@@ -4895,34 +5267,51 @@ def multi_phase(config, device, ckpt_root, ranks, global_batch, seq, steps,
 
 
 def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
-               storage_every, rejoin_at, reference):
+               storage_every, rejoin_at, reference, replica=True,
+               pace_s=4.0, seed_dir=None, loss_tol=None, timer=True):
     """The kill-shrink-rejoin drill across cards (``--multi``): a port
     master in this process and two port agents of ``ranks // 2`` workers
     each (one card a worker, NCCL, fsdp over the world), their steps paced
-    4 s apart. Agent 1's process group is SIGKILLed as soon as storage
-    holds step ``storage_every``; the master's connection-drop grace
-    declares its node dead and the survivor re-forms the world at half
-    the ranks with twice the accumulation steps, restored from storage
-    (the dead node's shards are in no survivor's shm); agent 1 comes back
-    once the small world has done step ``rejoin_at``, and the world
-    returns to ``ranks``. Each step's
-    loss (its last incarnation's) is held against ``reference``, the
-    unkilled run at ``ranks``, at the ``MULTI_LATER`` limits."""
+    ``pace_s`` apart. Agent 1's process group is SIGKILLed once storage
+    holds step ``storage_every`` and, with ``replica`` (both agents run
+    ``--ckpt-replica 2``), once node 0's replica store holds every frame
+    of both nodes at one step past storage's newest. The master's
+    connection-drop grace
+    declares node 1 dead and the survivor re-forms the world at half the
+    ranks with twice the accumulation steps: its live reshard aborts on
+    its coverage proof (the dead node's shards are in no survivor's
+    frame), its shm cannot cover them either, and it restores from the
+    peer frames in node 0's store at that step (without ``replica``: from
+    storage). Agent 1 comes back once the small world has done step
+    ``rejoin_at``, and every rank of the world at ``ranks`` restores by
+    live reshard from node 0's frames, node 1's ranks over the fabric; no
+    rank reads storage after the kill. Each step's loss (its last
+    incarnation's) is held against ``reference`` within ``loss_tol``
+    (``MULTI_LATER_LOSS_TOL``). ``seed_dir``: a checkpoint directory the
+    run starts from (its storage step 0). ``timer``: the agents run the
+    device timer, and before the kill every rank must show one hooked
+    collective count and no hang (the CPU rehearsal, on gloo, has no
+    hooked collective)."""
     from dlrover_tpu_torch.ckpt.ckpt_saver import latest_step
+    from dlrover_tpu_torch.ckpt.replica import addr_key
+    from dlrover_tpu_torch.common import comm
     from dlrover_tpu_torch.common.config import get_context
     from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
-    from dlrover_tpu_torch.common.rpc import find_free_port
+    from dlrover_tpu_torch.common.rpc import RPCClient, find_free_port
     from dlrover_tpu_torch.master.master import LocalJobMaster
 
+    loss_tol = MULTI_LATER_LOSS_TOL if loss_tol is None else loss_tol
     cfg = {f.name: getattr(config, f.name)
            for f in dataclasses.fields(config)}
     cfg["dtype"] = str(config.dtype).removeprefix("torch.")
-    job = f"nd{os.getpid()}"
+    job = f"nd{os.getpid()}{'r' if replica else 's'}"
     ckpt_dir = os.path.join(ckpt_root, job)
+    if seed_dir is not None:
+        shutil.copytree(seed_dir, ckpt_dir)
     args = dict(device=str(device), config=cfg, steps=steps,
                 global_batch=global_batch, seq=seq,
                 storage_every=storage_every, ckpt_dir=ckpt_dir,
-                pace_s=4.0)
+                pace_s=pace_s)
     per_node = ranks // 2
     ctx = get_context()
     ctx.heartbeat_interval_s = 1.0
@@ -4953,7 +5342,8 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
                  f"--master-addr={master.addr}", "--nnodes=1:2",
                  f"--node-rank={rank}", f"--nproc-per-node={per_node}",
                  f"--job_name={job}", "--monitor-interval=0.1",
-                 "--tpu-timer",
+                 *(["--tpu-timer"] if timer else []),
+                 *(["--ckpt-replica=2"] if replica else []),
                  "--max-restarts=3", f"--ckpt_dir={ckpt_dir}",
                  os.path.abspath(__file__), "--node-child",
                  json.dumps(args)],
@@ -4969,7 +5359,8 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
 
     def logs_tail():
         keep = ("Error", "error", "commit", "persist", "skip", "restor",
-                "rendezvous", "restart", "failure", "released")
+                "rendezvous", "restart", "failure", "released", "reshard",
+                "replica", "WARNING", "STEP")
         out = []
         for path in logs:
             with open(path) as f:
@@ -4983,34 +5374,76 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
         while not cond():
             gone = [r for r, p in agents.items() if p.poll() is not None]
             if time.monotonic() > deadline or gone:
+                what = what() if callable(what) else what
                 raise AssertionError(
                     f"node drill: no {what} (agents exited: {gone}):\n"
                     + logs_tail())
             time.sleep(0.2)
 
+    held = {}
+
+    def stored_past_storage():
+        """Node 0's store holds every frame of both nodes at one step past
+        storage's newest (it keeps each owner's last two steps, so a save
+        node 1 dies in leaves that step whole)."""
+        if "client" not in held:
+            addr = master.kv_store.get(addr_key(job, 0))
+            if not addr:
+                return False
+            held["client"] = RPCClient(bytes(addr).decode(), timeout_s=10,
+                                       retries=2)
+        try:
+            entries = held["client"].call("replica_list",
+                                          comm.BaseRequest()).entries
+        except (ConnectionError, OSError):
+            held.pop("client")  # asked again; an agent gone ends the wait
+            return False
+        owners = {}
+        for o, lr, st in entries:
+            owners.setdefault((o, lr), set()).add(st)
+        held["seen"] = {f"{o}_{lr}": sorted(st) for (o, lr), st
+                        in sorted(owners.items())}
+        common = set.intersection(*[owners.get((n, lr), set())
+                                    for n in (0, 1)
+                                    for lr in range(per_node)])
+        past = [st for st in common if st > latest_step(ckpt_dir)]
+        if past:
+            held["step"] = max(past)
+            return True
+        return False
+
     agents = {0: start_agent(0), 1: start_agent(1)}
+    journal = []
     try:
-        # the small world restores from storage: it must hold a step
+        # the small world restores from storage without replicas: it must
+        # hold a step
         wait(lambda: latest_step(ckpt_dir) >= storage_every,
              f"storage commit of step {storage_every}")
-        killed_after = max(r["step"] for r in step_lines())
         # steady state: every rank entered the same number of collectives
         # (the steps are paced, so the ranks idle together between them)
         # and the skew monitor sees no hang
-        steady = {}
+        steady = {"coll": None}
 
         def equal_collectives():
             steady["coll"] = master.skew_monitor.last_collectives()
             seqs = {c.get("seq", 0) for c in steady["coll"].values()}
             return len(steady["coll"]) == ranks and len(seqs) == 1 \
                 and seqs.pop() > 0
-        wait(equal_collectives, "equal collective counters", 60)
-        steady["hang"] = master.skew_monitor.current_verdicts()["hang"]
-        if steady["hang"] is not None:
-            raise AssertionError(f"node drill: a hang verdict in steady "
-                                 f"state: {steady}")
+        if timer:
+            wait(equal_collectives, "equal collective counters", 60)
+            steady["hang"] = master.skew_monitor.current_verdicts()["hang"]
+            if steady["hang"] is not None:
+                raise AssertionError(f"node drill: a hang verdict in "
+                                     f"steady state: {steady}")
+        if replica:
+            wait(stored_past_storage, lambda: (
+                f"frames of both nodes in node 0's store past storage's "
+                f"step (the store held {held.get('seen')}, storage "
+                f"{latest_step(ckpt_dir)})"), 300)
+        killed_after = max(r["step"] for r in step_lines())
         os.killpg(agents[1].pid, signal.SIGKILL)
         t_kill = time.time()
+        storage_at_kill = latest_step(ckpt_dir)
         agents.pop(1).wait()
         wait(lambda: master.job_manager.nodes[1].is_released,
              "the master declaring node 1 dead", 120)
@@ -5018,8 +5451,10 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
         wait(lambda: any(r["world"] == per_node and r["step"] >= rejoin_at
                          for r in step_lines()), f"step {rejoin_at} at "
              f"world {per_node}")
+        t_rejoin = time.time()
         agents[1] = start_agent(1)
         codes = {r: p.wait(timeout=900) for r, p in agents.items()}
+        journal = master.event_journal.events()
     finally:
         for p in agents.values():
             if p.poll() is None:
@@ -5042,7 +5477,8 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
         losses[r["step"]] = r["loss"]
         launches[(r["node"], r["restart"])] = r["launches"]
     segments = []
-    for r in sorted(starts, key=lambda r: r["t"]):
+    for r in sorted((r for r in starts if r["rank"] == 0),
+                    key=lambda r: r["t"]):
         segments.append(dict(world=r["world"], grad_accum=r["grad_accum"],
                              start_step=r["start_step"],
                              medium=r["restore"].get("medium"),
@@ -5054,31 +5490,91 @@ def node_drill(config, device, ckpt_root, ranks, global_batch, seq, steps,
             if g["world"] == ranks and g["start_step"] < steps] if shrink \
         else []
     worlds = [g["world"] for g in segments]
+    # the first incarnation of the small world, and of the world after
+    # the rejoin: one START line a rank
+    after_kill = sorted((r for r in starts if r["t"] > t_kill),
+                        key=lambda r: r["t"])
+    shrink_ranks = [r for r in after_kill if r["world"] == per_node
+                    ][:per_node]
+    rejoined = [r for r in after_kill if r["t"] > t_rejoin
+                and r["world"] == ranks][:ranks]
+    kinds = [e["kind"] for e in journal]
+    aborts = [e["data"].get("reason") for e in journal
+              if e["kind"] == "reshard_aborted"]
+    reshard_rows = [dict(node=r["node"], rank=r["rank"],
+                         seconds=r["restore"].get("seconds"),
+                         **{k: r["restore"].get("reshard", {}).get(k)
+                            for k in ("bytes_local", "bytes_remote",
+                                      "duration_s")})
+                    for r in rejoined]
     emit(dict(
         phase="node_drill", ranks=ranks, per_node=per_node, steps=steps,
-        killed_after_step=killed_after, rejoin_at=rejoin_at,
+        replica=replica, killed_after_step=killed_after,
+        storage_at_kill=storage_at_kill, rejoin_at=rejoin_at,
         steady_collectives=steady["coll"],
         agent_exit=codes,
         detect_s=detect_s, segments=segments,
+        restores_after_kill=[dict(node=r["node"], rank=r["rank"],
+                                  world=r["world"],
+                                  start_step=r["start_step"],
+                                  medium=r["restore"].get("medium"),
+                                  seconds=r["restore"].get("seconds"),
+                                  warm=r.get("warm"))
+                             for r in after_kill],
+        reshard_aborts=aborts, reshard_complete=kinds.count(
+            "reshard_complete"), rejoin_reshard=reshard_rows,
+        pushes=_push_rows(steps_seen),
         losses=[losses.get(s) for s in range(1, steps + 1)],
-        max_rel_diff_vs_unkilled=worst,
+        max_rel_diff_vs_unkilled=worst, loss_tol=loss_tol,
         launches_rank0=[launches[k] for k in sorted(launches)]))
-    ok = (codes == {0: 0, 1: 0} and sorted(losses) == list(
-        range(1, steps + 1)) and worst <= MULTI_LATER_LOSS_TOL
-        and worlds[:1] == [ranks] and bool(shrink) and bool(back)
-        and shrink[0]["medium"] == "storage"
-        and shrink[0]["grad_accum"] == 2 * segments[0]["grad_accum"]
-        and back[0]["grad_accum"] == segments[0]["grad_accum"])
-    if not ok:
-        raise AssertionError(f"node drill: segments {segments}, losses "
-                             f"{losses} vs {reference} (worst {worst}), "
-                             f"exits {codes}:\n{text[-6000:]}")
+    problems = []
+    if not (codes == {0: 0, 1: 0} and sorted(losses) == list(
+            range(1, steps + 1)) and worst <= loss_tol
+            and worlds[:1] == [ranks] and bool(shrink) and bool(back)
+            and shrink[0]["grad_accum"] == 2 * segments[0]["grad_accum"]
+            and back[0]["grad_accum"] == segments[0]["grad_accum"]):
+        problems.append("the drill's worlds, exits or losses")
+    if not replica:
+        if shrink and shrink[0]["medium"] != "storage":
+            problems.append("the shrink without replicas did not restore "
+                            "from storage")
+    else:
+        # the shrink: every rank from the peer frames at the step the
+        # store held, past storage's; its reshard aborted on coverage
+        if (len(shrink_ranks) < per_node or any(
+                (r["restore"].get("medium"), r["start_step"])
+                != ("replica", held.get("step")) for r in shrink_ranks)
+                or not held.get("step", -1) > storage_at_kill
+                or "coverage" not in aborts):
+            problems.append(f"the shrink's restores (store step "
+                            f"{held.get('step')}, storage {storage_at_kill},"
+                            f" aborts {aborts})")
+        # the rejoin: every rank by live reshard, node 1's over the fabric
+        if (len(rejoined) != ranks or any(
+                r["restore"].get("medium") != "reshard" for r in rejoined)
+                or any(not (r["restore"].get("reshard") or {}).get(
+                    "bytes_remote") for r in rejoined if r["node"] == 1)
+                or kinds.count("reshard_complete") < ranks):
+            problems.append(f"the rejoin's restores {reshard_rows}")
+        if any(r["restore"].get("medium") == "storage" for r in after_kill):
+            problems.append("a rank read storage after the kill")
+    if problems:
+        raise AssertionError(f"node drill: {'; '.join(problems)}: segments "
+                             f"{segments}, losses {losses} vs {reference} "
+                             f"(worst {worst}), exits {codes}:\n"
+                             f"{text[-6000:]}")
     return list(launches.values())
+
+
+NODE_DRILL_STEPS, NODE_DRILL_REJOIN = 12, 10
 
 
 def node_drill_alone(config, device, ranks):
     """``--node-drill N``: one unkilled run across N cards as the
-    reference, then the node drill."""
+    reference, then the node drill, both NODE_DRILL_STEPS long: the kill
+    waits for node 0's replica store to hold both nodes' frames past
+    storage's step 5, a few steps after it on the cards, and the small
+    world must still train past NODE_DRILL_REJOIN before the rejoin."""
     from dlrover_tpu_torch.ckpt.shm_handler import shm_name
     from dlrover_tpu_torch.common.multi_process import unlink_shared_memory
 
@@ -5090,7 +5586,7 @@ def node_drill_alone(config, device, ranks):
     os.makedirs(root)
     job = f"node_ref_{os.getpid()}"
     try:
-        args = dict(device=str(device), config=cfg, steps=10,
+        args = dict(device=str(device), config=cfg, steps=NODE_DRILL_STEPS,
                     global_batch=8, seq=2048, storage_every=5, kill_at=None,
                     ckpt_dir=os.path.join(root, "ref"))
         out = _run_children(args, job, ranks=ranks)
@@ -5107,8 +5603,8 @@ def node_drill_alone(config, device, ranks):
               "seconds": out[0][2]["seconds"]})
         shutil.rmtree(args["ckpt_dir"], ignore_errors=True)
         return node_drill(config, device, root, ranks, global_batch=8,
-                          seq=2048, steps=10, storage_every=5, rejoin_at=8,
-                          reference=ref)
+                          seq=2048, steps=NODE_DRILL_STEPS, storage_every=5,
+                          rejoin_at=NODE_DRILL_REJOIN, reference=ref)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5140,7 +5636,8 @@ def elastic_alone(config, device):
         max_gap = max(_step_gaps(ref))
         emit({"phase": "elastic_reference", "losses": [
             ref["losses"][s] for s in sorted(ref["losses"])],
-            "max_step_gap_s": max_gap, "seconds": ref["seconds"]})
+            "max_step_gap_s": max_gap, "step_gaps_s": _step_gaps(ref),
+            "seconds": ref["seconds"]})
         return elastic_phase(
             config, device, root, global_batch=8, seq=2048, steps=10,
             storage_every=5,
@@ -5823,6 +6320,11 @@ def main(argv) -> int:
         # phase 8 alone, held against its own unkilled run; no result line
         _build_report()
         elastic_alone(dataclasses.replace(config, n_layers=2), device)
+        _print_card()
+        return 0
+    if argv[1:] == ["--copy-probe"]:
+        # the replica store's frame copy, two buffers; no result line
+        copy_probe()
         _print_card()
         return 0
     if argv[1:] == ["--timer-ab"]:

@@ -2,8 +2,8 @@
 
 The port's copy of ``ElasticLaunchConfig`` from
 ``dlrover_tpu/agent/config.py``, trimmed to the fields the port's agent
-reads. The network check, auto-tuning, checkpoint replicas, the actor
-host and warm spawn are not ported.
+reads. The network check, auto-tuning and the actor host are not
+ported.
 """
 
 import os
@@ -34,13 +34,18 @@ class ElasticLaunchConfig:
     worker_env: Dict[str, str] = field(default_factory=dict)
     # where breakpoint saves go
     ckpt_dir: str = ""
-    # checkpoint replica backup-group size, passed to the workers (the
-    # replica plane itself is not ported)
+    # checkpoint replicas: the backup-group size (0/1: off); above 1 the
+    # agent runs a replica store and its workers push each sealed frame
+    # to it and to their group's peers (ckpt/replica.py)
     ckpt_replica: int = 0
     # the device timer: workers preload its CUDA hook and serve per-rank
     # metrics; the agent runs the per-host daemon on :18889 (upstream's
     # xpu_timer_launch LD_PRELOAD wrapper and daemon)
     tpu_timer: bool = False
+    # pre-imported spare interpreters, so a worker (re)spawn skips the
+    # numpy/torch imports (agent/warm_spawn.py); a spare that fails to
+    # release falls back to a cold spawn
+    warm_spawn: bool = True
 
     def auto_configure_params(self) -> None:
         """Fill topology defaults from the environment."""

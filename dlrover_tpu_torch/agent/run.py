@@ -13,9 +13,14 @@ the agent joins the master at ``--master-addr`` (the JAX package's or the
 port's). The agent persists the newest shm frames when workers fail
 (``--save-at-breakpoint``, the default; ``--no-save-at-breakpoint`` turns
 it off) into ``--ckpt_dir``. ``--tpu-timer`` builds the device timer and
-preloads its CUDA hook into the workers (``agent/training.py``). Not
-ported: the network check, warm spawn, auto-tuning, the actor host and
-checkpoint replicas.
+preloads its CUDA hook into the workers (``agent/training.py``).
+``--ckpt-replica N`` (N > 1) starts the agent's checkpoint replica store,
+and the workers push each sealed frame to it and to their backup group
+(``ckpt/replica.py``). Workers come from pre-imported spares
+(``agent/warm_spawn.py``) unless ``--no-warm-spawn``; the agent starts
+its pool itself, after the device timer's build, since a spare's
+``LD_PRELOAD`` must be set when it starts. Not ported: the network check,
+auto-tuning and the actor host.
 """
 
 import argparse
@@ -66,9 +71,16 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_true", default=True)
     p.add_argument("--no-save-at-breakpoint", dest="save_at_breakpoint",
                    action="store_false")
+    p.add_argument("--ckpt_replica", "--ckpt-replica", dest="ckpt_replica",
+                   type=int, default=0,
+                   help="checkpoint replica backup-group size (0: off)")
     p.add_argument("--tpu-timer", dest="tpu_timer", action="store_true",
                    help="enable the device timer: workers preload its CUDA "
                         "hook, the agent aggregates on :18889")
+    p.add_argument("--no-warm-spawn", dest="warm_spawn",
+                   action="store_false",
+                   help="no pre-imported spare interpreters: every worker "
+                        "spawn pays the numpy/torch imports")
     p.add_argument("entrypoint", help="training script")
     p.add_argument("args", nargs=argparse.REMAINDER)
     return p
@@ -83,7 +95,8 @@ def config_from_args(args) -> ElasticLaunchConfig:
         max_restarts=args.max_restarts,
         monitor_interval_s=args.monitor_interval, node_unit=args.node_unit,
         save_at_breakpoint=args.save_at_breakpoint, ckpt_dir=args.ckpt_dir,
-        tpu_timer=args.tpu_timer, entrypoint=args.entrypoint,
+        ckpt_replica=args.ckpt_replica, tpu_timer=args.tpu_timer,
+        warm_spawn=args.warm_spawn, entrypoint=args.entrypoint,
         args=args.args[1:] if args.args[:1] == ["--"] else list(args.args))
     config.auto_configure_params()
     return config

@@ -7,10 +7,14 @@ runs on each host:
 1. it joins the master's training rendezvous and waits for the cut world;
    the world gives each worker its global rank and the process-group
    bootstrap address (rank 0's host and a free port it reported);
-2. it spawns ``nproc_per_node`` workers with ``subprocess`` (a fresh
-   interpreter each: the agent never touches a device, and a worker
-   never inherits the agent's threads), their environment the
-   reference's keys and values (``_worker_env``);
+2. it spawns ``nproc_per_node`` workers, their environment the
+   reference's keys and values (``_worker_env``): each a warm spare of
+   its :class:`~dlrover_tpu_torch.agent.warm_spawn.WarmWorkerPool` (an
+   interpreter that imported numpy, torch and the port's worker modules
+   while the last incarnation trained, released into the script), or,
+   with ``--no-warm-spawn`` or no spare alive, a fresh ``subprocess``;
+   the agent never touches a device, and a worker never inherits the
+   agent's threads;
 3. it watches them: a failed worker restarts the group within
    ``max_restarts``; a new round forming at the master (a node joined or
    left) restarts it into the new world; a ``RESTART_WORKER`` action on a
@@ -64,9 +68,22 @@ flight recorder captures a bundle on an unhandled exception and on every
 injected fault (its reporter also reports ``fault_injected`` to the
 master), and with ``DLROVER_TPU_AGENT_METRICS_PORT`` set (0: a free port;
 else the port plus the node rank) the agent serves ``GET /metrics`` and
-``/debug/bundle``. Not ported: warm spawn, the actor host, fan-in, the
-partition-degraded mode, the replica and reshard services, the network
-check.
+``/debug/bundle``.
+
+The recovery ladder's agent side: at start the agent unlinks the shm
+segments a previous agent incarnation of its node left
+(``shm_orphans_cleaned``); it serves its workers' sealed frames by shard
+to a new world's workers (``ReshardService``, ``ckpt/reshard.py``), and
+with ``--ckpt-replica N`` (N > 1) it keeps the replica store its workers
+and its backup group push frames to (``ReplicaService``,
+``ckpt/replica.py``), which copies a local worker's sealed frame out of
+its segment and pushes it to the group's peers; both publish their
+address in the master KV. The
+warm pool starts after the device timer's build, so each spare is
+spawned with the hook library in ``LD_PRELOAD`` (the loader reads it at
+``exec``); the first rendezvous waits (``DLROVER_TPU_WARM_WAIT_S``, 10
+s) for the spares' imports. Not ported: the actor host, fan-in, the
+partition-degraded mode, the network check.
 """
 
 import os
@@ -100,8 +117,11 @@ from dlrover_tpu_torch.common.constants import (
     EnvKey,
     NodeStatus,
     RendezvousName,
+    SharedResourceName,
     SpanName,
     TrainingExceptionLevel,
+    env_flag,
+    env_float,
     env_int,
     env_str,
 )
@@ -243,6 +263,11 @@ class ElasticTrainingAgent:
             ipc_socket_path(config.job_name, config.node_rank))
         self._ckpt_saver = ckpt_saver
         self._hb_thread: Optional[threading.Thread] = None
+        # the warm spares (started in run, after the device timer's build),
+        # and the replica and reshard services
+        self._warm_pool = None
+        self._replica_service = None
+        self._reshard_service = None
         self._training_monitor: Optional[TrainingMonitor] = None
         self._last_global_step = 0
         self._last_step_ts = 0.0
@@ -361,6 +386,10 @@ class ElasticTrainingAgent:
             EnvKey.SHM_INCARNATION: self._shm_incarnation,
             ConfigKey.IPC_SOCKET: self._ipc_server.path,
         })
+        return self._with_timer(env)
+
+    def _with_timer(self, env: Dict[str, str]) -> Dict[str, str]:
+        """``env`` with the device timer's hook preloaded, once built."""
         if self._timer_lib:
             preload = env.get("LD_PRELOAD", "")
             env.update({
@@ -371,24 +400,46 @@ class ElasticTrainingAgent:
             })
         return env
 
+    def _start_warm_pool(self) -> None:
+        """The spares, spawned with the job-static environment and the
+        timer's preload; the first rendezvous waits (bounded) for their
+        imports."""
+        from dlrover_tpu_torch.agent.warm_spawn import WarmWorkerPool
+
+        self._warm_pool = WarmWorkerPool(
+            size=self._config.nproc_per_node,
+            base_env=self._with_timer(self._base_worker_env()))
+        self._warm_pool.prewarm()
+        self._warm_pool.wait_ready(
+            n=self._config.nproc_per_node,
+            timeout_s=env_float(ConfigKey.WARM_WAIT_S, 10.0))
+
     def _initialize_workers(self) -> None:
         coordinator, base_rank, world_size = self._rendezvous()
         self._workers = []
+        warm = []
         for local_rank in range(self._config.nproc_per_node):
             global_rank = base_rank + local_rank
             env = self._worker_env(local_rank, global_rank, world_size,
                                    coordinator)
-            cmd = [sys.executable, self._config.entrypoint,
-                   *self._config.args]
-            proc = subprocess.Popen(cmd, env=env)  # noqa: S603
+            proc = None
+            if self._warm_pool is not None:
+                proc = self._warm_pool.take(env, self._config.entrypoint,
+                                            self._config.args)
+            warm.append(proc is not None)
+            if proc is None:  # no pool or no live spare: a cold spawn
+                cmd = [sys.executable, self._config.entrypoint,
+                       *self._config.args]
+                proc = subprocess.Popen(cmd, env=env)  # noqa: S603
             self._workers.append(_Worker(local_rank, global_rank, proc))
-        logger.info("node %s spawned %s worker(s): pids=%s",
+        logger.info("node %s spawned %s worker(s): pids=%s warm=%s",
                     self._config.node_rank, len(self._workers),
-                    [w.proc.pid for w in self._workers])
+                    [w.proc.pid for w in self._workers], warm)
         self._events.instant(AgentEvent.WORKER_SPAWN,
                              restart_count=self._restart_count,
                              world_size=world_size,
-                             pids=[w.proc.pid for w in self._workers])
+                             pids=[w.proc.pid for w in self._workers],
+                             warm=warm)
 
     # -- monitoring ----------------------------------------------------------
 
@@ -595,9 +646,60 @@ class ElasticTrainingAgent:
         self._last_global_step = step
         self._last_step_ts = ts
 
+    def _local_shm_handlers(self):
+        """Handlers of the frames this host's workers registered in the
+        IPC meta dict (the saver's idiom): what the reshard service
+        serves."""
+        from dlrover_tpu_torch.ckpt.shm_handler import SharedMemoryHandler
+
+        meta = self._ipc_server.local_dict(SharedResourceName.SHM_META_DICT)
+        return [SharedMemoryHandler(info["shm"])
+                for info in dict(meta).values()]
+
+    def _start_ckpt_services(self) -> None:
+        """The replica store (``--ckpt-replica N``, N > 1) and the reshard
+        service, each published in the master KV."""
+        if self._config.ckpt_replica > 1:
+            from dlrover_tpu_torch.ckpt.replica import (
+                ReplicaManager,
+                ReplicaService,
+            )
+
+            self._replica_service = ReplicaService()
+            self._replica_service.start()
+            # registers the store's address; pushes the frames its
+            # workers hand it to the peers they name
+            self._replica_service.forwarder = ReplicaManager(
+                self._config.job_name, self._config.node_rank, 1,
+                self._client, service=self._replica_service)
+        if env_flag(ConfigKey.RESHARD, True):
+            from dlrover_tpu_torch.ckpt.reshard import ReshardService
+
+            self._reshard_service = ReshardService(
+                shm_provider=self._local_shm_handlers)
+            self._reshard_service.start()
+            try:
+                self._reshard_service.register(
+                    self._client, self._config.job_name,
+                    self._config.node_rank)
+            except ConnectionError as e:
+                logger.warning("reshard service address publish failed: "
+                               "%r — peers restore from another rung", e)
+
     # -- main loop -----------------------------------------------------------
 
     def run(self) -> int:
+        from dlrover_tpu_torch.ckpt.shm_handler import (
+            cleanup_orphan_segments,
+        )
+
+        # a predecessor agent that died uncleanly left its segments
+        removed = cleanup_orphan_segments(
+            self._config.job_name, self._config.node_rank,
+            self._shm_incarnation)
+        if removed:
+            self._client.report_event(JournalEvent.SHM_ORPHANS_CLEANED,
+                                      {"segments": removed})
         inj = get_injector()
         if inj is not None:
             # an injected fault reaches the master's journal by the
@@ -606,6 +708,7 @@ class ElasticTrainingAgent:
                 lambda event: self._client.report_event(
                     JournalEvent.FAULT_INJECTED, event)))
         self._ipc_server.start()
+        self._start_ckpt_services()
         if self._ckpt_saver is not None:
             self._ckpt_saver.start(self._ipc_server)
             try:
@@ -631,6 +734,8 @@ class ElasticTrainingAgent:
         try:
             if self._config.tpu_timer:
                 timer_daemon = self._start_device_timer()
+            if self._config.warm_spawn and self._config.entrypoint:
+                self._start_warm_pool()
             self._initialize_workers()
             return self._monitor_loop()
         except Exception:
@@ -652,6 +757,11 @@ class ElasticTrainingAgent:
                 timer_daemon.wait()
             if self._ckpt_saver is not None:
                 self._ckpt_saver.stop()
+            for service in (self._replica_service, self._reshard_service):
+                if service is not None:
+                    service.stop()
+            if self._warm_pool is not None:
+                self._warm_pool.stop()
             self._ipc_server.stop()
             if self._metrics_server is not None:
                 self._metrics_server.stop()

@@ -417,21 +417,30 @@ class AsyncCheckpointSaver:
                 persisted += 1
                 steps.add(step)
         for step in steps:
-            done = [h for h in handlers
-                    if (m := h.read_meta()) is not None and m["step"] == step]
-            self._write_done_files(self.ckpt_dir, step, done)
+            metas = [(h, m) for h in handlers
+                     if (m := h.read_meta()) is not None and m["step"] == step]
+            self._write_done_files(self.ckpt_dir, step,
+                                   [h for h, _ in metas])
             # the full-world quorum still holds: a lone host's partial save
-            # never becomes the restore point
+            # never becomes the restore point. The frames' own world (their
+            # meta) counts too: after a shrink the saver counts the smaller
+            # world, and the old world's step would commit without the dead
+            # node's frames (ROADMAP C29)
+            expected = max([self._expected_frames,
+                            *(int(m.get("expected_frames") or 0)
+                              for _, m in metas)])
             if self._is_commit_leader:
                 if async_commit:
                     threading.Thread(
                         target=self.commit_checkpoint,
                         args=(self.ckpt_dir, step),
-                        kwargs={"timeout_s": 30.0},
+                        kwargs={"timeout_s": 30.0,
+                                "expected_frames": expected},
                         name=f"bp-commit-{step}", daemon=True).start()
                 else:
                     self.commit_checkpoint(self.ckpt_dir, step,
-                                           timeout_s=30.0)
+                                           timeout_s=30.0,
+                                           expected_frames=expected)
         if persisted:
             logger.info("breakpoint save (%s): persisted %s frame(s) to %s",
                         reason, persisted, self.ckpt_dir)

@@ -24,20 +24,52 @@ from the IPC queue) and the two engines restore each other's states.
   optimizer waits for the last device-to-host copy, while its forward and
   backward, which only read the state, overlap the drain. CPU tensors are
   copied before ``save_to_memory`` returns.
-- **Restore.** From shm when every rank holds a sealed frame of the same
-  step and its node's frames cover every region it needs (a replicated
-  leaf may live in another local rank's frame), else from storage's
-  tracked step; filled in place into the target's tensors, cast to the
-  target's dtype (optax starts its moments in the param dtype, the port in
-  f32: the cast is exact).
+- **Replicas.** Under an agent with ``--ckpt-replica N`` (N > 1) the
+  drain thread hands each sealed frame to its agent's replica store by
+  segment name: the store copies it and pushes it to its backup group's
+  stores (``ckpt/replica.py``) while the drain thread waits, holding the
+  save lock, so training goes on and its saves skip meanwhile.
+- **Restore.** The reference's ladder, each rung agreed by every rank (a
+  MIN and a MAX all-reduce of the step on the gloo host group), so all
+  ranks restore one step from one rung:
+
+  1. live reshard (``ckpt/reshard.py``), when the master published a cut
+     record for this rendezvous round: the survivors' sealed frames,
+     pulled over the fabric;
+  2. this worker's own frame written back into its segment from a
+     replica store that holds a newer step (``last_restore`` then names
+     it: ``written_back``);
+  3. shm: every rank holds a sealed, intact frame of one step and its
+     node's frames cover every region it needs (a replicated leaf may
+     live in another local rank's frame); a frame that fails its CRCs is
+     first repaired from a replica store's copy of the same step;
+  4. peer frames: any owner's frames the replica stores hold, at the
+     newest step past storage's tracked one that they cover;
+  5. storage's tracked step; when its frames do not cover the state,
+     peer frames at that step or an older one.
+
+  The reference's peer-frame rung takes the newest step the stores
+  cover, storage's tracked one too; the port's stores keep two steps an
+  owner (the reference's one), so at a tie the port reads storage first.
+
+  Each rung fills the target's tensors in place, cast to the target's
+  dtype (optax starts its moments in the param dtype, the port in f32:
+  the cast is exact); a card tensor that one saved shard covers exactly
+  streams through the pinned staging ring. The manifest-chain rung
+  between shm and peer frames is the storage read.
 
 Tracing: a save is a ``ckpt.save_to_memory`` span whose context the
 drain thread carries into ``ckpt.drain``; ``save_to_storage`` is a
 ``ckpt.persist_request`` span, and the SAVE event it puts on the agent's
 queue carries that context under ``tc``, so the saver's ``ckpt.persist``
 and ``ckpt.commit`` join the worker's trace; a restore is a
-``ckpt.restore`` span. Not ported (ROADMAP): the replica manager, peer
-frames and the live reshard rung; the data-state sidecar; the journal.
+``ckpt.restore`` span. The reshard rung reports ``reshard_start``,
+``reshard_complete`` and ``reshard_aborted`` (with its reason) to the
+master's journal and feeds ``dlrover_reshard_seconds``,
+``dlrover_reshard_bytes_total{locality}`` and
+``dlrover_reshard_aborts_total{reason}``; a corrupt frame reports
+``ckpt_corrupt``, its repair ``ckpt_repaired``. Not ported (ROADMAP): the
+data-state sidecar and the manifest chain's delta writer.
 """
 
 import os
@@ -61,7 +93,9 @@ from dlrover_tpu_torch.ckpt.ckpt_saver import (
 from dlrover_tpu_torch.ckpt.shm_handler import (
     SharedMemoryHandler,
     frame_shard_bytes,
+    parse_frame,
     shm_name,
+    verify_frame_blob,
     verify_parsed_frame,
 )
 from dlrover_tpu_torch.common import state_fence
@@ -70,6 +104,7 @@ from dlrover_tpu_torch.common.constants import (
     EnvKey,
     SharedResourceName,
     SpanName,
+    env_flag,
     env_float,
     env_int,
     env_str,
@@ -82,6 +117,8 @@ from dlrover_tpu_torch.common.multi_process import (
 )
 from dlrover_tpu_torch.convert import map_named, named_leaves
 from dlrover_tpu_torch.observability import tracing
+from dlrover_tpu_torch.observability.journal import JournalEvent
+from dlrover_tpu_torch.observability.registry import get_registry
 from dlrover_tpu_torch.parallel import sharding
 
 # frame dtype name → (numpy storage dtype, torch dtype); bf16 travels as its
@@ -232,7 +269,8 @@ class CheckpointEngine:
     ``saving_ranks`` is the saver group, the ranks that call save: every
     rank (the default; each owns shards) or one rank that owns a
     replicated state (the reference's single-writer pattern); a step is
-    complete with one frame per saver."""
+    complete with one frame per saver. ``replica_manager`` replaces the
+    one the environment would give (``--ckpt-replica``)."""
 
     def __init__(
         self,
@@ -246,6 +284,7 @@ class CheckpointEngine:
         rank: Optional[int] = None,
         local_world_size: Optional[int] = None,
         saving_ranks: Optional[List[int]] = None,
+        replica_manager=None,
     ):
         self.ckpt_dir = ckpt_dir
         self.job_name = job_name or env_str(EnvKey.JOB_NAME, "local")
@@ -283,6 +322,20 @@ class CheckpointEngine:
             self._event_queue = None
             self._meta_dict = None
         self._master = master_client
+        self._replicas = (replica_manager if replica_manager is not None
+                          else self._replica_manager_from_env())
+        reg = get_registry()
+        self._reshard_hist = reg.histogram(
+            "dlrover_reshard_seconds",
+            "End-to-end live-reshard restore latency")
+        self._reshard_bytes = reg.counter(
+            "dlrover_reshard_bytes_total",
+            "Bytes moved by live reshard, by locality",
+            labelnames=("locality",))
+        self._reshard_aborts = reg.counter(
+            "dlrover_reshard_aborts_total",
+            "Live-reshard attempts that fell to the next rung, by reason",
+            labelnames=("reason",))
         self._latest_step = -1
         self._drain_thread: Optional[threading.Thread] = None
         self._drain_ok = False
@@ -291,6 +344,35 @@ class CheckpointEngine:
         # what the last save and the last restore did, for the caller
         self.last_save: Dict[str, Any] = {}
         self.last_restore: Dict[str, Any] = {}
+        self._last_reshard: Dict[str, Any] = {}
+        # the frames fetched from the replica stores in one load, each once
+        self._fetched: Dict[Tuple[int, int, int], Any] = {}
+
+    def _replica_manager_from_env(self):
+        """The push side, under an agent with ``--ckpt-replica N`` (N > 1):
+        the stores' addresses come from the master KV."""
+        group = env_int(EnvKey.REPLICA_GROUP, 0)
+        if group <= 1 or self._master is None:
+            return None
+        from dlrover_tpu_torch.ckpt.replica import ReplicaManager
+
+        return ReplicaManager(self.job_name, self.node_rank,
+                              env_int(EnvKey.NODE_NUM, 1), self._master,
+                              group_size=group, reporter=self._report_event)
+
+    @property
+    def replicas(self):
+        """The replica manager, or None without replicas."""
+        return self._replicas
+
+    def _report_event(self, kind: str, data: Optional[Dict] = None) -> None:
+        """An event for the master's journal; best-effort."""
+        report = getattr(self._master, "report_event", None)
+        if report is not None:
+            try:
+                report(kind, data or {})
+            except Exception:  # noqa: BLE001 — telemetry never fails a load
+                logger.debug("journal report %r failed", kind, exc_info=True)
 
     # -- collectives ---------------------------------------------------------
 
@@ -494,6 +576,11 @@ class CheckpointEngine:
         self.last_save["drain_s"] = drain_s
         self._latest_step = step
         self._drain_ok = True
+        if self._replicas is not None:
+            # this node's store copies the sealed frame and forwards it to
+            # the peers while this thread waits, holding the save lock:
+            # training goes on, and its saves skip until the copy is done
+            self._replicas.backup_async(self._shm, self.local_rank)
         if self._meta_dict is not None:
             self._meta_dict.set(
                 f"{self.node_rank}:{self.local_rank}",
@@ -560,30 +647,45 @@ class CheckpointEngine:
     def shm_step(self) -> int:
         return self._shm.step
 
-    def _shm_step_consistent(self, step: int) -> Optional[int]:
-        """The shm step every rank holds, or None when they differ or any
-        rank has none (its frame empty, torn or corrupt)."""
+    def _agree_step(self, step: int) -> Optional[int]:
+        """``step`` when every rank holds the same one (>= 0), else None
+        (a rank whose frame is empty, torn or corrupt, or whose rung
+        failed, holds -1)."""
         lo = self._agree(step, dist.ReduceOp.MIN)
         hi = self._agree(step, dist.ReduceOp.MAX)
         return lo if lo == hi and lo >= 0 else None
 
-    def _verified_shm_step(self) -> int:
+    def _verify_shm_or_repair(self) -> int:
+        """The local shm step when its frame is intact, or repaired from a
+        replica store's copy of the same step; -1 when it is corrupt for
+        good (so every rank leaves shm together)."""
         step = self.shm_step()
         if step < 0:
             return step
         corrupt = self._shm.verify_frame()
-        if corrupt:
-            logger.error("checkpoint integrity: shm frame %s (step %s) has "
-                         "corrupt shard(s) %s — storage restore",
-                         self._shm.name, step, corrupt)
-            return -1
-        return step
+        if not corrupt:
+            return step
+        logger.error("checkpoint integrity: shm frame %s (step %s) has "
+                     "corrupt shard(s) %s", self._shm.name, step, corrupt)
+        self._report_event(JournalEvent.CKPT_CORRUPT, {
+            "medium": "shm", "step": step, "shards": corrupt})
+        if self._replicas is not None and self._stored_own_step() == step:
+            got = self._write_own_frame(step)
+            if got == step and not self._shm.verify_frame():
+                logger.info("corrupt shard(s) %s repaired from a replica "
+                            "store (step %s)", corrupt, got)
+                self._report_event(JournalEvent.CKPT_REPAIRED, {
+                    "step": got, "shards": corrupt})
+                return got
+        logger.error("shm frame unrepairable — left out of the restore")
+        return -1
 
     def load(self, target, path: str = "") -> Tuple[Any, int]:
         """Restore into ``target`` (the state as built for this world:
-        DTensors, tensors and plain values), in place: from shm when every
-        rank can, else from storage. Returns ``(state, step)``; step is -1
-        when nothing was restored. Every rank must call it."""
+        DTensors, tensors and plain values), in place, from the first rung
+        of the ladder (module docstring) every rank can take. Returns
+        ``(state, step)``; step is -1 when nothing was restored. Every
+        rank must call it."""
         with tracing.span(SpanName.CKPT_RESTORE,
                           source=f"worker_{self.rank}") as sp:
             state, step = self._load(target, path)
@@ -592,25 +694,180 @@ class CheckpointEngine:
             return state, step
 
     def _load(self, target, path: str) -> Tuple[Any, int]:
+        # the drain's push ends with it: none races the write-back
         self.wait_drained()
         t0 = time.perf_counter()
-        got = self._load_from_shm(target)
-        if got is None:
-            got = self._load_from_storage(target, path or self.ckpt_dir)
+        path = path or self.ckpt_dir
+        # storage's tracked step, the newest any rank read (its frames are
+        # whole once the tracker names it)
+        floor = self._agree(latest_step(path) if path else -1,
+                            dist.ReduceOp.MAX)
+        self._fetched = {}
+        try:
+            got = self._load_via_reshard(target)
+            written_back = -1
+            if got is None:
+                written_back = self._write_back_own_frame()
+                got = self._load_from_shm(target)
+            if got is None:
+                got = self._load_from_peer_frames(target,
+                                                  lambda s: s > floor)
+            if got is None:
+                got = self._load_from_storage(target, path, floor)
+            if got is None:
+                got = self._load_from_peer_frames(target,
+                                                  lambda s: s <= floor)
+        finally:
+            self._fetched = {}
         if got is None:
             self.last_restore = {"medium": None, "step": -1}
             return target, -1
         state, step, medium, nbytes = got
         self.last_restore = {"medium": medium, "step": step, "bytes": nbytes,
                              "seconds": time.perf_counter() - t0}
-        logger.info("restored step %s from %s", step, medium)
+        if medium == "shm" and written_back == step:
+            self.last_restore["written_back"] = "replica"
+        if medium == "reshard":
+            self.last_restore["reshard"] = self._last_reshard
+        logger.info("restored step %s from %s%s", step, medium,
+                    " (written back from a replica store)"
+                    if self.last_restore.get("written_back") else "")
         return state, step
+
+    def _load_via_reshard(self, target):
+        """Rung 1: (state, step, "reshard", bytes) when the master
+        published a cut record for this round and every rank restored
+        the same step from the survivors' frames; None on every rank
+        otherwise. An abort is journaled with its reason (``peer_aborted``
+        on a rank whose own attempt succeeded)."""
+        if self._master is None or not env_flag(ConfigKey.RESHARD, True):
+            return None
+        from dlrover_tpu_torch.ckpt import reshard
+
+        restorer = reshard.ReshardRestorer(
+            self.job_name, self._master, self.node_rank,
+            local_rank=self.local_rank, rank=self.rank, own_shm=self._shm,
+            reporter=self._report_event)
+        try:
+            cut = restorer.read_cut()
+        except (ConnectionError, RuntimeError, ValueError) as e:
+            logger.info("reshard cut lookup failed: %r", e)
+            cut = None
+        got, reason, detail = None, None, ""
+        if cut is not None:
+            self._report_event(JournalEvent.RESHARD_START, {
+                "round": cut.get("round"), "old_world": cut.get("old"),
+                "new_world": cut.get("new")})
+            stager = self._stager(target)
+            try:
+                got = restorer.restore(
+                    target,
+                    lambda t, lookup: _assemble(t, lookup, _blob_reader,
+                                                stager), cut)
+            except reshard.ReshardAbort as e:
+                reason, detail = e.reason, str(e)
+        step = self._agree_step(got[1] if got is not None else -1)
+        if cut is None:
+            return None
+        if step is None:
+            if reason is None:
+                reason, detail = "peer_aborted", "another rank's reshard " \
+                    "failed or chose another step"
+            logger.warning("live reshard aborted (%s: %s) — falling to the "
+                           "next restore rung", reason, detail)
+            self._reshard_aborts.labels(reason=reason).inc()
+            self._report_event(JournalEvent.RESHARD_ABORTED, {
+                "reason": reason, "detail": detail,
+                "round": cut.get("round")})
+            return None
+        (state, nbytes), _, stats = got
+        self._reshard_hist.observe(stats["duration_s"])
+        self._reshard_bytes.labels(locality="local").inc(
+            stats.get("bytes_local", 0))
+        self._reshard_bytes.labels(locality="remote").inc(
+            stats.get("bytes_remote", 0))
+        self._report_event(JournalEvent.RESHARD_COMPLETE, dict(stats))
+        logger.info("live reshard complete: step %s, %s transfers, %s bytes "
+                    "(%s remote) in %.3fs", step, stats.get("transfers"),
+                    stats.get("bytes"), stats.get("bytes_remote"),
+                    stats.get("duration_s", 0.0))
+        self._last_reshard = dict(stats)
+        return state, step, "reshard", nbytes
+
+    def _write_back_own_frame(self) -> int:
+        """Rung 2: this worker's frame from a replica store that holds a
+        newer step than its segment, written into the segment; the step
+        written, or -1."""
+        if self._replicas is None:
+            return -1
+        before = self.shm_step()
+        stored = self._stored_own_step()
+        if stored <= before:
+            return -1
+        return self._write_own_frame(stored)
+
+    def _fetch_frame(self, owner: int, local: int, step: int):
+        """``(step, blob, corrupt shards)`` of an owner's frame of ``step``
+        in the stores (None: none), fetched once a load."""
+        key = (owner, local, step)
+        if key not in self._fetched:
+            try:
+                held = self._replicas.fetch_frame(owner, local, step)
+            except (ConnectionError, OSError, RuntimeError) as e:
+                logger.info("replica fetch (owner=%s local=%s) failed: %r",
+                            owner, local, e)
+                held = None
+            self._fetched[key] = (None if held is None else
+                                  (held[0], held[1],
+                                   verify_frame_blob(held[1])))
+        return self._fetched[key]
+
+    def _write_own_frame(self, step: int) -> int:
+        """Write this worker's frame of ``step`` from the stores into its
+        segment, when it is intact; the step written, or -1. This node's
+        port store writes it itself; else the frame is fetched."""
+        local = self._replicas.write_local(self._shm, step, self.local_rank)
+        if local is not None:
+            self._shm.close()  # map the segment as the store left it
+            written, bad = local
+            if written:
+                logger.info("this worker's frame (step %s) written back by "
+                            "this node's replica store", step)
+                return step
+            # a refused copy is not fetched again by the peer-frame rung
+            held = (step, None, bad)
+            self._fetched[(self.node_rank, self.local_rank, step)] = held
+        else:
+            held = self._fetch_frame(self.node_rank, self.local_rank, step)
+        if held is None or held[0] != step:
+            return -1
+        if held[2]:
+            logger.error("replica frame of node %s local %s (step %s) "
+                         "fails its integrity check (%s) — not restored "
+                         "from it", self.node_rank, self.local_rank, step,
+                         held[2])
+            return -1
+        self._shm.write_raw(held[1])
+        logger.info("wrote this worker's frame (step %s) back from a "
+                    "replica store", step)
+        return step
+
+    def _stored_own_step(self) -> int:
+        """The newest step of this worker's own frame the stores hold (-1:
+        none), read before any frame moves."""
+        try:
+            entries = self._replicas.list_entries()
+        except (ConnectionError, OSError, RuntimeError):
+            return -1
+        return max((s for o, lr, s in entries
+                    if (o, lr) == (self.node_rank, self.local_rank)),
+                   default=-1)
 
     def _load_from_shm(self, target):
         """(state, step, "shm", bytes) when every rank holds a sealed,
         intact frame of one step and its node's frames cover its regions;
         None on every rank otherwise (all ranks take part)."""
-        step = self._shm_step_consistent(self._verified_shm_step())
+        step = self._agree_step(self._verify_shm_or_repair())
         frames = self._node_frames(step) if step is not None else []
         try:
             lookup = merge_frame_leaves(frames)
@@ -625,10 +882,66 @@ class CheckpointEngine:
                 if frame["_handler"] is not self._shm:
                     frame["_handler"].close()
 
-    def _load_from_storage(self, target, path: str):
-        """(state, step, "storage", bytes) from storage's tracked step, its
-        corrupt frames left out; None when they do not cover the state."""
-        step = latest_step(path) if path else -1
+    def _load_from_peer_frames(self, target, wanted: Callable[[int], bool]):
+        """Rung 4: (state, step, "replica", bytes) from the frames of any
+        owner the replica stores hold, at the newest ``wanted`` step whose
+        intact frames cover this rank's regions, agreed by every rank (a
+        rank that covered a newer step tries the agreed one); None on
+        every rank otherwise. ``load`` asks first for the steps past
+        storage's tracked one, and for that step and older ones only when
+        storage fails."""
+        if self._replicas is None:
+            return None
+        try:
+            entries = [e for e in self._replicas.list_entries()
+                       if wanted(int(e[2]))]
+        except (ConnectionError, OSError, RuntimeError) as e:
+            logger.info("replica peer-frame listing failed: %r", e)
+            entries = []
+        fetched: Dict[int, List[Dict]] = {}
+
+        def frames_at(step: int) -> List[Dict]:
+            if step not in fetched:
+                fetched[step] = self._peer_frames_at(step, entries)
+            return fetched[step]
+
+        best = -1
+        for step in sorted({int(e[2]) for e in entries}, reverse=True):
+            if self._covers(target, merge_frame_leaves(frames_at(step))):
+                best = step
+                break
+        lo = self._agree(best, dist.ReduceOp.MIN)
+        if lo >= 0 and lo != self._agree(best, dist.ReduceOp.MAX):
+            ok = self._covers(target, merge_frame_leaves(frames_at(lo)))
+            lo = lo if self._agree(int(ok), dist.ReduceOp.MIN) else -1
+        if lo < 0:
+            return None
+        state, nbytes = _assemble(target, merge_frame_leaves(frames_at(lo)),
+                                  _blob_reader, self._stager(target))
+        return state, lo, "replica", nbytes
+
+    def _peer_frames_at(self, step: int, entries) -> List[Dict]:
+        """The intact frames of ``step`` the stores hold, parsed."""
+        frames = []
+        owners = sorted({(int(o), int(lr)) for o, lr, s in entries
+                         if int(s) == step})
+        for owner, local in owners:
+            held = self._fetch_frame(owner, local, step)
+            if held is None or held[0] != step:
+                continue
+            bad = held[2]
+            meta = None if bad else parse_frame(held[1])
+            if bad or meta is None:
+                self._report_event(JournalEvent.CKPT_CORRUPT, {
+                    "medium": "replica", "step": step, "shards": bad})
+                continue
+            frames.append(meta)
+        return frames
+
+    def _load_from_storage(self, target, path: str, step: int):
+        """(state, step, "storage", bytes) from storage's tracked ``step``,
+        its corrupt frames left out; None on every rank when they do not
+        cover every rank's state."""
         if step < 0:
             return None
         frames = []
@@ -640,7 +953,8 @@ class CheckpointEngine:
             else:
                 frames.append(frame)
         lookup = merge_frame_leaves(frames)
-        if not frames or not self._covers(target, lookup):
+        covered = bool(frames) and self._covers(target, lookup)
+        if not self._agree(int(covered), dist.ReduceOp.MIN):
             return None
         state, nbytes = _assemble(target, lookup, _blob_reader,
                                   self._stager(target))

@@ -24,6 +24,11 @@ meta, seal by writing the length word last.
 A handler's mapped segment is its ``staging`` claim in the memory ledger
 (``observability/memory.py``), synced to the mapped size whenever the
 segment is created, opened or closed (0: released).
+
+A replica store's copy of a frame goes back into a segment verbatim
+(:meth:`SharedMemoryHandler.write_raw`), once :func:`verify_frame_blob`
+passed it; a restarted agent unlinks its predecessor's segments
+(:func:`cleanup_orphan_segments`).
 """
 
 import os
@@ -81,6 +86,36 @@ def shm_name(job_name: str, node_rank: int, local_rank: int,
         incarnation = env_str(EnvKey.SHM_INCARNATION)
     base = f"dlrtpu_{job_name}_{node_rank}_{local_rank}"
     return f"{base}_i{incarnation}" if incarnation else base
+
+
+def cleanup_orphan_segments(job_name: str, node_rank: int,
+                            incarnation: Optional[str] = None) -> List[str]:
+    """Unlink this node's segments that a previous agent incarnation left
+    (another nonce, or none while this one has one); returns their names.
+    A crashed agent cannot clean up after itself, and its segments would
+    hold ``/dev/shm`` until reboot."""
+    if incarnation is None:
+        incarnation = env_str(EnvKey.SHM_INCARNATION)
+    prefix = f"dlrtpu_{job_name}_{node_rank}_"
+    keep_suffix = f"_i{incarnation}" if incarnation else None
+    removed: List[str] = []
+    try:
+        names = os.listdir("/dev/shm")
+    except OSError:
+        return removed
+    for name in sorted(names):
+        if not name.startswith(prefix):
+            continue
+        if keep_suffix is not None and name.endswith(keep_suffix):
+            continue  # this incarnation's
+        if keep_suffix is None and "_i" not in name[len(prefix):]:
+            continue  # un-nonced, as this agent runs: its own
+        unlink_shared_memory(name)
+        removed.append(name)
+    if removed:
+        logger.warning("unlinked %d orphan shm segment(s) of a previous "
+                       "agent incarnation: %s", len(removed), removed)
+    return removed
 
 
 class TensorShard:
@@ -313,6 +348,17 @@ class SharedMemoryHandler:
                        "(step %s)", act["kind"], self._name, path,
                        meta.get("step"))
 
+    def write_raw(self, blob) -> None:
+        """Write a whole sealed frame blob (a replica store's copy) into
+        the segment verbatim, in the writer's order: length word last."""
+        if not self._ensure(len(blob)):
+            raise RuntimeError(f"cannot create shm segment {self._name}")
+        buf = self._shm.buf
+        buf[:8] = _U64.pack(0)
+        np.copyto(np.frombuffer(buf, np.uint8, len(blob) - 8, 8),
+                  np.frombuffer(blob, np.uint8, len(blob) - 8, 8))
+        buf[:8] = bytes(blob[:8])
+
     # -- read --------------------------------------------------------------
 
     @staticmethod
@@ -378,7 +424,11 @@ class SharedMemoryHandler:
         return True
 
     def read_frame_bytes(self):
-        """The whole frame (header + data), or None when none is sealed."""
+        """The whole frame (header + data), or None when none is sealed.
+        The copy lands in fresh pages that ``preadv`` faults in with the
+        GIL released: a ``bytearray`` would zero them first under the GIL
+        (seconds for a 6 GB frame, stalling every other thread of the
+        process, the agent's IPC and RPC servers among them)."""
         meta = self.read_meta()
         if meta is None:
             return None
@@ -388,7 +438,7 @@ class SharedMemoryHandler:
                 end = max(end, shard["abs_offset"] + shard["nbytes"])
         fd = self._shard_fd()
         if fd is not None:
-            buf = bytearray(end)
+            buf = memoryview(np.empty(end, np.uint8))
             if self._preadv_full(fd, buf, 0):
                 return buf
         return bytes(self._shm.buf[:end])
@@ -465,3 +515,15 @@ def verify_parsed_frame(meta: Dict) -> List[str]:
     """CRC-check a :func:`parse_frame` result; returns the corrupt shard
     names (``leafpath@offset``)."""
     return _verify_shards(meta, lambda shard: frame_shard_bytes(meta, shard))
+
+
+def verify_frame_blob(blob) -> List[str]:
+    """CRC-check a whole frame blob; an unparseable one counts as one
+    corrupt ``<frame>`` entry (its seal is broken)."""
+    try:
+        meta = parse_frame(blob)
+    except Exception:  # noqa: BLE001 — a torn header is corrupt
+        meta = None
+    if meta is None:
+        return ["<frame>"]
+    return verify_parsed_frame(meta)

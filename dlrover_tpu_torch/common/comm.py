@@ -4,8 +4,9 @@ exchange.
 The port's copy of the part of ``dlrover_tpu/common/comm.py`` the agent
 (rendezvous, node status, failures, heartbeats with their action, events),
 the worker (KV, barrier, steps, data shards), the serving replica, its
-router and master, and the bulk-transfer fabric use: the same dataclass names and fields, encoded as the reference
-encodes them — one msgpack map ``{"_t": <type name>, "f": {field:
+router and master, the bulk-transfer fabric, the checkpoint replicas and
+the live-reshard plane use: the same dataclass names and fields, encoded
+as the reference encodes them — one msgpack map ``{"_t": <type name>, "f": {field:
 value}}`` per message, nested messages recursively, plain values as they
 are — so the JAX package's master, router, replica and fabric read and
 answer them unchanged. A reply of a type not listed here decodes to a
@@ -52,14 +53,22 @@ def _decode(obj: Any) -> Any:
     return obj
 
 
-def serialize(obj: Any) -> bytes:
-    return msgpack.packb(_encode(obj))
+def serialize(obj: Any) -> bytearray:
+    return msgpack.pack_buffer(_encode(obj))
 
 
-def deserialize(data: bytes) -> Any:
+def serialize_parts(obj: Any) -> list:
+    """:func:`serialize`'s bytes as buffers, a large bin (a frame chunk, a
+    stripe) as the object's own memory (``msgpack.pack_parts``)."""
+    return msgpack.pack_parts(_encode(obj))
+
+
+def deserialize(data: bytes, copy_bin: bool = True) -> Any:
+    """The message in ``data``; with ``copy_bin=False`` each bin is a
+    view of ``data``."""
     if not data:
         return None
-    return _decode(msgpack.unpackb(data))
+    return _decode(msgpack.unpackb(data, copy_bin=copy_bin))
 
 
 @message
@@ -377,6 +386,68 @@ class ServeDrainRequest:
     """Stop admitting, finish every in-flight sequence, deregister."""
 
     reason: str = ""
+
+
+# -- checkpoint replicas (ckpt/replica.py) ------------------------------------
+
+
+@message
+class BoolResponse:
+    value: bool = False
+    reason: str = ""
+
+
+@message
+class ReplicaPutRequest:
+    """One frame, or one chunk of it, pushed to a backup store; the store
+    takes the frame once every chunk has arrived."""
+
+    owner_rank: int = 0  # the node rank whose worker sealed the frame
+    local_rank: int = 0
+    step: int = -1
+    blob: bytes = b""
+    chunk_index: int = 0
+    chunk_count: int = 1
+
+
+@message
+class ReplicaListResponse:
+    """The ``[owner_rank, local_rank, step]`` entries a store holds."""
+
+    entries: List[List[int]] = field(default_factory=list)
+
+
+@message
+class ReplicaLocalRequest:
+    """The port's same-host store calls (``ckpt/replica.py``): a put that
+    the store copies from the worker's segment ``shm_name`` itself and
+    forwards to the ``peers`` node ranks, and a write of a stored frame
+    back into ``shm_name``. A store takes only its own job's and node's
+    segments; a JAX store answers neither method."""
+
+    owner_rank: int = 0
+    local_rank: int = 0
+    step: int = -1
+    shm_name: str = ""
+    peers: List[int] = field(default_factory=list)
+
+
+# -- the live-reshard plane (ckpt/reshard.py) ---------------------------------
+
+
+@message
+class ReshardMetaRequest:
+    node_rank: int = -1  # the asking node, for the survivor's logs
+
+
+@message
+class ReshardMetaResponse:
+    """The sealed frames a survivor serves, one ``[local_rank, step,
+    msgpack(meta)]`` each (the meta without the tensor bytes)."""
+
+    found: bool = False
+    node_rank: int = -1
+    frames: List[List] = field(default_factory=list)
 
 
 # -- the bulk-transfer fabric (common/fabric.py) -----------------------------

@@ -139,6 +139,8 @@ class ChaosSite:
     SERVE_REPLICA = "serve.replica"
     SERVE_PREFIX = "serve.prefix"
     DATA_DISPATCH = "data.dispatch"
+    # the live-reshard plane (ckpt/reshard.py): before planning
+    RESHARD_PLAN = "reshard.plan"
     # the memory accountant (observability/memory.py): an injected error
     # here forces the pressure → journal → bundle path
     MEM_PRESSURE = "mem.pressure"
@@ -164,6 +166,10 @@ class SpanName:
     CKPT_RESTORE = "ckpt.restore"
     # one striped multi-source transfer session, client side
     FABRIC_FETCH = "fabric.fetch"
+    # the live-reshard rung (ckpt/reshard.py): plan, transfers, assembly
+    RESHARD_PLAN = "reshard.plan"
+    RESHARD_XFER = "reshard.xfer"
+    RESHARD_APPLY = "reshard.apply"
     # an applied training scale plan (master/auto_scaler.py)
     SCALE_APPLY = "scale.apply"
     SCALE_RDZV_PARAMS = "scale.update_rdzv_params"
@@ -329,8 +335,19 @@ class ConfigKey:
     FABRIC_STRIPE_BYTES = "DLROVER_TPU_FABRIC_STRIPE_BYTES"
     FABRIC_CONNS = "DLROVER_TPU_FABRIC_CONNS"
     FABRIC_ADMIT = "DLROVER_TPU_FABRIC_ADMIT"
-    # the address other hosts dial to reach this one (agent rendezvous)
+    # the address other hosts dial to reach this one (agent rendezvous,
+    # the replica and reshard services)
     HOST_IP = "DLROVER_TPU_HOST_IP"
+    # the live-reshard rung (default on) and its transfer timeout (s)
+    RESHARD = "DLROVER_TPU_RESHARD"
+    RESHARD_TIMEOUT_S = "DLROVER_TPU_RESHARD_TIMEOUT_S"
+    # warm spawn (agent/warm_spawn.py): how long the agent's first
+    # rendezvous waits for its spares' imports, and what they import
+    WARM_WAIT_S = "DLROVER_TPU_WARM_WAIT_S"
+    WARM_PREIMPORT = "DLROVER_TPU_WARM_PREIMPORT"
+    # set by a warm spare in its own environment at release: its spawn
+    # time, its pre-imports' seconds and its release time
+    WARM_SPARE = "DLROVER_TPU_WARM_SPARE"
     # the device timer and the profiler (observability/, tpu_timer/): the
     # agent sets TPU_TIMER_ENABLE, the hook library's path and LD_PRELOAD
     # in its workers' environment; a worker serves its metrics on

@@ -81,8 +81,9 @@ _PEER_ERRORS = (ConnectionError, OSError, RPCError)
 class FabricAbort(RuntimeError):
     """The session cannot complete. ``reason``: ``no_sources`` (nobody
     serves the object), ``sources_lost`` (every source died mid-transfer),
-    ``content_mismatch`` (the assembled bytes fail the content address)
-    or ``timeout``."""
+    ``fault_injected`` (as either, when every failure was an injected
+    fault), ``content_mismatch`` (the assembled bytes fail the content
+    address) or ``timeout``."""
 
     def __init__(self, reason: str, detail: str = ""):
         super().__init__(detail or reason)
@@ -91,9 +92,13 @@ class FabricAbort(RuntimeError):
 
 @dataclass(frozen=True)
 class FabricSource:
-    """One candidate peer of a session."""
+    """One candidate peer of a session. ``key``, when set, is what this
+    source serves the session's object under (a reshard alternate holds
+    the same bytes at another shard index; the content CRC proves it)."""
 
     addr: str
+    rank: int = -1
+    key: str = ""
 
 
 def plan_stripes(total_bytes: int,
@@ -203,7 +208,7 @@ class FabricServer:
             data = read_fn(off, n) if n > 0 else None
             if data is None or len(data) != n:
                 return comm.FabricStripeResponse(found=False, step=step)
-            data = bytes(data)
+            data = memoryview(data)
             return comm.FabricStripeResponse(found=True, step=step,
                                              data=data,
                                              crc=zlib.crc32(data))
@@ -237,6 +242,8 @@ class _FetchSession:
         # not re-taken at once by a sibling connection of the same source
         self._pending = list(range(len(stripes)))
         self._failed: set = set()
+        # every source failure so far was an injected fault
+        self._all_injected = True
         self._bytes_by_source: Dict[str, int] = {}
         self.stripe_fetches = 0
         self.stripe_retries = 0
@@ -261,15 +268,18 @@ class _FetchSession:
             self._cond.notify_all()
         self._abort_evt.wait(BUSY_BACKOFF_S * random.uniform(0.8, 1.2))
 
-    def _fail_source(self, src: FabricSource, idx: int, detail: str) -> None:
+    def _fail_source(self, src: FabricSource, idx: int, detail: str,
+                     injected: bool = False) -> None:
         with self._cond:
             self.stripe_retries += 1
+            self._all_injected = self._all_injected and injected
             newly_failed = src.addr not in self._failed
             self._failed.add(src.addr)
             self._pending.insert(0, idx)
             survivors = sum(s.addr not in self._failed for s in self.sources)
             if not survivors and self._missing:
-                self._abort = "sources_lost"
+                self._abort = ("fault_injected" if self._all_injected
+                               else "sources_lost")
                 self._detail = detail
                 self._abort_evt.set()
             self._cond.notify_all()
@@ -312,11 +322,13 @@ class _FetchSession:
                                   nbytes=n, step=self.step)
             resp = client.call(
                 "fabric_fetch",
-                comm.FabricFetchRequest(key=self.key, step=self.step,
-                                        offset=off, nbytes=n),
+                comm.FabricFetchRequest(key=src.key or self.key,
+                                        step=self.step, offset=off,
+                                        nbytes=n),
                 retries=_STRIPE_RETRIES)
         except (InjectedError, *_PEER_ERRORS) as e:
-            self._fail_source(src, idx, repr(e))
+            self._fail_source(src, idx, repr(e),
+                              injected=isinstance(e, InjectedError))
             return
         if resp.busy:
             self._requeue_busy(idx)
@@ -476,6 +488,7 @@ def _fetch(ranked, key, expect_step, stripe_bytes, conns_per_source,
     t0 = time.monotonic()
     clients: Dict[str, RPCClient] = {}
     candidates = []
+    failures = injected = 0
     inj = get_injector()
     for src in ranked:
         # the first describe of a large object computes its content CRC
@@ -486,16 +499,21 @@ def _fetch(ranked, key, expect_step, stripe_bytes, conns_per_source,
                 inj.fire(FABRIC_CONNECT_SITE, addr=src.addr, key=key)
             resp = client.call(
                 "fabric_describe",
-                comm.FabricDescribeRequest(key=key, step=expect_step),
+                comm.FabricDescribeRequest(key=src.key or key,
+                                           step=expect_step),
                 retries=1)
         except (InjectedError, *_PEER_ERRORS) as e:
+            failures += 1
+            injected += isinstance(e, InjectedError)
             logger.info("fabric: source %s unreachable (%r)", src.addr, e)
             continue
         if resp.found:
             clients[src.addr] = client
             candidates.append((src, resp))
     if not candidates:
-        _abort_session(reporter, key, "no_sources",
+        _abort_session(reporter, key,
+                       "fault_injected" if failures and injected == failures
+                       else "no_sources",
                        f"0 of {len(ranked)} sources serve {key!r}", t0)
     # the largest (step, total, crc) group at the newest step
     groups: Dict[Tuple[int, int, int], List[FabricSource]] = {}

@@ -123,9 +123,44 @@ def bin_header(n: int) -> bytes:
 
 def packb(obj: Any) -> bytes:
     """``msgpack.packb(obj, use_bin_type=True)`` for the supported types."""
+    return bytes(pack_buffer(obj))
+
+
+def pack_buffer(obj: Any) -> bytearray:
+    """:func:`packb`'s bytes in the buffer they were packed into (a large
+    bin is not copied a second time)."""
     out = bytearray()
     _pack(obj, out)
-    return bytes(out)
+    return out
+
+
+def pack_parts(obj: Any, min_bin: int = 1 << 20) -> list:
+    """:func:`packb`'s bytes as a list of buffers whose concatenation they
+    are: each bin of at least ``min_bin`` bytes is its own part, the
+    object's memory, not copied (a writer sends the parts in order)."""
+    parts = [bytearray()]
+
+    def walk(o):
+        if isinstance(o, (bytes, bytearray, memoryview)):
+            data = memoryview(o).cast("B")
+            if data.nbytes >= min_bin:
+                _pack_len(data.nbytes, 0, 0, b"\xc4\xc5\xc6", parts[-1])
+                parts.extend((data, bytearray()))
+                return
+        if isinstance(o, dict):
+            _pack_len(len(o), 0x80, 16, b"\x00\xde\xdf", parts[-1])
+            for key, value in o.items():
+                walk(key)
+                walk(value)
+        elif isinstance(o, (list, tuple)):
+            _pack_len(len(o), 0x90, 16, b"\x00\xdc\xdd", parts[-1])
+            for item in o:
+                walk(item)
+        else:
+            _pack(o, parts[-1])
+
+    walk(obj)
+    return [part for part in parts if len(part)]
 
 
 _SIZED = {  # type byte → (struct of its length, kind)

@@ -76,8 +76,11 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
     buf = bytearray(n)
     view = memoryview(buf)
     got = 0
+    # a blocking socket waits in one call for the whole message, out of
+    # the GIL (a large frame in small reads contends with busy threads)
+    flags = socket.MSG_WAITALL if sock.gettimeout() is None else 0
     while got < n:
-        nread = sock.recv_into(view[got:], n - got)
+        nread = sock.recv_into(view[got:], n - got, flags)
         if not nread:
             raise ConnectionError("socket closed")
         got += nread

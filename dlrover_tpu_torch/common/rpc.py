@@ -30,11 +30,51 @@ import uuid
 from typing import Any, Callable, Dict, Optional
 
 from dlrover_tpu_torch.chaos import get_injector
-from dlrover_tpu_torch.common import comm
-from dlrover_tpu_torch.common.constants import ChaosSite
+from dlrover_tpu_torch.common import comm, msgpack
+from dlrover_tpu_torch.common.constants import ChaosSite, ConfigKey, env_str
 from dlrover_tpu_torch.common.log import logger
-from dlrover_tpu_torch.common.multi_process import recv_msg, send_msg
+from dlrover_tpu_torch.common.multi_process import (
+    _LEN,
+    _recv_exact,
+    send_msg,
+)
 from dlrover_tpu_torch.observability import tracing
+
+def _payload(obj: Any):
+    """A message's serialized bytes: one buffer, or a list of buffers when
+    it holds a large bin (kept as the object's memory, not copied)."""
+    parts = comm.serialize_parts(obj)
+    return parts[0] if len(parts) == 1 else parts
+
+
+def _payload_len(p) -> int:
+    return sum(len(x) for x in p) if isinstance(p, list) else len(p or b"")
+
+
+def send_frame(sock: socket.socket, frame: Dict[str, Any]) -> None:
+    """``send_msg`` of a frame whose payload ``p`` is one buffer or a list
+    of them (:func:`_payload`): the same bytes on the wire, a payload in
+    parts written part by part, uncopied."""
+    p = frame.get("p")
+    if not isinstance(p, list):
+        send_msg(sock, frame)
+        return
+    head = bytearray(msgpack.map_header(len(frame)))
+    for key, value in frame.items():
+        if key != "p":
+            head += msgpack.packb(key) + msgpack.packb(value)
+    total = _payload_len(p)
+    head += msgpack.packb("p") + msgpack.bin_header(total)
+    sock.sendall(_LEN.pack(len(head) + total) + head)
+    for part in p:
+        sock.sendall(part)
+
+
+def recv_frame(sock: socket.socket) -> Dict[str, Any]:
+    """One frame; its bins (the payload) are views of the received buffer,
+    which ``comm.deserialize`` copies once."""
+    (size,) = _LEN.unpack(_recv_exact(sock, _LEN.size))
+    return msgpack.unpackb(_recv_exact(sock, size), copy_bin=False)
 
 
 class RPCError(RuntimeError):
@@ -86,7 +126,7 @@ class _Handler(socketserver.BaseRequestHandler):
         server = self.server
         while True:
             try:
-                frame = recv_msg(self.request)
+                frame = recv_frame(self.request)
             except (ConnectionError, OSError, ValueError):
                 return
             key = (frame.get("c"), frame.get("id"))
@@ -107,14 +147,14 @@ class _Handler(socketserver.BaseRequestHandler):
                             logger.exception("rpc on_contact hook failed")
             else:
                 resp = self._dispatch(frame)
-                if key[0] is not None and len(
-                        resp.get("p", b"") or b"") <= _DEDUP_MAX_BYTES:
+                if key[0] is not None and _payload_len(
+                        resp.get("p")) <= _DEDUP_MAX_BYTES:
                     with server.dedup_lock:
                         server.dedup[key] = (resp, dict(connection_ctx()))
                         while len(server.dedup) > _DEDUP_ENTRIES:
                             server.dedup.pop(next(iter(server.dedup)))
             try:
-                send_msg(self.request, resp)
+                send_frame(self.request, resp)
             except (ConnectionError, OSError):
                 return
 
@@ -124,12 +164,14 @@ class _Handler(socketserver.BaseRequestHandler):
         if handler is None:
             return {"ok": False, "err": f"unknown rpc method {method!r}"}
         try:
-            request = comm.deserialize(frame.get("p", b""))
+            request = comm.deserialize(
+                frame.get("p", b""),
+                copy_bin=method not in self.server.views)
             # the caller's trace context, if it sent one, for the handler
             with tracing.activate(
                     tracing.extract_wire(frame.get(tracing.WIRE_KEY))):
                 result = handler(request)
-            return {"ok": True, "p": comm.serialize(result)}
+            return {"ok": True, "p": _payload(result)}
         except Exception as e:  # noqa: BLE001 — reported to the caller
             logger.exception("rpc handler %s failed", method)
             return {"ok": False, "err": repr(e)}
@@ -147,6 +189,9 @@ class RPCServer:
     def __init__(self, host: str = "0.0.0.0", port: int = 0):
         self._server = _ThreadedTCPServer((host, port), _Handler)
         self._server.registry = {}
+        # methods whose request bins reach the handler as views of the
+        # received frame (no copy)
+        self._server.views = set()
         self._server.dedup = {}
         self._server.dedup_lock = threading.Lock()
         self._server.on_disconnect = None
@@ -171,8 +216,13 @@ class RPCServer:
     def port(self) -> int:
         return self._server.server_address[1]
 
-    def register(self, method: str, handler: Callable[[Any], Any]) -> None:
+    def register(self, method: str, handler: Callable[[Any], Any],
+                 views: bool = False) -> None:
+        """Route ``method`` to ``handler``; ``views``: its request's bins
+        are views of the received frame, which the handler may keep."""
         self._server.registry[method] = handler
+        if views:
+            self._server.views.add(method)
 
     def register_object(self, obj: Any) -> None:
         """Register every public ``rpc_*`` method of ``obj``."""
@@ -247,7 +297,7 @@ class RPCClient:
         with self._seq_lock:
             self._seq += 1
             seq = self._seq
-        frame = {"m": method, "p": comm.serialize(request), "id": seq,
+        frame = {"m": method, "p": _payload(request), "id": seq,
                  "c": self._client_id}
         trace_ctx = tracing.inject_wire()
         if trace_ctx is not None:
@@ -259,8 +309,8 @@ class RPCClient:
                 if inj is not None:
                     inj.fire(ChaosSite.RPC_SEND, method=method)
                 conn = self._conn()
-                send_msg(conn, frame)
-                resp = recv_msg(conn)
+                send_frame(conn, frame)
+                resp = recv_frame(conn)
                 if inj is not None:
                     inj.fire(ChaosSite.RPC_RECV, method=method)
                 break
@@ -285,3 +335,10 @@ def find_free_port(host: str = "") -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind((host, 0))
         return s.getsockname()[1]
+
+
+def local_host_ip() -> str:
+    """The address other hosts dial to reach a service bound here:
+    ``DLROVER_TPU_HOST_IP``, else the loopback (the agent's rendezvous
+    default; a pod spec sets the variable)."""
+    return env_str(ConfigKey.HOST_IP, "127.0.0.1")

@@ -48,6 +48,12 @@ captures a ``memory_pressure`` bundle on a breach, and every bundle holds
 reports land in the job metric context the metric-stall rule reads, and
 a :class:`JobMetricCollector` snapshots the job every 15 s.
 
+The training rendezvous carries a :class:`ReshardCoordinator`
+(``ckpt/reshard.py``): a world cut whose node set changed publishes the
+cut record in the KV store that the new world's workers key their live
+reshard on (the decomposition kept: no planner), journaled
+``reshard_planned``.
+
 Not ported: the brain (and ``/brain``, and with it the pre-scale guard
 that reads the fleet headroom, ROADMAP A14), straggler-driven shard
 stealing (A13), fan-in, state snapshots, the network-check rendezvous,
@@ -150,6 +156,14 @@ class JobMaster:
                                         registry=self.metrics_registry)
         self.rdzv_managers[RendezvousName.TRAINING].straggler_history = (
             self.skew_monitor.node_straggler_counts)
+        # the live-reshard plane: a training cut whose node set changed
+        # publishes the cut record (no planner: the decomposition stays)
+        from dlrover_tpu_torch.ckpt.reshard import ReshardCoordinator
+
+        self.rdzv_managers[RendezvousName.TRAINING].reshard_coordinator = (
+            ReshardCoordinator(
+                job_name, self.kv_store, journal=self.event_journal,
+                progress=self.perf_monitor.steps_since_round))
         # the fleet's memory ledgers (min-headroom rank, GET /memory), and
         # the master's own accountant journaling into this journal with a
         # breach hook that writes an OOM-forensics bundle

@@ -11,7 +11,7 @@ and the metrics gauges.
 
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 class GlobalStepRecord:
@@ -31,6 +31,10 @@ class PerfMonitor:
         self._lock = threading.Lock()
         self._records: List[GlobalStepRecord] = []
         self._min_round = -1
+        # step reports taken, by the rendezvous round the agent sent
+        # them in, never reset: the reshard coordinator reads whether the
+        # world of a cut trained (a worker's own reports carry no round)
+        self._by_round: Dict[int, int] = {}
 
     def reset_running_speed_monitor(self, min_round: Optional[int] = None
                                     ) -> None:
@@ -47,6 +51,11 @@ class PerfMonitor:
         with self._lock:
             if 0 <= rdzv_round < self._min_round:
                 return
+            # counted before the order check: the worker's own report of
+            # a step often lands before its agent's
+            if rdzv_round >= 0:
+                self._by_round[rdzv_round] = (
+                    self._by_round.get(rdzv_round, 0) + 1)
             if self._records and step <= self._records[-1].step:
                 return
             self._records.append(GlobalStepRecord(step, timestamp, arrival))
@@ -63,6 +72,13 @@ class PerfMonitor:
             dt = recent[-1].timestamp - recent[0].timestamp
             ds = recent[-1].step - recent[0].step
             return ds / dt if dt > 0 else 0.0
+
+    def steps_since_round(self, rdzv_round: int) -> int:
+        """The step reports taken from agents in ``rdzv_round`` or a
+        later round."""
+        with self._lock:
+            return sum(n for r, n in self._by_round.items()
+                       if r >= rdzv_round)
 
     @property
     def completed_global_step(self) -> int:

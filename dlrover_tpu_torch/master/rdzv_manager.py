@@ -19,9 +19,11 @@ The port's copy of ``RendezvousManager`` and
 
 A join fires the ``rdzv.join`` chaos site and is an ``rdzv.join`` span,
 and a cut an ``rdzv.world_cut`` span; the servicer activated the caller's
-trace context, so both land inside the agent's rendezvous round. Not
-ported: the network-check rendezvous, the reshard announcement, the
-journal and the metrics.
+trace context, so both land inside the agent's rendezvous round. A cut
+whose node set changed calls the master's ``reshard_coordinator``
+(``ckpt/reshard.py``), which publishes the cut record the new world's
+workers key their live reshard on; its failure never fails the cut. Not
+ported: the network-check rendezvous, the journal and the metrics.
 """
 
 import time
@@ -88,6 +90,10 @@ class RendezvousManager:
         # node_id -> straggler episodes (SkewMonitor.node_straggler_counts):
         # when a cut must drop nodes, repeat stragglers go first
         self.straggler_history: Optional[Callable[[], Dict[int, int]]] = None
+        # the master attaches a ckpt.reshard.ReshardCoordinator to the
+        # training rendezvous: a cut whose node set changed publishes the
+        # cut record
+        self.reshard_coordinator = None
 
     @property
     def name(self) -> str:
@@ -167,6 +173,7 @@ class RendezvousManager:
                           rdzv_name=self._name,
                           round=self._rdzv_round + 1):
             ranks = self._select_world_ranks(world_size)
+            old_world = list(self._latest_rdzv_nodes)
             self._rdzv_nodes = {r: self._waiting_nodes[r] for r in ranks}
             stamp_comm_ranks(self._rdzv_nodes)
             self._latest_rdzv_nodes = ranks
@@ -175,6 +182,14 @@ class RendezvousManager:
         self._rdzv_round += 1
         self._lastcall_time = 0.0
         self._start_rdzv_ts = 0.0
+        if self.reshard_coordinator is not None:
+            try:
+                self.reshard_coordinator.on_world_cut(old_world, list(ranks),
+                                                      self._rdzv_round)
+            except Exception:  # noqa: BLE001 — the cut completes regardless
+                logger.warning("%s rdzv: reshard coordinator failed on world "
+                               "cut r%s", self._name, self._rdzv_round,
+                               exc_info=True)
         logger.info("%s rdzv round %s completed: world=%s (waiting "
                     "leftover=%s)", self._name, self._rdzv_round, ranks,
                     sorted(self._waiting_nodes))

@@ -97,6 +97,11 @@ class JournalEvent:
     # ported, read by the incident stitcher and the timeline's tracks
     # when a JAX peer's journal carries them
     CKPT_COMMITTED = "ckpt_committed"
+    # informational: a frame failed its CRCs, a replica's copy repaired
+    # it, and a restarted agent unlinked its predecessor's segments
+    CKPT_CORRUPT = "ckpt_corrupt"
+    CKPT_REPAIRED = "ckpt_repaired"
+    SHM_ORPHANS_CLEANED = "shm_orphans_cleaned"
     CKPT_CHAIN_TRUNCATED = "ckpt_chain_truncated"
     RESHARD_PLANNED = "reshard_planned"
     RESHARD_REPLAN_DEGRADED = "reshard_replan_degraded"
@@ -119,6 +124,7 @@ class JournalEvent:
         TRACE_BUNDLE_CAPTURED, SERVE_PREFIX_HIT, SERVE_PREFIX_DROPPED,
         REQUEST_TAIL_ATTRIBUTED, FABRIC_SOURCE_FAILED, FABRIC_STRIPE_RETRIED,
         FABRIC_SESSION_COMPLETE, FABRIC_SESSION_ABORTED, CKPT_COMMITTED,
+        CKPT_CORRUPT, CKPT_REPAIRED, SHM_ORPHANS_CLEANED,
         CKPT_CHAIN_TRUNCATED, RESHARD_PLANNED, RESHARD_REPLAN_DEGRADED,
         STRAGGLER_DETECTED, HANG_ATTRIBUTED, STACK_DUMP_CAPTURED,
         BRAIN_PREDICTED_FAILURE,

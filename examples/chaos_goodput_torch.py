@@ -358,6 +358,10 @@ def main(argv=None) -> int:
             "DLROVER_TPU_DIST_HEARTBEAT_S": "5",
             # ranks sharing one card form their world over gloo
             "DLROVER_TPU_DIST_BACKEND": "gloo",
+            # the returning agent joins at once, its warm spares still
+            # importing: the drill's rejoin lands while the survivor has
+            # steps left (the default gate waits up to 10 s for them)
+            "DLROVER_TPU_WARM_WAIT_S": "0",
             "TPU_TIMER_DAEMON_PORT": str(timer_ports[rank][0]),
             "TPU_TIMER_PORT": str(timer_ports[rank][1]),
         })
